@@ -27,7 +27,8 @@ CFG = TransformerConfig(vocab_size=32, num_layers=1, num_heads=2,
 
 def _port_files():
     files = sorted((ROOT / "tpudist_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py",
+                    ROOT / "examples" / "long_context_lm_gpu.py"]
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -57,7 +58,8 @@ def test_imports_and_runs_with_jax_blocked():
         "    sys.modules[m] = None",
         "import torch, tpudist_torch",
         "import tpudist_torch.models.serving, tpudist_torch.ops.flash_decode",
-        "import tpudist_torch.ops.flash_attention",
+        "import tpudist_torch.ops.flash_attention, tpudist_torch.ops.losses",
+        "import tpudist_torch.train, tpudist_torch.parallel",
         "from tpudist_torch import TransformerConfig, TransformerLM",
         "from tpudist_torch import greedy_generate",
         "cfg = TransformerConfig(vocab_size=32, num_layers=1, num_heads=2,",

@@ -46,6 +46,33 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
 }
 
+// One m16n8k16 bf16 tensor-core product with f32 accumulation, c += a·b.
+// Fragment layouts (g = lane / 4, t4 = lane % 4): A row-major 16x16, a[0]
+// row g cols 2t4..+1, a[1] row g+8, a[2] row g cols 2t4+8..+9, a[3] row g+8
+// cols 2t4+8..+9; B col-major 16x8, b[0] rows 2t4..+1 col g, b[1] rows
+// 2t4+8..+9; C 16x8, c[0..1] row g cols 2t4..+1, c[2..3] row g+8.
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo,
+                                                  __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // Copy `rows` rows of `cols` elements (cols * sizeof(T) a multiple of 16
 // bytes) from global memory, row r at src + (row0 + r) * stride, into
 // shared memory rows of `ld_words` 32-bit words; rows at or past `limit`

@@ -38,7 +38,9 @@
 namespace {
 
 using tpudist::load_rows;
-using tpudist::round_to;
+using tpudist::mma_bf16_16816;
+using tpudist::pack_bf16;
+using tpudist::pack_bf16_raw;
 using tpudist::to_f32;
 
 constexpr int kBQ = 64;       // query rows per block (4 warps x 16)
@@ -62,28 +64,6 @@ struct FwdArgs {
   int causal, window;    // window <= 0: none (applies only when causal)
   float scale;
 };
-
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo,
-                                                  __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <typename T, int D>
 struct Layout {

@@ -1,13 +1,20 @@
-"""Decoder-only transformer LM, inference forward (counterpart of
-:mod:`tpudist.models.transformer`).
+"""Decoder-only transformer LM, training and inference forward
+(counterpart of :mod:`tpudist.models.transformer`).
 
 The same model as the JAX package's ``TransformerLM`` with the same
 numerics: pre-LayerNorm blocks (epsilon 1e-6, f32 statistics, f32 scale
-and bias), bias-free projections run in ``compute_dtype`` (the JAX
-``Dense(dtype=compute_dtype)`` casts its f32 kernel to that dtype; here the
-weights are stored in it), tanh-approximate GELU, f32 logits.  Weights
-come from a flax checkpoint through
+and bias), bias-free projections run in ``compute_dtype``, tanh-approximate
+GELU, f32 logits.  Weights come from a flax checkpoint through
 :func:`tpudist_torch.models.convert.from_flax_params`.
+
+Projection and embedding weights are stored in ``param_dtype``.  The JAX
+model keeps f32 params and casts them to ``compute_dtype`` at each use
+(``Dense(dtype=compute_dtype)``); training builds the port's model with
+``param_dtype=torch.float32`` to do the same, so the optimizer updates f32
+master weights.  Left as ``None``, ``param_dtype`` is ``compute_dtype``:
+the serve path stores its weights in the compute dtype and casts nothing.
+With ``remat=True`` each block's activations are recomputed in the
+backward (``torch.utils.checkpoint``, the twin of ``nn.remat``).
 
 The flax ``cache`` collection becomes an explicit cache: a list with one
 dict per layer holding the packed ``[B, S, Hkv·D]`` ``cached_key`` /
@@ -27,9 +34,12 @@ cached branch without a kernel is the per-row decode of a sliding-window
 model without side buffers (the JAX package has none either); it runs
 the plain masked softmax and is off the serve path's main configuration.
 
+``cfg.scan_layers`` is accepted and changes nothing: PyTorch runs
+eagerly, so there is no trace to shrink; the model runs its unrolled
+``ModuleList``, and ``from_flax_params`` unstacks a scanned checkpoint.
+
 Not ported yet: the paged layout (``_paged_attend``), sharded decode
-(``decode_shard``), ``scan_layers``, the per-row speculative verify chunk
-and training (remat, autograd through the kernels).  Each raises
+(``decode_shard``) and the per-row speculative verify chunk.  Each raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -41,6 +51,7 @@ from typing import Any, Callable, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from tpudist_torch.ops.flash_attention import _flash_forward
@@ -116,8 +127,8 @@ class TransformerConfig:
     num_kv_heads: int | None = None
     # sliding-window attention width (None = full causal attention)
     attention_window: int | None = None
-    # the JAX package's scanned layer stack; the port serves the unrolled
-    # layout (serving_layout flips this and unstacks scanned checkpoints)
+    # the JAX package's scanned layer stack; the port always runs the
+    # unrolled layout (from_flax_params unstacks scanned checkpoints)
     scan_layers: bool = False
 
     @property
@@ -189,16 +200,50 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
-def _dense(n_in: int, n_out: int, cfg: TransformerConfig, device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, dtype=cfg.compute_dtype,
-                     device=device)
+class Dense(nn.Linear):
+    """flax ``Dense(use_bias=False, dtype=compute_dtype)``: the weight is
+    stored in ``param_dtype`` and cast to ``compute_dtype`` at use (no
+    cast when the two agree)."""
+
+    def __init__(self, n_in: int, n_out: int, cfg: TransformerConfig,
+                 param_dtype: torch.dtype | None, device) -> None:
+        super().__init__(n_in, n_out, bias=False,
+                         dtype=param_dtype or cfg.compute_dtype, device=device)
+        self.compute_dtype = cfg.compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(self.compute_dtype))
+
+
+class Embed(nn.Embedding):
+    """flax ``Embed(dtype=compute_dtype)``: the table in ``param_dtype``,
+    looked-up rows in ``compute_dtype``."""
+
+    def __init__(self, n: int, dim: int, cfg: TransformerConfig,
+                 param_dtype: torch.dtype | None, device) -> None:
+        super().__init__(n, dim, dtype=param_dtype or cfg.compute_dtype,
+                         device=device)
+        self.compute_dtype = cfg.compute_dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)
 
 
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, attention_fn: AttentionFn = sdpa,
                  *, serve_side_slots: int = 0, cache_layout: str = "dense",
-                 decode_shard: Any = None, device=None) -> None:
+                 decode_shard: Any = None, param_dtype=None,
+                 device=None) -> None:
         super().__init__()
+        # cfg is the single source of truth for the sliding window: a
+        # factory built with its own window that disagrees is rejected
+        fw = getattr(attention_fn, "factory_window", None)
+        if fw is not None and fw != cfg.attention_window:
+            raise ValueError(
+                f"attention_fn was built with window={fw} but "
+                f"cfg.attention_window={cfg.attention_window}; set the "
+                "window on TransformerConfig (the single source of "
+                "truth) or make the two agree")
         if cache_layout == "paged":
             raise NotImplementedError(_PAGED_TODO)
         if cache_layout != "dense":
@@ -210,12 +255,13 @@ class CausalSelfAttention(nn.Module):
         self.attention_fn = attention_fn
         self.serve_side_slots = serve_side_slots
         e, kv_flat = cfg.embed_dim, cfg.kv_heads * cfg.head_dim
+        pd = param_dtype
         if cfg.kv_heads == cfg.num_heads:
-            self.qkv = _dense(e, 3 * e, cfg, device)
+            self.qkv = Dense(e, 3 * e, cfg, pd, device)
         else:  # GQA: separate projections, K/V at the grouped head count
-            self.q = _dense(e, e, cfg, device)
-            self.kv = _dense(e, 2 * kv_flat, cfg, device)
-        self.proj = _dense(e, e, cfg, device)
+            self.q = Dense(e, e, cfg, pd, device)
+            self.kv = Dense(e, 2 * kv_flat, cfg, pd, device)
+        self.proj = Dense(e, e, cfg, pd, device)
 
     def forward(self, x: torch.Tensor, causal: bool = True,
                 cache: dict | None = None) -> torch.Tensor:
@@ -328,12 +374,12 @@ class CausalSelfAttention(nn.Module):
 
 
 class MLPBlock(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device=None) -> None:
+    def __init__(self, cfg: TransformerConfig, param_dtype=None,
+                 device=None) -> None:
         super().__init__()
-        self.up = _dense(cfg.embed_dim, cfg.mlp_ratio * cfg.embed_dim, cfg,
-                         device)
-        self.down = _dense(cfg.mlp_ratio * cfg.embed_dim, cfg.embed_dim, cfg,
-                           device)
+        hidden = cfg.mlp_ratio * cfg.embed_dim
+        self.up = Dense(cfg.embed_dim, hidden, cfg, param_dtype, device)
+        self.down = Dense(hidden, cfg.embed_dim, cfg, param_dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # flax nn.gelu defaults to the tanh approximation
@@ -342,13 +388,13 @@ class MLPBlock(nn.Module):
 
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, attention_fn: AttentionFn,
-                 device=None, **attn_kw) -> None:
+                 device=None, param_dtype=None, **attn_kw) -> None:
         super().__init__()
         self.ln1 = LayerNorm(cfg.embed_dim, cfg.compute_dtype, device)
         self.attn = CausalSelfAttention(cfg, attention_fn, device=device,
-                                        **attn_kw)
+                                        param_dtype=param_dtype, **attn_kw)
         self.ln2 = LayerNorm(cfg.embed_dim, cfg.compute_dtype, device)
-        self.mlp = MLPBlock(cfg, device)
+        self.mlp = MLPBlock(cfg, param_dtype, device)
 
     def forward(self, x: torch.Tensor, causal: bool = True,
                 cache: dict | None = None) -> torch.Tensor:
@@ -364,32 +410,30 @@ class TransformerLM(nn.Module):
     Runs on ``cuda`` unless ``device`` says otherwise; parameters are
     created on that device (load weights with ``load_state_dict`` of
     :func:`~tpudist_torch.models.convert.from_flax_params`' output, or draw
-    random ones with :meth:`init_weights`)."""
+    random ones with :meth:`init_weights`).  ``param_dtype`` (default:
+    ``compute_dtype``) is the storage type of the projection and
+    embedding weights; ``remat`` recomputes each block in the backward."""
 
     def __init__(self, cfg: TransformerConfig, *,
-                 attention_fn: AttentionFn = sdpa,
+                 attention_fn: AttentionFn = sdpa, remat: bool = False,
+                 param_dtype: torch.dtype | None = None,
                  serve_side_slots: int = 0, cache_layout: str = "dense",
                  decode_shard: Any = None, device=None) -> None:
         super().__init__()
-        if cfg.scan_layers:
-            raise NotImplementedError(
-                "scan_layers is not ported (ROADMAP Queue A: the training "
-                "step); serve a scanned checkpoint through serving_layout, "
-                "which unstacks it")
         device = resolve_device(device)
         self.cfg = cfg
-        dt = cfg.compute_dtype
-        self.tok_embed = nn.Embedding(cfg.vocab_size, cfg.embed_dim,
-                                      dtype=dt, device=device)
-        self.pos_embed = nn.Embedding(cfg.max_seq_len, cfg.embed_dim,
-                                      dtype=dt, device=device)
+        self.remat = remat
+        dt, pd = cfg.compute_dtype, param_dtype
+        self.tok_embed = Embed(cfg.vocab_size, cfg.embed_dim, cfg, pd, device)
+        self.pos_embed = Embed(cfg.max_seq_len, cfg.embed_dim, cfg, pd,
+                               device)
         self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, attention_fn, device,
+            DecoderBlock(cfg, attention_fn, device, param_dtype=pd,
                          serve_side_slots=serve_side_slots,
                          cache_layout=cache_layout, decode_shard=decode_shard)
             for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.embed_dim, dt, device)
-        self.lm_head = _dense(cfg.embed_dim, cfg.vocab_size, cfg, device)
+        self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size, cfg, pd, device)
 
     @property
     def device(self) -> torch.device:
@@ -425,6 +469,12 @@ class TransformerLM(nn.Module):
                                      device=tokens.device)[None, :]
         x = self.tok_embed(tokens) + self.pos_embed(positions)
         for i, blk in enumerate(self.blocks):
-            x = blk(x, causal, None if cache is None else cache[i])
+            if cache is not None:
+                x = blk(x, causal, cache[i])
+            elif self.remat:
+                x = torch.utils.checkpoint.checkpoint(blk, x, causal,
+                                                      use_reentrant=False)
+            else:
+                x = blk(x, causal)
         logits = self.lm_head(self.ln_f(x)).float()
         return logits if cache is None else (logits, cache)
