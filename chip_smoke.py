@@ -12,26 +12,42 @@ Phases, each printing one JSON line and each fatal on failure:
    times the plain value, the LSE within 1e-3), with its time, the plain
    version's, one PyTorch library call's (a yardstick only; the port never calls it)
    and the least time the card could take (bytes or operations bound);
-4. parity  — a full-width 2-layer f32 model: ServeLoop completions (per-row
+4. kernels_paged — K5 (paged decode, at block 128 and 16, over a pool
+   whose page table is a random permutation; bit-identical to K2 over the
+   gathered view) and K6 (int8 decode, per-row and scalar length) against
+   their plain versions at the same decode shapes, timed the same way;
+5. parity  — a full-width 2-layer f32 model: ServeLoop completions (per-row
    and side-buffer decode) equal each request's own greedy_generate rollout
    (scalar decode), both through flash-prefill; cached-prefill logits on
    the card agree with the CPU plain path;
-5. serve   — the full-width 8-layer bf16 serve model (random weights from
+6. paged_parity — the same model and requests: the paged ServeLoop (block
+   16, K5) token-identical to the dense one (K2), its pool drained;
+7. serve   — the full-width 8-layer bf16 serve model (random weights from
    --seed): 8 mixed-length requests through a 4-slot ServeLoop, with
    kernel launch counts reset just before and read just after;
-6. profile — one 32-tick decode segment of the serve model on the host
+8. profile — one 32-tick decode segment of the serve model on the host
    clock and under torch.profiler (device busy share, the kernels that
-   take the device's time);
-7. kernels_bwd — the backward kernels K3 (dQ and Delta) and K4 (dK, dV)
+   take the device's time), on the dense cache and (profile_paged) on a
+   full-capacity pool of 128-token blocks;
+9. serve_paged — bench.py's kv_paging cell: the serve model, dense and
+   paged (block 128, a 72-block pool), 6 requests of 512-2048 prompt
+   tokens and 256 new each: token identity, KV bytes, tokens/s, peak
+   memory, the pool drained, launches (K5, not K2, in the paged run);
+10. serve_prefix — bench.py's serve_prefix_batching cell: 13 requests
+   sharing a 1024-token prefix (one a full-prompt hit) with prefix
+   sharing off and on: token identity, hit rate, copy-on-write splits;
+11. decode_q8 — flash_decode_q8 (K6) through 8 layers x 32 decode steps
+   of int8 caches at 8k, launches counted;
+12. kernels_bwd — the backward kernels K3 (dQ and Delta) and K4 (dK, dV)
    against their plain versions in bf16 at the training shape (causal,
    and with a 512 window) and at bench.py's flash shape, each gradient
    element within 1e-2 * max|plain| + 2e-2 * |plain|, Delta within 1e-3,
    with times beside the bound and SDPA's backward; K1 at the training
    shape beside its bound;
-8. train_parity — a full-width 2-layer f32 model trained 3 Adam steps
+13. train_parity — a full-width 2-layer f32 model trained 3 Adam steps
    through flash attention (K1, K3, K4) and through the plain sdpa from
    the same weights and batches: losses and every gradient agree;
-9. train — the full-width 8-layer serve model trained in bf16 with f32
+14. train — the full-width 8-layer serve model trained in bf16 with f32
    master weights (seq 2048, batch 8, the markov stream from --seed):
    20 steps through make_dp_train_step with launch counts reset just
    before and read just after (K1 = K3 = K4 = steps x layers), the loss
@@ -260,12 +276,124 @@ def phase_kernels(torch, dev, seed):
     return k1, k2
 
 
+def phase_paged_kernels(torch, dev, seed):
+    """K5 and K6 against their plain versions (bf16) at the decode shapes
+    of the serve model (H=8, Hkv=2, D=64): 4 rows at lengths
+    7680/5120/2560/300 with 17 of 32 side tokens.  K5 reads a pool whose
+    page table is a seeded random permutation, at block 128 and block 16,
+    and must equal K2 over the gathered view bit for bit; K6 reads an 8k
+    int8 cache from ``quantize_kv``, at per-row and scalar length.
+    Returns ``{"K5": rows, "K6": rows}``."""
+    import torch.nn.functional as F
+
+    from tpudist_torch.ops import flash_decode as fd
+
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    bf = torch.bfloat16
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    H, HKV, D, S, B, CAP, SIDE = 8, 2, 64, 8192, 4, 32, 17
+    F_ = HKV * D
+    lens = torch.tensor([7680, 5120, 2560, 300], dtype=torch.int32,
+                        device=dev)
+    side_len = torch.tensor(SIDE, dtype=torch.int32, device=dev)
+    q = rnd(B, 1, H, D)
+    sk, sv = rnd(B, CAP, F_), rnd(B, CAP, F_)
+    n_live = int(lens.sum()) + B * SIDE
+    k5 = []
+    for bs in (128, 16):
+        m = S // bs
+        kp, vp = rnd(B * m, bs, F_), rnd(B * m, bs, F_)
+        table = torch.randperm(B * m, generator=g, device=dev).to(
+            torch.int32).view(B, m)
+        kw = dict(packed_kv_heads=HKV, side_k=sk, side_v=sv,
+                  side_len=side_len)
+        o = fd.paged_flash_decode(q, kp, vp, table, lens, **kw)
+        po = fd.paged_flash_decode_plain(q, kp, vp, table, lens, **kw)
+        kg, vg = fd.paged_gather_kv(kp, table), fd.paged_gather_kv(vp, table)
+        o_k2 = fd.flash_decode(q, kg, vg, lens, **kw)
+        torch.cuda.synchronize()
+        diff = (o.float() - po.float()).abs()
+        ratio = (diff / (O_ATOL + O_RTOL * po.float().abs())).max().item()
+        identical = bool(torch.equal(o, o_k2))
+        check(ratio <= 1.0, f"K5 disagrees with its plain version (block "
+              f"{bs}): O {diff.max().item()} (ratio to limit {ratio})")
+        check(identical, f"K5 (block {bs}) differs from K2 over the gathered "
+              f"view by {(o.float() - o_k2.float()).abs().max().item()}")
+        # the bound: live K/V, the live table entries, q and O
+        live_blocks = int(((lens.long() + bs - 1) // bs).sum())
+        nbytes = 2 * n_live * F_ * 2 + live_blocks * 4 + 2 * q.numel() * 2
+        b_ms, b_by = bound(nbytes, 4.0 * n_live * H * D)
+        # the library yardstick: SDPA over the gathered view plus the side
+        # buffer with a boolean mask; the gather is made outside the timing
+        keys = torch.cat([kg, sk], 1).view(B, S + CAP, HKV, D)
+        vals = torch.cat([vg, sv], 1).view(B, S + CAP, HKV, D)
+        pos = torch.arange(S + CAP, device=dev)
+        mask = torch.where(pos < S, pos < lens[:, None],
+                           pos - S < SIDE)[:, None, None, :]
+        qt, kt, vt = q.transpose(1, 2), keys.transpose(1, 2), \
+            vals.transpose(1, 2)
+        k5.append({
+            "case": f"block{bs}", "max_abs_err": diff.max().item(),
+            "tol_ratio": ratio, "bit_identical_to_k2": identical,
+            "ms": timed_ms(lambda: fd.paged_flash_decode(
+                q, kp, vp, table, lens, **kw), 50, flush),
+            "plain_ms": timed_ms(lambda: fd.paged_flash_decode_plain(
+                q, kp, vp, table, lens, **kw), 10, flush),
+            "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True), 50, flush),
+            "library": "SDPA over the gathered view with a mask (gather "
+                       "not timed)",
+            "bound_ms": b_ms, "bound_by": b_by})
+        del kp, vp, kg, vg, keys, vals
+    k6 = []
+    kq, ks, vq, vs = fd.quantize_kv(rnd(B, S, HKV, D), rnd(B, S, HKV, D))
+    scalar_len = torch.tensor(7000, dtype=torch.int32, device=dev)
+    for name, cache_len, n in (("per_row", lens, int(lens.sum())),
+                               ("scalar", scalar_len, B * 7000)):
+        o, lse = fd.flash_decode_q8(q, kq, ks, vq, vs, cache_len,
+                                    return_lse=True)
+        po, plse = fd.flash_decode_q8_plain(q, kq, ks, vq, vs, cache_len,
+                                            return_lse=True)
+        err_o, err_l, ratio = compare(o, lse, po, plse)
+        check(ratio <= 1.0 and err_l <= LSE_ATOL,
+              f"K6 disagrees with its plain version ({name}): O {err_o} "
+              f"(ratio to limit {ratio}) LSE {err_l}")
+        # int8 K and V, one f32 scale each per (token, head), q and O
+        nbytes = 2 * n * F_ + 2 * n * HKV * 4 + 2 * q.numel() * 2
+        b_ms, b_by = bound(nbytes, 4.0 * n * H * D)
+        k6.append({
+            "case": name, "max_abs_err": err_o, "lse_err": err_l,
+            "tol_ratio": ratio,
+            "ms": timed_ms(lambda: fd.flash_decode_q8(
+                q, kq, ks, vq, vs, cache_len), 50, flush),
+            "plain_ms": timed_ms(lambda: fd.flash_decode_q8_plain(
+                q, kq, ks, vq, vs, cache_len), 10, flush),
+            "library_ms": None,
+            "library": "none: PyTorch has no single call for attention "
+                       "over an int8 cache with per-token scales",
+            "bound_ms": b_ms, "bound_by": b_by})
+    del flush_buf, kq, vq
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_paged", "K5": k5, "K6": k6,
+          "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
+                        "lse_atol": LSE_ATOL}})
+    return {"K5": k5, "K6": k6}
+
+
 def _counters() -> dict:
     from tpudist_torch.ops import flash_attention as fa
-    from tpudist_torch.ops.flash_decode import FLASH_DECODE
+    from tpudist_torch.ops import flash_decode as fd
 
-    return {"K1": fa.FLASH_FORWARD, "K2": FLASH_DECODE,
-            "K3": fa.FLASH_BWD_DQ, "K4": fa.FLASH_BWD_DKV}
+    return {"K1": fa.FLASH_FORWARD, "K2": fd.FLASH_DECODE,
+            "K3": fa.FLASH_BWD_DQ, "K4": fa.FLASH_BWD_DKV,
+            "K5": fd.PAGED_FLASH_DECODE, "K6": fd.FLASH_DECODE_Q8}
 
 
 def reset_launches():
@@ -406,11 +534,258 @@ def phase_serve(torch, dev, seed):
     return launches, loop
 
 
-def phase_profile(torch, loop, seed):
+def kv_bytes(loop) -> int:
+    """Bytes of the slot cache's K/V storage (dense rows or block pools;
+    side buffers and indices excluded), as bench.py's kv_paging counts."""
+    return sum(t.numel() * t.element_size() for layer in loop.cache
+               for name, t in layer.items()
+               if name in ("cached_key", "cached_value", "paged_key",
+                           "paged_value"))
+
+
+def _sig(comps):
+    return [(c.rid, tuple(int(t) for t in c.tokens), c.reason)
+            for c in comps]
+
+
+def phase_paged_parity(torch, dev, seed):
+    """The paged ServeLoop (block 16, K5) against the dense one (K2): a
+    full-width 2-layer f32 model, TF32 off, on the parity phase's
+    requests; token-identical, the pool checked and drained, and the
+    paged run launches K1 and K5 but not K2."""
+    import numpy as np
+
+    from tpudist_torch.models.serving import Request, ServeLoop
+    from tpudist_torch.models.transformer import TransformerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TransformerConfig(vocab_size=32000, num_layers=2, num_heads=8,
+                            num_kv_heads=2, embed_dim=512, max_seq_len=8192,
+                            compute_dtype=torch.float32)
+    sd = random_model(torch, cfg, dev, seed).state_dict()
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    24, rid=i) for i, n in enumerate([1100, 37, 600, 513])]
+    kw = dict(num_slots=2, steps_per_sync=8, prefill_chunk=512, device=dev)
+    reset_launches()
+    dense = _sig(ServeLoop(cfg, sd, **kw).run(reqs))
+    dense_launches = read_launches()
+    reset_launches()
+    loop = ServeLoop(cfg, sd, cache_layout="paged", kv_block_size=16, **kw)
+    paged = _sig(loop.run(reqs))
+    launches = read_launches()
+    loop.pool.check()
+    loop.flush_prefix_cache()
+    drained = loop.pool.free_blocks == loop.pool.num_blocks
+    check(paged == dense, "paged_parity: paged and dense completions differ")
+    check(drained, "paged_parity: the pool did not drain")
+    check(launches["K1"] > 0 and launches["K5"] > 0 and launches["K2"] == 0,
+          f"paged_parity: paged run launches {launches}")
+    check(dense_launches["K2"] > 0 and dense_launches["K5"] == 0,
+          f"paged_parity: dense run launches {dense_launches}")
+    emit({"phase": "paged_parity", "requests": len(reqs), "exact": True,
+          "pool_drained": drained, "launches_paged": launches,
+          "launches_dense": dense_launches})
+
+
+def phase_serve_paged(torch, dev, seed):
+    """bench.py's kv_paging cell at its TPU configuration: the full-width
+    8-layer bf16 model (max_seq_len 8192), 4 slots, prefill chunk 512,
+    steps_per_sync 256, block 128 and a pool of 4 * blocks_for(2048 + 256,
+    128) = 72 blocks; prompts [1024, 2048, 512, 1024, 512, 2048] with 256
+    new tokens each, served dense and paged.  Counts are reset just
+    before each measured run and read just after."""
+    import numpy as np
+
+    from tpudist_torch.models.kv_pages import blocks_for
+    from tpudist_torch.models.serving import Request, ServeLoop, ServeStats
+    from tpudist_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=32000, num_layers=8, num_heads=8,
+                            num_kv_heads=2, embed_dim=512, max_seq_len=8192,
+                            compute_dtype=torch.bfloat16)
+    sd = random_model(torch, cfg, dev, seed + 7).state_dict()
+    rng = np.random.default_rng(seed + 7)
+    lens, gen, slots, block = [1024, 2048, 512, 1024, 512, 2048], 256, 4, 128
+    reqs = [Request(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                    gen, rid=i) for i, n in enumerate(lens)]
+    blocks = slots * blocks_for(max(lens) + gen, block)
+    arms = {}
+    for layout in ("dense", "paged"):
+        kw = ({"cache_layout": "paged", "kv_block_size": block,
+               "kv_num_blocks": blocks} if layout == "paged" else {})
+        loop = ServeLoop(cfg, sd, num_slots=slots, steps_per_sync=gen,
+                         prefill_chunk=512, device=dev, **kw)
+        # warm-up outside the measured run (cuBLAS handles, allocator)
+        loop.run([Request(rng.integers(0, cfg.vocab_size, 600).astype(
+            np.int32), 2)])
+        loop.stats = ServeStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        comps = loop.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        st = loop.stats
+        for c in comps:
+            check(c.tokens.shape == (gen,) and c.reason == "length",
+                  f"serve_paged: bad {layout} completion {c.rid}")
+        arm = {"sig": _sig(comps), "launches": launches, "wall_s": wall,
+               "kv_bytes": kv_bytes(loop),
+               "prefill_tokens_per_s": st.prompt_tokens / st.prefill_seconds,
+               "decode_tokens_per_s": st.decode_tokens / st.decode_seconds,
+               "decode_ms_per_tick": st.decode_seconds / st.ticks * 1e3,
+               "ticks": st.ticks, "segments": st.segments,
+               "max_memory_allocated_bytes":
+                   torch.cuda.max_memory_allocated(dev)}
+        if loop.pool is not None:
+            loop.pool.check()
+            arm["pool_drained"] = loop.pool.free_blocks == loop.pool.num_blocks
+            arm["num_blocks"] = loop.pool.num_blocks
+        arms[layout] = arm
+        del loop
+        torch.cuda.empty_cache()
+    dense, paged = arms["dense"], arms["paged"]
+    exact = dense["sig"] == paged["sig"]
+    check(exact, "serve_paged: paged and dense completions differ")
+    check(paged["pool_drained"], "serve_paged: the pool did not drain")
+    check(paged["launches"]["K5"] > 0 and paged["launches"]["K1"] > 0
+          and paged["launches"]["K2"] == 0,
+          f"serve_paged: paged run launches {paged['launches']}")
+    check(dense["launches"]["K2"] > 0 and dense["launches"]["K5"] == 0,
+          f"serve_paged: dense run launches {dense['launches']}")
+    for arm in arms.values():
+        del arm["sig"]
+    emit({"phase": "serve_paged", "exact": exact,
+          "kv_bytes_ratio": paged["kv_bytes"] / dense["kv_bytes"],
+          "dense": dense, "paged": paged})
+    return paged["launches"]
+
+
+def phase_serve_prefix(torch, dev, seed):
+    """bench.py's serve_prefix_batching cell (row 1) at its TPU
+    configuration: the full-width 8-layer bf16 model at max_seq_len 2048,
+    4 slots, prefill chunk 256, block 32, steps_per_sync 8; 12 requests of
+    a shared 1024-token prefix plus 4-12 suffix tokens, 32 new tokens
+    each, and one more whose prompt is the bare prefix (which earlier
+    prompts cached whole: a full-prompt hit, so a copy-on-write split).
+    Each arm runs once to warm up (and fill the prefix cache), then once
+    timed: sharing off (one-shot admission) and on (chunked)."""
+    import numpy as np
+
+    from tpudist_torch.models.serving import Request, ServeLoop
+    from tpudist_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=32000, num_layers=8, num_heads=8,
+                            num_kv_heads=2, embed_dim=512, max_seq_len=2048,
+                            compute_dtype=torch.bfloat16)
+    sd = random_model(torch, cfg, dev, seed + 8).state_dict()
+    rng = np.random.default_rng(seed + 8)
+    prefix = rng.integers(0, cfg.vocab_size, 1024).astype(np.int32)
+    reqs = [Request(np.concatenate(
+                [prefix, rng.integers(0, cfg.vocab_size,
+                                      4 + i % 9).astype(np.int32)]),
+                    32, rid=i) for i in range(12)]
+    reqs.append(Request(prefix.copy(), 32, rid=12))
+    arms = {}
+    for name, sharing in (("off", False), ("on", True)):
+        loop = ServeLoop(cfg, sd, num_slots=4, steps_per_sync=8,
+                         prefill_chunk=256, cache_layout="paged",
+                         kv_block_size=32, chunked_prefill=sharing,
+                         prefix_sharing=sharing, device=dev)
+        loop.run(reqs)
+        for k in loop.prefix_stats:
+            loop.prefix_stats[k] = 0
+        cow0 = loop.pool.cow_splits
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = loop.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = dict(loop.prefix_stats)
+        arm = {"sig": {c.rid: (tuple(int(t) for t in c.tokens), c.reason)
+                       for c in comps},
+               "wall_s": wall, "launches": read_launches(),
+               "prefix_stats": st,
+               "hit_rate": st["hits"] / max(st["requests"], 1),
+               "prefill_suffix_frac": (st["prefill_tokens"]
+                                       / max(st["prompt_tokens"], 1)),
+               "cow_splits": loop.pool.cow_splits - cow0}
+        loop.pool.check()
+        loop.flush_prefix_cache()
+        arm["pool_drained"] = loop.pool.free_blocks == loop.pool.num_blocks
+        arms[name] = arm
+        del loop
+    off, on = arms["off"], arms["on"]
+    exact = off["sig"] == on["sig"]
+    check(exact, "serve_prefix: completions differ with prefix sharing on")
+    check(on["cow_splits"] >= 1, f"serve_prefix: no copy-on-write split "
+          f"({on['cow_splits']})")
+    check(on["prefix_stats"]["hits"] > 0 and off["prefix_stats"]["hits"] == 0,
+          f"serve_prefix: hits on {on['prefix_stats']} off "
+          f"{off['prefix_stats']}")
+    check(on["pool_drained"] and off["pool_drained"],
+          "serve_prefix: a pool did not drain after flush_prefix_cache()")
+    check(on["launches"]["K5"] > 0 and on["launches"]["K2"] == 0,
+          f"serve_prefix: launches {on['launches']}")
+    for arm in arms.values():
+        del arm["sig"]
+    emit({"phase": "serve_prefix", "requests": len(reqs), "exact": exact,
+          "speedup": off["wall_s"] / on["wall_s"], "off": off, "on": on})
+
+
+def phase_decode_q8(torch, dev, seed):
+    """flash_decode_q8 as a user calls it: the serve model's decode shape
+    (4 rows, H=8, Hkv=2, D=64) over 8 layers of int8 caches quantized with
+    ``quantize_kv`` from bf16 K/V at 8k, 32 decode steps at growing
+    per-row lengths, counts reset just before and read just after; the
+    last step's outputs held against the plain version."""
+    from tpudist_torch.ops import flash_decode as fd
+
+    g = torch.Generator(device=dev).manual_seed(seed + 9)
+    B, H, HKV, D, S, layers, steps = 4, 8, 2, 64, 8192, 8, 32
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
+
+    caches = [fd.quantize_kv(rnd(B, S, HKV, D), rnd(B, S, HKV, D))
+              for _ in range(layers)]
+    lens0 = torch.tensor([7680, 5120, 2560, 300], dtype=torch.int32,
+                         device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    for t in range(steps):
+        lens = lens0 + t
+        for kv in caches:
+            q = rnd(B, 1, H, D)
+            out = fd.flash_decode_q8(q, *kv, lens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    po = fd.flash_decode_q8_plain(q, *caches[-1], lens)
+    ratio = ((out.float() - po.float()).abs()
+             / (O_ATOL + O_RTOL * po.float().abs())).max().item()
+    check(launches["K6"] == steps * layers and ratio <= 1.0
+          and bool(torch.isfinite(out).all()),
+          f"decode_q8: launches {launches}, ratio {ratio}")
+    del caches
+    torch.cuda.empty_cache()
+    emit({"phase": "decode_q8", "steps": steps, "layers": layers,
+          "launches": launches, "wall_s": wall, "tol_ratio_last": ratio})
+    return launches
+
+
+def phase_profile(torch, loop, seed, name="profile"):
     """Where a decode tick's time goes: 4 lanes admitted at lengths
     7680/5120/2560/300, one 32-tick segment timed on the host clock, and
     the same segment's device kernels read with ``torch.profiler`` (CUDA
-    activity only).  Device busy share = kernel time / host wall."""
+    activity only).  Device busy share = kernel time / host wall.  A paged
+    loop grows its lanes' pages and stamps the table before each segment,
+    as its run loop does (inside the timed window)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -422,21 +797,29 @@ def phase_profile(torch, loop, seed):
     for slot, n in enumerate((7680, 5120, 2560, 300)):
         loop._admit(slot, Request(rng.integers(0, v, n).astype(np.int32),
                                   200))
-    loop._segment(32)                  # warm-up
+
+    def segment():
+        if loop.pool is not None:
+            for slot in range(4):
+                loop.pool.grow(slot, 32)
+            loop._stamp_table()
+        loop._segment(32)
+
+    segment()                          # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loop._segment(32)
+    segment()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        loop._segment(32)
+        segment()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    check(device_ms > 0, "profile: the profiler saw no device time")
-    emit({"phase": "profile", "ticks": 32, "wall_ms": wall_ms,
+    check(device_ms > 0, f"{name}: the profiler saw no device time")
+    emit({"phase": name, "ticks": 32, "wall_ms": wall_ms,
           "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
           "top": [{"kernel": k[:80], "ms": ms, "count": n}
                   for k, ms, n in rows[:12]]})
@@ -748,6 +1131,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; the port's kernels need an "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    from tpudist_torch.models.serving import ServeLoop
     from tpudist_torch.ops import _cuda
 
     dev = torch.device("cuda", 0)
@@ -763,10 +1147,21 @@ def main(argv=None) -> int:
           "libraries": sorted(p.name for p in libs.values())})
 
     k1, k2 = phase_kernels(torch, dev, args.seed)
+    paged_rows = phase_paged_kernels(torch, dev, args.seed)
     phase_parity(torch, dev, args.seed)
+    phase_paged_parity(torch, dev, args.seed)
     launches, loop = phase_serve(torch, dev, args.seed)
     phase_profile(torch, loop, args.seed)
-    del loop
+    # the same tick on the paged layout (full-capacity pool, block 128)
+    paged_loop = ServeLoop(loop.cfg, loop.model.state_dict(), num_slots=4,
+                           steps_per_sync=32, prefill_chunk=512,
+                           cache_layout="paged", kv_block_size=128,
+                           device=dev)
+    phase_profile(torch, paged_loop, args.seed, name="profile_paged")
+    del loop, paged_loop
+    paged_launches = phase_serve_paged(torch, dev, args.seed)
+    phase_serve_prefix(torch, dev, args.seed)
+    q8_launches = phase_decode_q8(torch, dev, args.seed)
     bwd_rows, k1_train = phase_backward_kernels(torch, dev, args.seed)
     phase_train_parity(torch, dev, args.seed)
     train_launches = phase_train(torch, dev, args.seed)
@@ -809,6 +1204,21 @@ def main(argv=None) -> int:
                                              "bound_by")},
             # SDPA's whole backward, one call for the pair K3 + K4
             "library_ms": main_bwd["library_ms"]})
+    for key, name, launched, main_case in (
+            ("K5", "paged_flash_decode (K5)", paged_launches["K5"],
+             "block128"),
+            ("K6", "flash_decode_q8 (K6)", q8_launches["K6"], "per_row")):
+        rows = paged_rows[key]
+        main_row = next(r for r in rows if r["case"] == main_case)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tpudist_torch/csrc/flash_decode.cu",
+            "replaces": "tpudist/ops/flash_decode.py:62",
+            "launches": launched,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "tol_ratio": max(r["tol_ratio"] for r in rows),
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

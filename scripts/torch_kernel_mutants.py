@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Mutation check of the port's backward kernels, on an NVIDIA GPU.
+"""Mutation check of the port's kernels, on an NVIDIA GPU.
 
     python3 scripts/torch_kernel_mutants.py [--out DIR] [--seed N]
 
 For each mutant — K3 with its first live K/V tile's contribution dropped,
-K4 with its first live q-tile's dropped — copies ``tpudist_torch/`` into
+K4 with its first live q-tile's dropped, K5 reading each key's page-table
+entry one block too far (``table[b, p / bs + 1]``), K6 with the V scale
+left out of the value product — copies ``tpudist_torch/`` into
 ``DIR/<mutant>/`` (default ``_scratch/mutants``, git-ignored), breaks the
-kernel source there, and runs ``chip_smoke.phase_backward_kernels``
-against the broken copy in a subprocess, with ``chip_smoke.check``
-replaced by a collector.  Prints one JSON line per mutant: the worst
-``tol_ratio`` of each kernel in each case and the checks that failed.
-Exits non-zero if any mutant passes every check (the check would not see
-the fault).  Needs the CUDA toolkit; each copy builds its own kernels.
+kernel source there, and runs the ``chip_smoke`` phase that holds that
+kernel against its plain version (``phase_backward_kernels`` or
+``phase_paged_kernels``) against the broken copy in a subprocess, with
+``chip_smoke.check`` replaced by a collector.  Prints one JSON line per
+mutant: the worst ``tol_ratio`` of each kernel in each case and the
+checks that failed.  Exits non-zero if any mutant passes every check (the
+check would not see the fault).  Needs the CUDA toolkit; each copy builds
+its own kernels.
 """
 
 from __future__ import annotations
@@ -24,15 +28,32 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-SRC = "csrc/flash_attention_bwd.cu"
+BWD, DEC = "csrc/flash_attention_bwd.cu", "csrc/flash_decode.cu"
 K3_PRODUCTS = "    two_products<T, NT, D>(s, dp, Qw, Kw, dOw, Vw, r0, g, t4);\n"
 K4_PRODUCTS = ("      two_products<T, NT, D>(s, dp, Kw, Qw, Vw, dOw, r0, g, "
                "t4);\n")
+K5_TABLE = "a.table[(long long)b * a.M + (lo + r) / a.bs]"
+K6_PV = "sr[j] = round_to<__nv_bfloat16>(p * vsc[j]);"
+# the chip_smoke phase that holds the kernel, and the expression (over its
+# return value `out`) giving {case: {kernel: tol_ratio}}
+BWD_RUN = ("rows, _ = chip_smoke.phase_backward_kernels(torch, dev, {seed})",
+           '{r["case"]: {"K3": r["K3"]["tol_ratio"], '
+           '"K4": r["K4"]["tol_ratio"]} for r in rows}')
+DEC_RUN = ("out = chip_smoke.phase_paged_kernels(torch, dev, {seed})",
+           '{k + "_" + r["case"]: r["tol_ratio"] for k in ("K5", "K6") '
+           'for r in out[k]}')
 MUTANTS = {
-    "K3_drop_first_k_tile": (
-        K3_PRODUCTS, "    if (kt == kv_lo) continue;\n" + K3_PRODUCTS),
-    "K4_drop_first_q_tile": (
-        K4_PRODUCTS, "      if (qt == q_lo) continue;\n" + K4_PRODUCTS),
+    "K3_drop_first_k_tile": (BWD, BWD_RUN, K3_PRODUCTS,
+                             "    if (kt == kv_lo) continue;\n"
+                             + K3_PRODUCTS),
+    "K4_drop_first_q_tile": (BWD, BWD_RUN, K4_PRODUCTS,
+                             "      if (qt == q_lo) continue;\n"
+                             + K4_PRODUCTS),
+    "K5_table_entry_plus_one": (
+        DEC, DEC_RUN, K5_TABLE,
+        "a.table[(long long)b * a.M + (lo + r) / a.bs + 1]"),
+    "K6_skip_v_scale": (DEC, DEC_RUN, K6_PV,
+                        "sr[j] = round_to<__nv_bfloat16>(p);"),
 }
 
 RUNNER = r"""
@@ -43,13 +64,11 @@ import torch
 import chip_smoke
 failed = []
 chip_smoke.check = lambda cond, msg: None if cond else failed.append(msg)
-rows, _ = chip_smoke.phase_backward_kernels(torch, torch.device("cuda", 0),
-                                            {seed})
+dev = torch.device("cuda", 0)
+{run}
 import tpudist_torch
 assert tpudist_torch.__file__.startswith({mut!r}), tpudist_torch.__file__
-print(json.dumps({{"failed_checks": failed, "tol_ratio": {{
-    r["case"]: {{"K3": r["K3"]["tol_ratio"], "K4": r["K4"]["tol_ratio"]}}
-    for r in rows}}}}))
+print(json.dumps({{"failed_checks": failed, "tol_ratio": {ratios}}}))
 """
 
 
@@ -59,20 +78,20 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     missed = []
-    for name, (old, new) in MUTANTS.items():
+    for name, (rel, (run, ratios), old, new) in MUTANTS.items():
         mut = Path(args.out) / name
         shutil.rmtree(mut, ignore_errors=True)
         shutil.copytree(ROOT / "tpudist_torch", mut / "tpudist_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
-        src = mut / "tpudist_torch" / SRC
+        src = mut / "tpudist_torch" / rel
         text = src.read_text()
         if text.count(old) != 1:
             raise RuntimeError(f"{name}: mutation site not found once")
         src.write_text(text.replace(old, new))
         res = subprocess.run(
-            [sys.executable, "-c", RUNNER.format(mut=str(mut),
-                                                 root=str(ROOT),
-                                                 seed=args.seed)],
+            [sys.executable, "-c", RUNNER.format(
+                mut=str(mut), root=str(ROOT), ratios=ratios,
+                run=run.format(seed=args.seed))],
             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise RuntimeError(f"{name}: runner failed\n{res.stderr[-4000:]}")

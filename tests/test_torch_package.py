@@ -58,6 +58,7 @@ def test_imports_and_runs_with_jax_blocked():
         "    sys.modules[m] = None",
         "import torch, tpudist_torch",
         "import tpudist_torch.models.serving, tpudist_torch.ops.flash_decode",
+        "import tpudist_torch.models.kv_pages",
         "import tpudist_torch.ops.flash_attention, tpudist_torch.ops.losses",
         "import tpudist_torch.train, tpudist_torch.parallel",
         "from tpudist_torch import TransformerConfig, TransformerLM",
@@ -92,18 +93,27 @@ def test_entry_points_need_cuda_unless_told():
 def test_cpu_tensors_take_the_plain_path():
     """CPU tensors never touch the kernels: launch counts stay put and no
     kernel library is built or loaded."""
-    f0, d0 = tfa.FLASH_FORWARD.launches, tfd.FLASH_DECODE.launches
+    kernels = (tfa.FLASH_FORWARD, tfd.FLASH_DECODE,
+               tfd.PAGED_FLASH_DECODE, tfd.FLASH_DECODE_Q8)
+    counts = [k.launches for k in kernels]
     libs = dict(_cuda._libs)
     q = torch.randn(1, 5, 2, 16)
     k = torch.randn(1, 9, 2, 16)
     tfa._flash_forward(q, k, k, True, q_offset=4)
     tfd.flash_decode(q[:, :1], k, k, 7)
+    pool = torch.randn(3, 8, 32)
+    table = torch.tensor([[2, 0]], dtype=torch.int32)
+    tfd.paged_flash_decode(q[:, :1], pool, pool, table,
+                           torch.tensor([11]), packed_kv_heads=2)
+    tfd.flash_decode_q8(q[:, :1], *tfd.quantize_kv(k, k), 7)
     sd = TransformerLM(CFG, device="cpu").state_dict()
-    loop = tpudist_torch.ServeLoop(CFG, sd, num_slots=1, steps_per_sync=2,
-                                   prefill_chunk=4, device="cpu")
-    loop.run([tpudist_torch.Request(np.arange(5), 3)])
-    assert tfa.FLASH_FORWARD.launches == f0
-    assert tfd.FLASH_DECODE.launches == d0
+    for layout in ("dense", "paged"):
+        loop = tpudist_torch.ServeLoop(CFG, sd, num_slots=1,
+                                       steps_per_sync=2, prefill_chunk=4,
+                                       cache_layout=layout, kv_block_size=8,
+                                       device="cpu")
+        loop.run([tpudist_torch.Request(np.arange(5), 3)])
+    assert [k.launches for k in kernels] == counts
     assert _cuda._libs == libs
 
 
@@ -113,6 +123,15 @@ def test_kernel_wrappers_reject_other_devices():
         tfa._flash_forward(q, q, q, True)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfd.flash_decode(q[:, :1], q, q, 3)
+    pool = torch.randn(3, 8, 32, device="meta")
+    table = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfd.paged_flash_decode(q[:, :1], pool, pool, table,
+                               torch.tensor([3], device="meta"),
+                               packed_kv_heads=2)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfd.flash_decode_q8(q[:, :1], q.to(torch.int8), q[..., :1],
+                            q.to(torch.int8), q[..., :1], 3)
 
 
 def test_build_is_keyed_by_source_content(tmp_path, monkeypatch):

@@ -221,9 +221,8 @@ def test_validation_and_unported_options(state_dict):
         loop.run([Request(_prompt(1, 4), 2, deadline_s=1.0)])
     with pytest.raises(NotImplementedError, match="service mode"):
         loop.run(source=lambda: None)
-    for kw in ({"pipeline_depth": 2}, {"cache_layout": "paged"},
-               {"decode_mode": "speculative"}, {"role": "prefill"},
-               {"preempt": "migrate"}):
+    for kw in ({"pipeline_depth": 2}, {"decode_mode": "speculative"},
+               {"role": "prefill"}, {"preempt": "migrate"}):
         with pytest.raises(NotImplementedError):
             ServeLoop(CFG, state_dict, num_slots=1, device="cpu", **kw)
     for kw, match in (({"degrade_max_new": 0}, "degrade_max_new"),
@@ -231,6 +230,195 @@ def test_validation_and_unported_options(state_dict):
                       ({"preempt": "bogus"}, "preempt")):
         with pytest.raises(ValueError, match=match):
             ServeLoop(CFG, state_dict, num_slots=1, device="cpu", **kw)
+
+
+# ---- the paged layout ------------------------------------------------------
+
+def _pool_trace(loop):
+    """Record the pool's page table and free list after every admission
+    and every finalize (both loops admit and free at the same points)."""
+    trace = []
+    admit, free = loop._admit, loop.pool.free_slot
+
+    def snap(tag, slot):
+        trace.append((tag, slot, loop.pool.table.tolist(),
+                      list(loop.pool._free), list(loop.pool._refcount)))
+
+    def admit_and_snap(slot, req):
+        st = admit(slot, req)
+        snap("admit", slot)
+        return st
+
+    def free_and_snap(slot):
+        free(slot)
+        snap("free", slot)
+
+    loop._admit, loop.pool.free_slot = admit_and_snap, free_and_snap
+    return trace
+
+
+def _paged_pair(params, state_dict, monkeypatch, reqs, **kw):
+    """The JAX paged ServeLoop (flash decode, depth 1, no host tier) and
+    the port's on the same requests: completions, pool traces, loops."""
+    monkeypatch.setenv("TPUDIST_KV_HOST_TIER_BYTES", "0")
+    jloop = JaxServeLoop(JCFG, params, decode_attention="flash",
+                         pipeline_depth=1, cache_layout="paged", **kw)
+    tloop = ServeLoop(CFG, state_dict, cache_layout="paged", device="cpu",
+                      **kw)
+    jtrace, ttrace = _pool_trace(jloop), _pool_trace(tloop)
+    want = _sig(jloop.run([JaxRequest(r.prompt, r.max_new_tokens, rid=r.rid)
+                           for r in reqs]))
+    got = _sig(tloop.run(reqs))
+    return want, got, jtrace, ttrace, jloop, tloop
+
+
+@pytest.mark.parametrize("chunked", [True, False],
+                         ids=["chunked", "one_shot"])
+def test_paged_token_identical_to_jax(params, state_dict, monkeypatch,
+                                      chunked):
+    """tests/test_serving.py's paged-vs-dense workload: the port's paged
+    loop gives the JAX paged loop's completions, in the same finish
+    order, with the same page tables and free lists at every admission
+    and finalize; both pools drain."""
+    reqs = [Request(_prompt(70 + i, 3 + 5 * i), 20, rid=i) for i in range(5)]
+    want, got, jtrace, ttrace, jloop, tloop = _paged_pair(
+        params, state_dict, monkeypatch, reqs, num_slots=2, steps_per_sync=4,
+        prefill_chunk=8, stop_tokens=(7, 13), kv_block_size=16,
+        chunked_prefill=chunked)
+    assert got == want
+    assert ttrace == jtrace and len(ttrace) == 10
+    dense = _sig(ServeLoop(CFG, state_dict, num_slots=2, steps_per_sync=4,
+                           prefill_chunk=8, stop_tokens=(7, 13),
+                           chunked_prefill=chunked, device="cpu").run(reqs))
+    assert got == dense
+    tloop.pool.check()
+    assert tloop.pool.free_blocks == tloop.pool.num_blocks
+
+
+def test_paged_small_pool_queues_like_jax(params, state_dict, monkeypatch):
+    """A 2-block pool holds two one-block reservations at a time: the
+    capacity gate queues the rest FIFO, and the completions, tables and
+    free lists follow the JAX loop's."""
+    reqs = [Request(_prompt(80 + i, 6), 10, rid=i) for i in range(4)]
+    want, got, jtrace, ttrace, _, tloop = _paged_pair(
+        params, state_dict, monkeypatch, reqs, num_slots=2, steps_per_sync=4,
+        prefill_chunk=8, kv_block_size=16, kv_num_blocks=2)
+    assert got == want and ttrace == jtrace
+    # the third request waits for a finalize
+    assert [t[0] for t in ttrace[:3]] == ["admit", "admit", "free"]
+    tloop.pool.check()
+    assert tloop.pool.free_blocks == 2
+
+
+def _shared_prefix_requests(cls):
+    """tests/test_prefix_sharing.py's trace: 3 shared blocks of 8, an
+    exact repeat, and a block-aligned prompt twice (the second a full
+    hit: copy-on-write split)."""
+    base = _prompt(7, 24)
+    reqs = [cls(np.concatenate([base, _prompt(100 + i, 5 + i)]), 10, rid=i)
+            for i in range(5)]
+    reqs.append(cls(np.concatenate([base, _prompt(100, 5)]), 10, rid=5))
+    reqs.append(cls(base.copy(), 8, rid=6))
+    reqs.append(cls(base.copy(), 8, rid=7))
+    return reqs
+
+
+def _count(log, split, pool, slot, i):
+    """A JAX cow_write that logs whether it split (its block changed)."""
+    before = pool._slot_blocks[slot][i]
+    out = split(slot, i)
+    log.append(out != before)
+    return out
+
+
+@pytest.mark.parametrize("sharing", [True, False], ids=["sharing", "off"])
+def test_prefix_sharing_token_identical_to_jax(params, state_dict,
+                                               monkeypatch, sharing):
+    """Aliased prefix blocks, a gathered prefill cache, the suffix-only
+    worklist and a copy-on-write split: the same completions as the JAX
+    loop, the same prefix_stats, the same number of copy-on-write
+    splits, the same tables and free lists; and the same tokens as
+    prefix sharing off and the dense loop."""
+    reqs = _shared_prefix_requests(Request)
+    kw = dict(num_slots=3, steps_per_sync=4, prefill_chunk=8,
+              kv_block_size=8, prefix_sharing=sharing)
+    monkeypatch.setenv("TPUDIST_KV_HOST_TIER_BYTES", "0")
+    jloop = JaxServeLoop(JCFG, params, decode_attention="flash",
+                         pipeline_depth=1, cache_layout="paged", **kw)
+    jcow = []
+    jsplit = jloop.pool.cow_write
+    jloop.pool.cow_write = lambda slot, i: _count(jcow, jsplit, jloop.pool,
+                                                  slot, i)
+    tloop = ServeLoop(CFG, state_dict, cache_layout="paged", device="cpu",
+                      **kw)
+    jtrace, ttrace = _pool_trace(jloop), _pool_trace(tloop)
+    want = _sig(jloop.run(_shared_prefix_requests(JaxRequest)))
+    got = _sig(tloop.run(reqs))
+    assert got == want and ttrace == jtrace
+    assert tloop.prefix_stats == jloop.prefix_stats
+    assert tloop.pool.cow_splits == sum(jcow)
+    dense = _sig(ServeLoop(CFG, state_dict, num_slots=3, steps_per_sync=4,
+                           prefill_chunk=8, device="cpu").run(reqs))
+    assert got == dense
+    if sharing:
+        assert tloop.prefix_stats["hits"] >= 4 and tloop.pool.cow_splits >= 1
+        assert (tloop.prefix_stats["prefill_tokens"]
+                < tloop.prefix_stats["prompt_tokens"])
+    else:
+        assert tloop.prefix_stats["hits"] == 0 == tloop.pool.cow_splits
+    tloop.pool.check()
+    tloop.flush_prefix_cache()
+    assert tloop.pool.free_blocks == tloop.pool.num_blocks
+
+
+def test_prefix_summary_and_flush(state_dict):
+    from tpudist_torch.models.kv_pages import request_prefix_hash
+
+    base = _prompt(3, 16)
+    h = request_prefix_hash(base)
+    loop = ServeLoop(CFG, state_dict, num_slots=2, steps_per_sync=4,
+                     prefill_chunk=8, cache_layout="paged", kv_block_size=8,
+                     device="cpu")
+    loop.run([Request(np.concatenate([base, _prompt(4 + i, 3)]), 4, rid=i,
+                      prefix_hash=h) for i in range(3)])
+    assert loop.prefix_summary() == [h]
+    assert loop.pool.used_blocks == 0 and len(loop._prefix_cache) == 2
+    assert loop.pool.free_blocks == loop.pool.num_blocks   # idle = free
+    loop.flush_prefix_cache()
+    assert loop.prefix_summary() == [] and len(loop._prefix_cache) == 0
+    off = ServeLoop(CFG, state_dict, num_slots=1, cache_layout="paged",
+                    kv_block_size=8, chunked_prefill=False, device="cpu")
+    assert off._prefix_cache is None and off.prefix_summary() == []
+
+
+@pytest.mark.parametrize("case", ["layout", "block_size", "window",
+                                  "pool_capacity"])
+def test_paged_validation_like_jax(params, state_dict, case):
+    """tests/test_serving.py's paged validation errors, raised alike."""
+    def build(cls, cfg, p, **kw):
+        extra = {} if cls is JaxServeLoop else {"device": "cpu"}
+        return cls(cfg, p, num_slots=1, **kw, **extra)
+
+    errors = []
+    for cls, cfg, p, req in ((JaxServeLoop, JCFG, params, JaxRequest),
+                             (ServeLoop, CFG, state_dict, Request)):
+        try:
+            if case == "layout":
+                build(cls, cfg, p, cache_layout="sparse")
+            elif case == "block_size":
+                build(cls, cfg, p, cache_layout="paged", kv_block_size=12)
+            elif case == "window":
+                build(cls, dataclasses.replace(cfg, attention_window=32), p,
+                      cache_layout="paged")
+            else:
+                build(cls, cfg, p, cache_layout="paged", kv_block_size=16,
+                      kv_num_blocks=2).run([req(_prompt(1, 40), 20)])
+        except ValueError as e:
+            errors.append(str(e))
+    assert len(errors) == 2 and errors[0] == errors[1]
+    assert {"layout": "cache_layout", "block_size": "block_size",
+            "window": "sliding-window",
+            "pool_capacity": "pool capacity"}[case] in errors[1]
 
 
 # ---- on the card ----------------------------------------------------------
@@ -256,3 +444,25 @@ def test_serve_loop_on_card_matches_cpu(cuda_device, state_dict):
                          device=cuda_device, **LOOP).run(_workload(Request)))
     assert got == want
     assert FLASH_FORWARD.launches > f0 and FLASH_DECODE.launches > d0
+
+
+@pytest.mark.cuda
+def test_paged_serve_loop_on_card_matches_cpu(cuda_device, state_dict):
+    """The f32 paged ServeLoop (prefix sharing on, a full-prompt hit)
+    through K1 and K5 on the card gives the CPU plain path's completions;
+    K2 is not launched."""
+    from tpudist_torch.ops.flash_decode import (
+        FLASH_DECODE,
+        PAGED_FLASH_DECODE,
+    )
+
+    kw = dict(num_slots=3, steps_per_sync=4, prefill_chunk=8,
+              cache_layout="paged", kv_block_size=8)
+    want = _sig(ServeLoop(CFG, state_dict, device="cpu", **kw).run(
+        _shared_prefix_requests(Request)))
+    d0, p0 = FLASH_DECODE.launches, PAGED_FLASH_DECODE.launches
+    loop = ServeLoop(CFG, state_dict, device=cuda_device, **kw)
+    got = _sig(loop.run(_shared_prefix_requests(Request)))
+    assert got == want
+    assert PAGED_FLASH_DECODE.launches > p0 and FLASH_DECODE.launches == d0
+    assert loop.pool.cow_splits >= 1

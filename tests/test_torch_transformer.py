@@ -161,7 +161,16 @@ def test_unported_paths_raise():
         model(torch.zeros((2, 3), dtype=torch.long),
               positions=torch.zeros((2, 3), dtype=torch.long),
               cache=blank_cache(cfg, 2, device="cpu", per_row=True))
-    with pytest.raises(NotImplementedError, match="paged"):
+    # the paged layout is ported: the model builds, sized by its pool;
+    # a windowed paged model is refused as in the JAX package
+    paged = TransformerLM(cfg, serve_side_slots=4, cache_layout="paged",
+                          kv_block_size=16, kv_num_blocks=8, device="cpu")
+    assert (paged.kv_block_size, paged.kv_num_blocks) == (16, 8)
+    with pytest.raises(ValueError, match="sliding-window"):
+        TransformerLM(dataclasses.replace(cfg, attention_window=8),
+                      cache_layout="paged", kv_block_size=16,
+                      kv_num_blocks=8, device="cpu")
+    with pytest.raises(ValueError, match="kv_num_blocks > 0"):
         TransformerLM(cfg, cache_layout="paged", device="cpu")
     with pytest.raises(NotImplementedError, match="sharded decode"):
         TransformerLM(cfg, decode_shard=("mesh", "model"), device="cpu")

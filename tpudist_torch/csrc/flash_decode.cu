@@ -1,30 +1,51 @@
-// K2: flash decode for Hopper (sm_90a) — one query token per head against
-// the KV cache, with the serve loop's side buffer.
+// K2, K5, K6: flash decode for Hopper (sm_90a) — one query token per head
+// against the KV cache, with the serve loop's side buffer.
 //
-// Replaces tpudist/ops/flash_decode.py::_decode_kernel (Pallas, B4) in its
-// bf16/f32, unpaged, unquantized form, reached through flash_decode; on the
-// serve path it runs every decode tick (_serve_attend_sided) and the
-// scalar-length decode of greedy_generate.
+// Replaces tpudist/ops/flash_decode.py::_decode_kernel (Pallas) in three of
+// its forms, all from one templated partial kernel that differs only in
+// how it finds a key's row and what type the rows hold:
+//  * K2 (B4): the dense cache [B, S, Hkv, D] (or packed [B, S, Hkv*D]) read
+//    through strides, bf16/f32, reached through flash_decode; on the serve
+//    path it runs every decode tick of the dense layout
+//    (_serve_attend_sided) and the scalar-length decode of greedy_generate;
+//  * K5 (B5): the paged pool [N, bs, Hkv*D] read through a page table
+//    [B, M] int32, reached through paged_flash_decode; it runs every decode
+//    tick of the paged layout (_paged_attend);
+//  * K6 (B6): an int8 cache [B, S, Hkv, D] with one f32 scale per (token,
+//    head), reached through flash_decode_q8 (a public entry point; no model
+//    path calls it).
 //
-// What bounds it on an H100: a decode step does ~4 FLOP per cached
-// element it reads (q·k and p·v over one query row per head), so it is
+// What bounds them on an H100: a decode step does ~4 FLOP per cached
+// element it reads (q·k and p·v over one query row per head), so each is
 // bound by the bytes of live K/V (3.35 TB/s), not by arithmetic.  The
 // Pallas kernel streamed each (batch, KV head) row sequentially on one
-// TensorCore; on Hopper that grid (B*Hkv = 8 blocks at the serve shapes)
-// would leave 124 of 132 SMs idle.  So this is a split-K (flash-decoding)
-// grid: block (split, b*Hkv + hk) reads one 128-key chunk of row b's live
-// cache — chunks past cache_len[b] (or before the window) exit at once and
-// read nothing — with 16-byte coalesced loads into shared memory, and
-// writes its partial (max, sum, unnormalized output) for the g = H/Hkv
-// query heads of that KV head, so each KV head's cache streams once for
-// the whole group.  The side buffer's live positions are one more split.
-// A second small kernel merges the partials by log-sum-exp, which also
-// yields return_lse.  Dot products are plain f32 FMAs: at ~4 FLOP/byte the
-// tensor cores would buy nothing here.
+// TensorCore (grid (B*Hkv, blocks), one cache or pool block per step); on
+// Hopper that grid (B*Hkv = 8 blocks at the serve shapes) would leave 124
+// of 132 SMs idle.  So this is a split-K (flash-decoding) grid: block
+// (split, b*Hkv + hk) reads one 128-key chunk of row b's live cache —
+// chunks past cache_len[b] (or before the window) exit at once and read
+// nothing, not even the page table — with 16-byte coalesced loads into
+// shared memory, and writes its partial (max, sum, unnormalized output)
+// for the g = H/Hkv query heads of that KV head, so each KV head's cache
+// streams once for the whole group.  The side buffer's live positions are
+// one more split.  A second small kernel merges the partials by
+// log-sum-exp, which also yields return_lse.  Dot products are plain f32
+// FMAs: at ~4 FLOP/byte the tensor cores would buy nothing here.
+//
+// K5's one difference: key p of row b is pool[table[b, p / bs], p % bs].
+// The block's threads first read the table entries of the chunk's live
+// keys into shared memory (at bs = 16 one 128-key split spans 8 pages,
+// and bs need not divide 128), then load each key's contiguous Hkv*D row
+// with the same 16-byte loads.  Split boundaries and accumulation order
+// are K2's, so K5 over a pool gives bit-identical output to K2 over the
+// gathered view of that pool (paged_gather_kv).
+//
+// K6 keeps the Pallas int8 numerics: q rounded to bf16, s = (q·k_int8) ·
+// (k_scale · D^-1/2) with f32 accumulation, p = exp(s - m), the value
+// product over round_bf16(p · v_scale) while l sums the unscaled p.
 //
 // Not ported (TPU layout tricks): head pairing to fill 128 lanes, 8-row
-// sublane padding of the group, the packed-cache relayout avoidance.  The
-// packed [B, S, Hkv*D] cache is simply read through its strides.
+// sublane padding of the group, the packed-cache relayout avoidance.
 
 #include "common.cuh"
 
@@ -38,10 +59,13 @@ constexpr int kCK = 128;       // keys per split
 constexpr int kThreads = 128;  // one key per thread in the score pass
 constexpr int kMaxGroup = 32;  // query heads per KV head
 
+// How the partial kernel finds a key's row, and what the rows hold.
+enum Mode { kStrided = 0, kPaged = 1, kInt8 = 2 };
+
 struct DecArgs {
   const void* q;        // [B, 1, H, D] through strides
-  const void* k;        // cache [B, S, Hkv, D] through strides
-  const void* v;
+  const void* k;        // kStrided/kInt8: cache [B, S, Hkv, D] through
+  const void* v;        //   strides; kPaged: pool [N, bs, Hkv, D]
   const void* side_k;   // [B, cap, Hkv, D] or null
   const void* side_v;
   float* m_part;        // [B*Hkv, n_split, g]
@@ -49,6 +73,7 @@ struct DecArgs {
   float* acc_part;      // [B*Hkv, n_split, g, D]
   int B, H, Hkv, S, cap, n_main, n_split;
   long long q_sb, q_sh;
+  // kPaged: *_sb is the pool's block stride, *_ss its row stride
   long long k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long sk_sb, sk_ss, sk_sh, sv_sb, sv_ss, sv_sh;
   const int* len_ptr;   // [B] (len_stride 1) or scalar (0), or null
@@ -57,24 +82,66 @@ struct DecArgs {
   int side_len_val;
   int window;           // <= 0: none
   float scale;
+  const int* table;     // kPaged: [B, M] int32 pool indices
+  int M, bs;
+  const float* k_scale;  // kInt8: [B, S, Hkv] f32 through strides
+  const float* v_scale;
+  long long ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh;
 };
 
-template <typename T, int D>
+template <typename KV>
+__device__ __forceinline__ float kv_f32(KV x) { return to_f32<KV>(x); }
+template <>
+__device__ __forceinline__ float kv_f32<int8_t>(int8_t x) {
+  return static_cast<float>(x);
+}
+
+template <typename KV, int D>
 struct Layout {
   // odd row stride in words: lane j reading row j hits bank (j * ldw) % 32,
   // all distinct
-  static constexpr int kLdw = D * (int)sizeof(T) / 4 + 1;
+  static constexpr int kLdw = D * (int)sizeof(KV) / 4 + 1;
   static size_t bytes(int g) {
     return (size_t)2 * kCK * kLdw * 4 + (size_t)g * D * 4 +
            (size_t)g * kCK * 4;
   }
 };
 
-template <typename T, int D>
+// K5's row loads: key lo + r of the chunk lives at pool block blk[r],
+// row (lo + r) % bs; rows at or past n are zero-filled (as load_rows does)
+template <typename T>
+__device__ __forceinline__ void load_paged_rows(uint32_t* dst, int ld_words,
+                                                const T* src, long long sb,
+                                                long long ss, const int* blk,
+                                                int lo, int n, int bs,
+                                                int cols) {
+  const int vpr = cols * (int)sizeof(T) / 16;  // 16-byte vectors per row
+  for (int i = threadIdx.x; i < kCK * vpr; i += blockDim.x) {
+    const int r = i / vpr, c = i % vpr;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < n) {
+      val = *reinterpret_cast<const uint4*>(
+          src + (long long)blk[r] * sb + (long long)((lo + r) % bs) * ss +
+          c * (16 / (int)sizeof(T)));
+    }
+    uint32_t* d = dst + r * ld_words + c * 4;
+    d[0] = val.x;
+    d[1] = val.y;
+    d[2] = val.z;
+    d[3] = val.w;
+  }
+}
+
+// T: the query and output type; KV: the cache type (T, or int8_t in kInt8)
+template <typename T, typename KV, int D, int kMode>
 __global__ void __launch_bounds__(kThreads)
     decode_partial_kernel(const DecArgs a) {
-  using L = Layout<T, D>;
+  using L = Layout<KV, D>;
   extern __shared__ __align__(16) uint32_t smem[];
+  // K5: the chunk's pool blocks; K6: its keys' K and V scales
+  __shared__ int blk_s[kMode == kPaged ? kCK : 1];
+  __shared__ float ksc[kMode == kInt8 ? kCK : 1];
+  __shared__ float vsc[kMode == kInt8 ? kCK : 1];
   uint32_t* Kw = smem;
   uint32_t* Vw = Kw + kCK * L::kLdw;
   float* qs = reinterpret_cast<float*>(Vw + kCK * L::kLdw);  // [g, D]
@@ -87,25 +154,31 @@ __global__ void __launch_bounds__(kThreads)
   const long long pidx = (long long)row * a.n_split + split;
 
   // this split's key range [lo, hi) and source
-  const T* kb;
-  const T* vb;
+  const KV* kb;
+  const KV* vb;
   long long kss, vss;
   int lo, hi;
-  if (split < a.n_main) {
+  const bool main_split = split < a.n_main;
+  if (main_split) {
     const int len = a.len_ptr ? a.len_ptr[b * a.len_stride] : a.len_val;
     lo = split * kCK;
     hi = min(lo + kCK, min(len, a.S));
     if (a.window > 0) lo = max(lo, len - a.window);
-    kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-    vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
     kss = a.k_ss;
     vss = a.v_ss;
+    if (kMode == kPaged) {  // the block index is added per key
+      kb = static_cast<const KV*>(a.k) + hk * a.k_sh;
+      vb = static_cast<const KV*>(a.v) + hk * a.v_sh;
+    } else {
+      kb = static_cast<const KV*>(a.k) + b * a.k_sb + hk * a.k_sh;
+      vb = static_cast<const KV*>(a.v) + b * a.v_sb + hk * a.v_sh;
+    }
   } else {
     const int sl = a.side_len_ptr ? *a.side_len_ptr : a.side_len_val;
     lo = (split - a.n_main) * kCK;
     hi = min(lo + kCK, min(sl, a.cap));
-    kb = static_cast<const T*>(a.side_k) + b * a.sk_sb + hk * a.sk_sh;
-    vb = static_cast<const T*>(a.side_v) + b * a.sv_sb + hk * a.sv_sh;
+    kb = static_cast<const KV*>(a.side_k) + b * a.sk_sb + hk * a.sk_sh;
+    vb = static_cast<const KV*>(a.side_v) + b * a.sv_sb + hk * a.sv_sh;
     kss = a.sk_ss;
     vss = a.sv_ss;
   }
@@ -118,25 +191,51 @@ __global__ void __launch_bounds__(kThreads)
   }
   const int n = hi - lo;
 
-  load_rows<T>(Kw, L::kLdw, kb, kss, lo, hi, kCK, D);
-  load_rows<T>(Vw, L::kLdw, vb, vss, lo, hi, kCK, D);
+  if constexpr (kMode == kPaged) {
+    if (main_split) {
+      // only live keys' table entries are read: p < hi <= cache_len[b]
+      for (int r = tid; r < n; r += kThreads)
+        blk_s[r] = a.table[(long long)b * a.M + (lo + r) / a.bs];
+    }
+  }
+  if constexpr (kMode == kInt8) {
+    for (int r = tid; r < kCK; r += kThreads) {
+      const bool live = r < n;
+      const long long p = lo + r;
+      ksc[r] = live ? a.k_scale[b * a.ks_sb + p * a.ks_ss + hk * a.ks_sh]
+                    : 0.f;
+      vsc[r] = live ? a.v_scale[b * a.vs_sb + p * a.vs_ss + hk * a.vs_sh]
+                    : 0.f;
+    }
+  }
+  __syncthreads();
+  if (kMode == kPaged && main_split) {
+    load_paged_rows<KV>(Kw, L::kLdw, kb, a.k_sb, kss, blk_s, lo, n, a.bs, D);
+    load_paged_rows<KV>(Vw, L::kLdw, vb, a.v_sb, vss, blk_s, lo, n, a.bs, D);
+  } else {
+    load_rows<KV>(Kw, L::kLdw, kb, kss, lo, hi, kCK, D);
+    load_rows<KV>(Vw, L::kLdw, vb, vss, lo, hi, kCK, D);
+  }
   const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + (hk * g) * a.q_sh;
   for (int i = tid; i < g * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    qs[i] = to_f32<T>(qb[r * a.q_sh + d]);
+    const float x = to_f32<T>(qb[r * a.q_sh + d]);
+    // K6 rounds q to bf16, as the Pallas int8 path does
+    qs[i] = kMode == kInt8 ? round_to<__nv_bfloat16>(x) : x;
   }
   __syncthreads();
 
   // scores: thread j owns key lo + j
   {
     const int j = tid;
-    const T* kr = reinterpret_cast<const T*>(Kw + j * L::kLdw);
+    const KV* kr = reinterpret_cast<const KV*>(Kw + j * L::kLdw);
+    const float kscale = kMode == kInt8 ? ksc[j] * a.scale : a.scale;
     for (int r = 0; r < g; ++r) {
       float acc = 0.f;
       const float* qr = qs + r * D;
 #pragma unroll 16
-      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], to_f32<T>(kr[d]), acc);
-      sc[r * kCK + j] = j < n ? acc * a.scale : -INFINITY;
+      for (int d = 0; d < D; ++d) acc = fmaf(qr[d], kv_f32<KV>(kr[d]), acc);
+      sc[r * kCK + j] = j < n ? acc * kscale : -INFINITY;
     }
   }
   __syncthreads();
@@ -153,7 +252,11 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = lane; j < kCK; j += 32) {
       const float p = expf(sr[j] - mx);  // masked keys: exp(-inf) = 0
       sum += p;
-      sr[j] = round_to<T>(p);            // P in the value dtype
+      if constexpr (kMode == kInt8) {
+        sr[j] = round_to<__nv_bfloat16>(p * vsc[j]);  // v scale folded in
+      } else {
+        sr[j] = round_to<T>(p);            // P in the value dtype
+      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -166,13 +269,14 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // unnormalized output: thread (r, d) sums p[r, j] * v[j, d]
-  const T* Vs = reinterpret_cast<const T*>(Vw);
-  constexpr int lde = L::kLdw * 4 / (int)sizeof(T);
+  const KV* Vs = reinterpret_cast<const KV*>(Vw);
+  constexpr int lde = L::kLdw * 4 / (int)sizeof(KV);
   for (int i = tid; i < g * D; i += kThreads) {
     const int r = i / D, d = i % D;
     const float* pr = sc + r * kCK;
     float acc = 0.f;
-    for (int j = 0; j < n; ++j) acc = fmaf(pr[j], to_f32<T>(Vs[j * lde + d]), acc);
+    for (int j = 0; j < n; ++j)
+      acc = fmaf(pr[j], kv_f32<KV>(Vs[j * lde + d]), acc);
     a.acc_part[pidx * g * D + i] = acc;
   }
 }
@@ -215,23 +319,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D, int kMode>
 cudaError_t launch(const DecArgs& a, void* out, float* lse, long long o_sb,
                    long long o_sh, cudaStream_t stream) {
-  using L = Layout<T, D>;
+  using L = Layout<KV, D>;
   const int g = a.H / a.Hkv;
   const size_t bytes = L::bytes(g);
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_partial_kernel<T, D>,
+        decode_partial_kernel<T, KV, D, kMode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)L::bytes(kMaxGroup));
     if (e != cudaSuccess) return e;
     configured = true;
   }
   dim3 grid(a.n_split, a.B * a.Hkv);
-  decode_partial_kernel<T, D><<<grid, kThreads, bytes, stream>>>(a);
+  decode_partial_kernel<T, KV, D, kMode><<<grid, kThreads, bytes, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   decode_merge_kernel<T><<<a.B * a.Hkv, kThreads, 0, stream>>>(
@@ -240,26 +344,49 @@ cudaError_t launch(const DecArgs& a, void* out, float* lse, long long o_sb,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV, int kMode>
 cudaError_t dispatch(int d, const DecArgs& a, void* out, float* lse,
                      long long o_sb, long long o_sh, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(a, out, lse, o_sb, o_sh, s);
-    case 32: return launch<T, 32>(a, out, lse, o_sb, o_sh, s);
-    case 64: return launch<T, 64>(a, out, lse, o_sb, o_sh, s);
-    case 128: return launch<T, 128>(a, out, lse, o_sb, o_sh, s);
+    case 16: return launch<T, KV, 16, kMode>(a, out, lse, o_sb, o_sh, s);
+    case 32: return launch<T, KV, 32, kMode>(a, out, lse, o_sb, o_sh, s);
+    case 64: return launch<T, KV, 64, kMode>(a, out, lse, o_sb, o_sh, s);
+    case 128: return launch<T, KV, 128, kMode>(a, out, lse, o_sb, o_sh, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (the query, output and, except in K6,
+// cache type)
+template <int kMode>
+int run(int dtype, int d, const DecArgs& a, void* out, float* lse,
+        long long o_sb, long long o_sh, void* stream) {
+  if (a.H % a.Hkv != 0 || a.H / a.Hkv > kMaxGroup)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if constexpr (kMode == kInt8) {
+    e = dtype == 1
+            ? dispatch<__nv_bfloat16, int8_t, kMode>(d, a, out, lse, o_sb,
+                                                     o_sh, s)
+            : dispatch<float, int8_t, kMode>(d, a, out, lse, o_sb, o_sh, s);
+  } else {
+    e = dtype == 1 ? dispatch<__nv_bfloat16, __nv_bfloat16, kMode>(
+                         d, a, out, lse, o_sb, o_sh, s)
+                   : dispatch<float, float, kMode>(d, a, out, lse, o_sb,
+                                                   o_sh, s);
+  }
+  return static_cast<int>(e);
 }
 
 }  // namespace
 
 extern "C" int tpudist_flash_decode_split_keys(void) { return kCK; }
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides in elements (head_dim stride
-// 1).  len_ptr: per-row [B] int32 (len_stride 1), a device scalar
-// (len_stride 0) or null (len_val).  side_k null: no side buffer.  lse may
-// be null.  Returns cudaGetLastError() after the two launches.
+// K2.  Strides in elements (head_dim stride 1).  len_ptr: per-row [B]
+// int32 (len_stride 1), a device scalar (len_stride 0) or null (len_val).
+// side_k null: no side buffer.  lse may be null.  Returns
+// cudaGetLastError() after the two launches.
 extern "C" int tpudist_flash_decode(
     int dtype, const void* q, const void* k, const void* v,
     const void* side_k, const void* side_v, void* out, float* lse,
@@ -274,16 +401,62 @@ extern "C" int tpudist_flash_decode(
     const int* len_ptr, int len_stride, int len_val,
     const int* side_len_ptr, int side_len_val, int window, float scale,
     void* stream) {
-  if (H % Hkv != 0 || H / Hkv > kMaxGroup) return cudaErrorInvalidValue;
   DecArgs a{q, k, v, side_k, side_v, m_part, l_part, acc_part,
             B, H, Hkv, S, cap, n_main, n_split,
             q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
             sk_sb, sk_ss, sk_sh, sv_sb, sv_ss, sv_sh,
             len_ptr, len_stride, len_val, side_len_ptr, side_len_val,
-            window, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 1
-                      ? dispatch<__nv_bfloat16>(D, a, out, lse, o_sb, o_sh, s)
-                      : dispatch<float>(D, a, out, lse, o_sb, o_sh, s);
-  return static_cast<int>(e);
+            window, scale,
+            nullptr, 0, 0, nullptr, nullptr, 0, 0, 0, 0, 0, 0};
+  return run<kStrided>(dtype, D, a, out, lse, o_sb, o_sh, stream);
+}
+
+// K5.  Pools [N, bs, Hkv, D] through strides (p_sn: block, p_ss: row,
+// p_sh: head); table [B, M] int32 with M * bs = S, the logical capacity;
+// per-row lengths len_ptr [B]; side buffers as in K2.
+extern "C" int tpudist_paged_flash_decode(
+    int dtype, const void* q, const void* k_pool, const void* v_pool,
+    const void* side_k, const void* side_v, void* out, float* lse,
+    float* m_part, float* l_part, float* acc_part, const int* table,
+    int B, int H, int Hkv, int D, int M, int bs, int cap, int n_main,
+    int n_split,
+    long long q_sb, long long q_sh,
+    long long k_sn, long long k_ss, long long k_sh,
+    long long v_sn, long long v_ss, long long v_sh,
+    long long sk_sb, long long sk_ss, long long sk_sh,
+    long long sv_sb, long long sv_ss, long long sv_sh,
+    long long o_sb, long long o_sh, const int* len_ptr,
+    const int* side_len_ptr, int side_len_val, float scale, void* stream) {
+  DecArgs a{q, k_pool, v_pool, side_k, side_v, m_part, l_part, acc_part,
+            B, H, Hkv, M * bs, cap, n_main, n_split,
+            q_sb, q_sh, k_sn, k_ss, k_sh, v_sn, v_ss, v_sh,
+            sk_sb, sk_ss, sk_sh, sv_sb, sv_ss, sv_sh,
+            len_ptr, 1, 0, side_len_ptr, side_len_val, 0, scale,
+            table, M, bs, nullptr, nullptr, 0, 0, 0, 0, 0, 0};
+  return run<kPaged>(dtype, D, a, out, lse, o_sb, o_sh, stream);
+}
+
+// K6.  int8 caches [B, S, Hkv, D] and f32 scales [B, S, Hkv] through
+// strides; lengths and window as in K2; no side buffer.
+extern "C" int tpudist_flash_decode_q8(
+    int dtype, const void* q, const void* k, const float* k_scale,
+    const void* v, const float* v_scale, void* out, float* lse,
+    float* m_part, float* l_part, float* acc_part,
+    int B, int H, int Hkv, int D, int S, int n_split,
+    long long q_sb, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long ks_sb, long long ks_ss, long long ks_sh,
+    long long vs_sb, long long vs_ss, long long vs_sh,
+    long long o_sb, long long o_sh,
+    const int* len_ptr, int len_stride, int len_val, int window,
+    float scale, void* stream) {
+  DecArgs a{q, k, v, nullptr, nullptr, m_part, l_part, acc_part,
+            B, H, Hkv, S, 0, n_split, n_split,
+            q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+            0, 0, 0, 0, 0, 0,
+            len_ptr, len_stride, len_val, nullptr, 0, window, scale,
+            nullptr, 0, 0, k_scale, v_scale,
+            ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh};
+  return run<kInt8>(dtype, D, a, out, lse, o_sb, o_sh, stream);
 }

@@ -77,11 +77,17 @@ def sequence_lengths(generated: torch.Tensor, stop_arr: torch.Tensor,
 
 
 def _blank_cache(model: TransformerLM, batch: int, *, per_row: bool = False,
-                 side_slots: int = 0) -> list[dict]:
+                 side_slots: int = 0, paged: bool = False) -> list[dict]:
     """Fresh zeroed KV cache for ``model`` (cache_index 0, empty slots),
-    allocated from its config on its device."""
+    allocated from its config on its device.  ``paged``: the slot cache
+    of a ``cache_layout="paged"`` model, one block pool per layer sized
+    by its ``kv_num_blocks`` / ``kv_block_size``, with a page table."""
+    pool = {}
+    if paged:
+        pool = dict(kv_block_size=model.kv_block_size,
+                    kv_num_blocks=model.kv_num_blocks)
     return blank_cache(model.cfg, batch, device=model.device,
-                       per_row=per_row, side_slots=side_slots)
+                       per_row=per_row, side_slots=side_slots, **pool)
 
 
 def _prefill(model: TransformerLM, cache: list[dict], prompt: torch.Tensor,

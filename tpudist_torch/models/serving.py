@@ -17,16 +17,30 @@ inserts the row into the freed slot.  Per-request budgets and stop tokens
 freeze a lane inside the segment; the host finalizes completions in finish
 order and reuses the slot.
 
-This slice ports the synchronous loop (``pipeline_depth=1``) on the dense
-cache with plain decode and the unified role.  Each tick is an eager step
-whose index arithmetic stays on the device; the loop checks once per tick
-whether any lane is still active (the early exit) and reads the segment's
-emits once per segment.  Counters are plain attributes (``stats``).
+``cache_layout="paged"`` keeps the slots' K/V in one block pool per layer
+instead (PagedAttention; :mod:`tpudist_torch.models.kv_pages` is the host
+half): admission allocates the prompt's blocks and reserves the rest of the
+request's footprint, and QUEUES (FIFO) while the pool lacks the blocks;
+each segment grows every decoding lane's pages first and stamps the page
+table into the cache; each tick attends the frozen pool through the page
+table plus the side buffer in one paged flash-decode kernel call (K5); the
+segment's merge scatters the side tokens into pool pages; a finished
+request frees its blocks.  With ``prefix_sharing`` (chunked admission) a
+prompt whose leading blocks are cached ALIASES them copy-on-write and
+prefills only the rest.  Prefill stays dense, into the batch-1 cache, and
+the finish scatters that row into the slot's own pages.
+
+This slice ports the synchronous loop (``pipeline_depth=1``) with plain
+decode and the unified role.  Each tick is an eager step whose index
+arithmetic stays on the device; the loop checks once per tick whether any
+lane is still active (the early exit) and reads the segment's emits once
+per segment.  Counters are plain attributes (``stats``, ``prefix_stats``).
 
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP
-item: ``pipeline_depth`` 2, the paged layout, speculative decoding, the
-prefill/decode roles, preemption by migration, service mode
-(``source``/``sink``) and deadlines.  The overload ladder is ported: past
+item: ``pipeline_depth`` 2, speculative decoding, the prefill/decode
+roles, preemption by migration, service mode (``source``/``sink``) and
+deadlines; the paged layout's host-RAM tier is absent (its prefix cache
+evicts without spilling).  The overload ladder is ported: past
 ``degrade_queue`` waiting requests best-effort budgets are clamped, past
 ``max_queue`` the overflow is shed.
 """
@@ -49,6 +63,7 @@ from tpudist_torch.models.generate import (
     _stop_array,
     build_model,
 )
+from tpudist_torch.models.kv_pages import BlockPool, PrefixCache
 from tpudist_torch.models.transformer import TransformerConfig
 from tpudist_torch.utils.device import resolve_device
 
@@ -57,13 +72,18 @@ from tpudist_torch.utils.device import resolve_device
 class Request:
     """One serving request: a prompt and its generation budget.
     ``priority`` orders load shedding (lowest class first); ``deadline_s``
-    (absolute wall-clock seconds) is not supported by this slice."""
+    (absolute wall-clock seconds) is not supported by this slice.
+    ``prefix_hash`` is an opaque client-stamped hash of the prompt's shared
+    prefix (:func:`tpudist_torch.models.kv_pages.request_prefix_hash`); a
+    loop with prefix sharing on records the recent ones
+    (:meth:`ServeLoop.prefix_summary`) for a router's affinity."""
 
     prompt: np.ndarray            # [L] int tokens, L >= 1
     max_new_tokens: int
     rid: Any = None               # caller's correlation id
     deadline_s: float | None = None
     priority: int = 0             # 0 = best-effort; higher = keep longer
+    prefix_hash: int | None = None
 
 
 @dataclasses.dataclass
@@ -133,6 +153,14 @@ class ServeLoop:
       chunked_prefill: admit one prompt chunk per loop iteration between
         decode segments instead of the whole prompt at once (same chunk
         grid, same tokens).
+      cache_layout: "dense" (per-slot ``[B, S]`` K/V buffers) or "paged"
+        (one block pool per layer plus per-slot page tables).
+      kv_block_size: tokens per KV block (paged only), a positive
+        multiple of 8.
+      kv_num_blocks: pool capacity (paged only); ``None`` sizes it to full
+        dense capacity, ``num_slots × ceil(max_seq_len / block)``.
+      prefix_sharing: copy-on-write prefix sharing (paged layout with
+        chunked prefill; off otherwise).
       device: where to run (default ``cuda``; raises if there is none).
     """
 
@@ -152,11 +180,14 @@ class ServeLoop:
         generator: torch.Generator | None = None,
         pipeline_depth: int = 1,
         cache_layout: str = "dense",
+        kv_block_size: int = 128,
+        kv_num_blocks: int | None = None,
         max_queue: int | None = None,
         degrade_queue: int | None = None,
         degrade_max_new: int = 32,
         decode_mode: str = "plain",
         chunked_prefill: bool = True,
+        prefix_sharing: bool = True,
         role: str = "both",
         preempt: str = "degrade",
         device=None,
@@ -194,10 +225,10 @@ class ServeLoop:
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"cache_layout must be 'dense' or 'paged', got "
                              f"{cache_layout!r}")
-        if cache_layout == "paged":
-            raise NotImplementedError(
-                "cache_layout='paged' is not ported yet (ROADMAP Queue A: "
-                "paged KV with kernel B5)")
+        if cache_layout == "paged" and cfg.attention_window is not None:
+            raise ValueError(
+                "cache_layout='paged' has no sliding-window trim yet; "
+                "serve windowed models with the dense layout")
         if decode_mode not in ("plain", "speculative"):
             raise ValueError(f"decode_mode must be 'plain' or 'speculative', "
                              f"got {decode_mode!r}")
@@ -220,8 +251,21 @@ class ServeLoop:
         if self.side > cfg.max_seq_len:
             raise ValueError(f"steps_per_sync {steps_per_sync} exceeds "
                              f"max_seq_len {cfg.max_seq_len}")
+        paged = cache_layout == "paged"
+        block = nb = 0
+        self.pool = None
+        if paged:
+            block = int(kv_block_size)
+            nb = (num_slots * -(-cfg.max_seq_len // block)
+                  if kv_num_blocks is None else int(kv_num_blocks))
+            # the host half: free list, per-slot block lists, and the page
+            # table each segment stamps into the cache
+            self.pool = BlockPool(nb, block, num_slots, cfg.max_seq_len)
+        self.kv_block_size = block
         self.model = build_model(cfg, params, device=device,
-                                 serve_side_slots=self.side)
+                                 serve_side_slots=self.side,
+                                 cache_layout=cache_layout,
+                                 kv_block_size=block, kv_num_blocks=nb)
         self.cfg = self.model.cfg
         self.device = self.model.device
         self.B = num_slots
@@ -230,6 +274,17 @@ class ServeLoop:
         self.prefill_chunk = prefill_chunk
         self.pad_token = int(pad_token)
         self.chunked = bool(chunked_prefill)
+        # prefix sharing needs the pool (shared blocks live there) and the
+        # chunked admission (a hit starts its worklist past the prefix)
+        self._prefix_cache = (PrefixCache(self.pool)
+                              if prefix_sharing and self.chunked and paged
+                              else None)
+        # recently admitted Request.prefix_hash values, LRU-bounded
+        self._affinity_recent: dict[int, None] = {}
+        # prompt_tokens: every admitted prompt position; prefill_tokens:
+        # the positions actually recomputed (past a cached prefix)
+        self.prefix_stats = {"requests": 0, "hits": 0, "hit_tokens": 0,
+                             "prompt_tokens": 0, "prefill_tokens": 0}
         self.max_queue = None if max_queue is None else int(max_queue)
         self.degrade_queue = (None if degrade_queue is None
                               else int(degrade_queue))
@@ -242,10 +297,11 @@ class ServeLoop:
         self._generator = generator
         if generator is None and temperature > 0:
             self._generator = torch.Generator(self.device).manual_seed(0)
-        # the slot cache: VECTOR index leaves (one position per slot) and,
-        # in side mode, the side buffers (the JAX loop's _with_side_buffers)
+        # the slot cache: VECTOR index leaves (one position per slot), in
+        # side mode the side buffers (the JAX loop's _with_side_buffers)
+        # and, paged, the pools and page table instead of dense rows
         self.cache = _blank_cache(self.model, num_slots, per_row=True,
-                                  side_slots=self.side)
+                                  side_slots=self.side, paged=paged)
         dev = self.device
         self._tok = torch.full((num_slots,), self.pad_token,
                                dtype=torch.long, device=dev)
@@ -323,6 +379,8 @@ class ServeLoop:
         end the ``cap``-wide write window shifts below ``idx[r]`` and the
         side row is re-aligned so live token ``t`` still lands at
         ``idx[r] + t``."""
+        if self.pool is not None:
+            return self._merge_paged(cache, lived)
         S = self.cfg.max_seq_len
         cap = self.side
         p = torch.arange(cap, device=self.device)
@@ -344,6 +402,45 @@ class ServeLoop:
             layer["cache_index"] = (idx + lived).clamp(max=S).to(torch.int32)
             layer["side_index"] = torch.zeros_like(layer["side_index"])
 
+    def _merge_paged(self, cache: list[dict], lived: torch.Tensor) -> None:
+        """End of segment, paged: row ``r``'s live side token ``t`` lands
+        at logical position ``idx[r] + t``, i.e. pool block
+        ``table[r, pos // block]`` row ``pos % block``.  The scatter is
+        MASKED to live entries (``t < lived[r]`` and ``pos <
+        max_seq_len``): a frozen row's garbage side slots, or a dead table
+        entry (0, another owner's block), are never written — the JAX
+        merge drops them through an out-of-range index, which an
+        ``index_put_`` would not.  Every layer shares the indices; taking
+        them costs one host sync per segment."""
+        S = self.cfg.max_seq_len
+        bs = self.kv_block_size
+        first = cache[0]
+        idx = first["cache_index"].long()                   # [B]
+        tbl = first["page_table"]                           # [B, M]
+        t = torch.arange(self.side, device=self.device)[None, :]
+        pos = idx[:, None] + t                              # [B, cap]
+        live = (t < lived[:, None]) & (pos < S)
+        rows, cols = live.nonzero(as_tuple=True)
+        at = pos[rows, cols]
+        page = tbl[rows, at // bs].long()
+        off = at % bs
+        for layer in cache:
+            for name, side_name in (("paged_key", "side_key"),
+                                    ("paged_value", "side_value")):
+                pool = layer[name]
+                pool[page, off] = layer[side_name][rows, cols].to(pool.dtype)
+            layer["cache_index"] = (idx + lived).clamp(max=S).to(torch.int32)
+            layer["side_index"] = torch.zeros_like(layer["side_index"])
+
+    def _stamp_table(self) -> None:
+        """Push the host allocator's page table into the cache: one device
+        copy, shared by every layer (nothing writes a layer's table in
+        place between stamps but the insert, which writes them all
+        alike)."""
+        tbl = torch.from_numpy(self.pool.table).to(self.device)
+        for layer in self.cache:
+            layer["page_table"] = tbl
+
     def _pad_prompt(self, prompt: np.ndarray):
         """Right-pad to a chunk multiple CAPPED at the cache size (an
         uncapped pad past max_seq_len would clamp the final chunk's write
@@ -355,14 +452,54 @@ class ServeLoop:
         padded[0, :L] = prompt
         return padded, chunk
 
-    def _insert(self, cache1: list[dict], slot: int, true_len: int) -> None:
+    def _insert(self, cache1: list[dict], slot: int, true_len: int,
+                pages: np.ndarray | None = None, write_block: int = 0) -> None:
         """Copy the prefilled batch-1 cache into slot ``slot`` and stamp its
         true length (side buffers are left alone: side_index is 0 between
-        segments)."""
+        segments).  Paged: the dense ``[S, F]`` row is cut into blocks and
+        written into the slot's pages ``pages`` — only blocks under the
+        prompt and at or past ``write_block`` (shared prefix blocks are
+        read in place, never rewritten), selected on the host so no other
+        owner's block can be hit."""
+        if self.pool is None:
+            for big, small in zip(self.cache, cache1):
+                big["cached_key"][slot].copy_(small["cached_key"][0])
+                big["cached_value"][slot].copy_(small["cached_value"][0])
+                big["cache_index"][slot] = true_len
+            return
+        bs = self.kv_block_size
+        m = pages.shape[0]
+        sel = [j for j in range(m) if j * bs < true_len and j >= write_block]
+        dst = torch.as_tensor(pages[sel], dtype=torch.long,
+                              device=self.device)
+        src = torch.as_tensor(sel, dtype=torch.long, device=self.device)
+        row_pages = torch.as_tensor(pages, dtype=torch.int32,
+                                    device=self.device)
         for big, small in zip(self.cache, cache1):
-            big["cached_key"][slot].copy_(small["cached_key"][0])
-            big["cached_value"][slot].copy_(small["cached_value"][0])
+            for name, dname in (("paged_key", "cached_key"),
+                                ("paged_value", "cached_value")):
+                row = small[dname][0]                        # dense [S, F]
+                blocks = torch.nn.functional.pad(
+                    row, (0, 0, 0, m * bs - row.shape[0])).view(m, bs, -1)
+                big[name][dst] = blocks[src].to(big[name].dtype)
+            big["page_table"][slot] = row_pages
             big["cache_index"][slot] = true_len
+
+    def _gather_prefix(self, pages: np.ndarray) -> list[dict]:
+        """A fresh dense batch-1 prefill cache whose rows hold the slot's
+        pool blocks ``pages`` (its full page row) in logical order: the
+        shared prefix's K/V exactly as the admission that registered it
+        wrote them (rows past the prefix carry whatever the referenced
+        blocks hold; suffix chunks overwrite them before any read)."""
+        cache1 = _blank_cache(self.model, 1)
+        idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        S = self.cfg.max_seq_len
+        for big, small in zip(self.cache, cache1):
+            for name, dname in (("paged_key", "cached_key"),
+                                ("paged_value", "cached_value")):
+                rows = big[name][idx].reshape(-1, big[name].shape[2])[:S]
+                small[dname][0, :rows.shape[0]] = rows.to(small[dname].dtype)
+        return cache1
 
     def _stamp_lane(self, slot: int, first: torch.Tensor,
                     max_new: int) -> None:
@@ -378,10 +515,11 @@ class ServeLoop:
         self._first[slot] = first
 
     @torch.no_grad()
-    def _admit_oneshot(self, prompt: np.ndarray, slot: int,
-                       max_new: int) -> None:
+    def _admit_oneshot(self, prompt: np.ndarray, slot: int, max_new: int,
+                       pages: np.ndarray | None) -> None:
         """One-shot admission: chunked prefill of the padded prompt into a
-        fresh batch-1 cache, insertion into the slot, lane stamps."""
+        fresh batch-1 cache, insertion into the slot (paged: into its
+        ``pages``), lane stamps."""
         L = int(prompt.size)
         padded, chunk = self._pad_prompt(prompt)
         cache1 = _blank_cache(self.model, 1)
@@ -391,7 +529,7 @@ class ServeLoop:
         _set_cache_index(cache1, L)
         last = logits[0, L - 1 - (padded.shape[1] - logits.shape[1])]
         first = self._select(last[None, :], self._generator)[0]
-        self._insert(cache1, slot, L)
+        self._insert(cache1, slot, L, pages)
         self._stamp_lane(slot, first, max_new)
 
     @torch.no_grad()
@@ -410,11 +548,11 @@ class ServeLoop:
     @torch.no_grad()
     def _admit_finish(self, pf: dict, slot: int) -> None:
         """The tail of a chunked admission: insert the prefilled batch-1
-        cache, select the first token from the last chunk's logits
-        (position ``L - 1`` is row ``L - 1 - off`` of that chunk), stamp
-        the lane."""
+        cache (paged: skipping shared blocks below ``write_block``), select
+        the first token from the last chunk's logits (position ``L - 1`` is
+        row ``L - 1 - off`` of that chunk), stamp the lane."""
         cache1 = _set_cache_index(pf["cache1"], pf["L"])
-        self._insert(cache1, slot, pf["L"])
+        self._insert(cache1, slot, pf["L"], pf["pages"], pf["write_block"])
         last = pf["logits"][0, pf["L"] - 1 - pf["off_last"]]
         first = self._select(last[None, :], self._generator)[0]
         self._stamp_lane(slot, first, pf["max_new"])
@@ -441,6 +579,41 @@ class ServeLoop:
                 "request deadlines are not ported yet (ROADMAP Queue A: "
                 "pipeline_depth 2, which brings the deadline clamp's "
                 "in-flight kills)")
+        if self.pool is not None:
+            need = self.pool.request_blocks(prompt.size, req.max_new_tokens)
+            if need > self.pool.num_blocks:
+                raise ValueError(
+                    f"request reserves {need} KV blocks > pool capacity "
+                    f"{self.pool.num_blocks}; it could never be admitted "
+                    "(raise kv_num_blocks or shrink the request)")
+
+    def _prefix_plan(self, prompt: np.ndarray,
+                     L: int) -> tuple[list[int], int, bool]:
+        """Match ``prompt`` against the prefix cache: ``(shared_blocks,
+        suffix_start, cow)``.  ``suffix_start`` is the first position
+        prefill must compute; a FULL-prompt hit still recomputes position
+        ``L - 1`` (the first output logit has to come from somewhere), a
+        write into the last shared block — the ``cow`` split."""
+        blocks = self._prefix_cache.match(prompt)
+        if not blocks:
+            return [], 0, False
+        matched = len(blocks) * self.kv_block_size
+        if matched >= L:
+            return blocks, L - 1, True
+        return blocks, matched, False
+
+    def prefix_summary(self, limit: int = 64) -> list[int]:
+        """The most recently admitted ``Request.prefix_hash`` values while
+        prefix sharing is on (a router's affinity key); empty when it is
+        off."""
+        return list(self._affinity_recent)[-limit:]
+
+    def flush_prefix_cache(self) -> None:
+        """Drop every cached prefix: idle blocks return to the free list
+        (the pool then drains to fully free once no slot is live)."""
+        if self._prefix_cache is not None:
+            self._prefix_cache.flush()
+        self._affinity_recent.clear()
 
     def _admit(self, slot: int, req: Request) -> dict:
         """Admit ``req`` into ``slot``: the one-shot path dispatches the
@@ -451,21 +624,81 @@ class ServeLoop:
         self._validate(req)
         prompt = np.asarray(req.prompt, np.int64)
         L = int(prompt.size)
+        max_new = int(req.max_new_tokens)
         self.stats.prompt_tokens += L
+        self.prefix_stats["requests"] += 1
+        self.prefix_stats["prompt_tokens"] += L
+        if req.prefix_hash is not None and self._prefix_cache is not None:
+            self._affinity_recent.pop(int(req.prefix_hash), None)
+            self._affinity_recent[int(req.prefix_hash)] = None
+            while len(self._affinity_recent) > 128:
+                self._affinity_recent.pop(next(iter(self._affinity_recent)))
         if self.chunked:
-            padded, C = self._pad_prompt(prompt)
-            Lp = padded.shape[1]
-            chunks = [(off, min(C, Lp - off)) for off in range(0, Lp, C)]
-            return {"req": req, "tokens": [], "pending_first": True,
-                    "prefill": {"cache1": _blank_cache(self.model, 1),
-                                "padded": padded, "chunks": chunks,
-                                "logits": None, "off_last": 0, "L": L,
-                                "max_new": int(req.max_new_tokens)}}
+            return self._admit_start(slot, req, prompt, L, max_new)
+        self.prefix_stats["prefill_tokens"] += L
+        pages = None
+        if self.pool is not None:
+            # allocate-on-admit: pages under the prompt now, the rest of
+            # the worst-case footprint reserved (growth cannot fail)
+            self.pool.admit(slot, L, max_new)
+            pages = self.pool.table[slot].copy()
         t0 = time.perf_counter()
-        self._admit_oneshot(prompt, slot, int(req.max_new_tokens))
+        self._admit_oneshot(prompt, slot, max_new, pages)
         self._sync()
         self.stats.prefill_seconds += time.perf_counter() - t0
         return {"req": req, "tokens": [], "pending_first": True}
+
+    def _admit_start(self, slot: int, req: Request, prompt: np.ndarray,
+                     L: int, max_new: int) -> dict:
+        """The host half of a chunked admission: pool admit — with cached
+        prefix blocks ALIASED in and, on a full-prompt hit, the last one
+        split copy-on-write (the finish insert rewrites the split block
+        whole, which IS the copy) — the batch-1 prefill cache (gathered
+        from the shared blocks on a hit), and the chunk worklist: the
+        one-shot path's chunk grid, starting at the chunk that holds
+        ``suffix_start`` (positions below it in that chunk are recomputed
+        to identical bytes).  The prefix is registered only after the
+        finish insert has written its blocks (``advance_admissions``)."""
+        suffix_start = write_block = 0
+        pages = None
+        if self._prefix_cache is not None:
+            blocks, suffix_start, cow = self._prefix_plan(prompt, L)
+            self.pool.admit(slot, L, max_new, shared=blocks)
+            if cow:
+                self.pool.cow_write(slot, len(blocks) - 1)
+            write_block = suffix_start // self.kv_block_size
+            if blocks:
+                self.prefix_stats["hits"] += 1
+                self.prefix_stats["hit_tokens"] += (
+                    len(blocks) * self.kv_block_size)
+        elif self.pool is not None:
+            self.pool.admit(slot, L, max_new)
+        self.prefix_stats["prefill_tokens"] += L - suffix_start
+        if self.pool is not None:
+            pages = self.pool.table[slot].copy()
+        cache1 = (self._gather_prefix(pages) if suffix_start
+                  else _blank_cache(self.model, 1))
+        padded, C = self._pad_prompt(prompt)
+        Lp = padded.shape[1]
+        chunks = [(off, min(C, Lp - off))
+                  for off in range((suffix_start // C) * C, Lp, C)]
+        return {"req": req, "tokens": [], "pending_first": True,
+                "prefill": {"cache1": cache1, "padded": padded,
+                            "chunks": chunks, "logits": None, "off_last": 0,
+                            "L": L, "max_new": max_new, "pages": pages,
+                            "write_block": write_block}}
+
+    def _fits(self, req: Request) -> bool:
+        """Whether the pool can take ``req`` now: its full reservation,
+        less the blocks a cached prefix lends it, plus the copy-on-write
+        block a full-prompt hit draws."""
+        L = int(np.asarray(req.prompt).size)
+        if self._prefix_cache is None:
+            return self.pool.can_admit(L, int(req.max_new_tokens))
+        n_sh = self._prefix_cache.peek(req.prompt)
+        cow = int(n_sh * self.kv_block_size >= L)
+        return self.pool.can_admit(L, int(req.max_new_tokens), shared=n_sh,
+                                   cow=cow)
 
     def _plan_steps(self, slot_state) -> int:
         """Per-dispatch segment length: ``steps_per_sync``, clamped against
@@ -529,10 +762,20 @@ class ServeLoop:
                 tokens=np.asarray(st["tokens"], np.int32), reason=reason))
             stats.tokens += len(st["tokens"])
             slot_state[slot] = None
+            if self.pool is not None:
+                # free-on-finalize: blocks and the unused reservation
+                # return now (the lane is frozen on the device, and the
+                # merge is masked by `lived`, so nothing writes them)
+                self.pool.free_slot(slot)
 
         def admit_free() -> None:
             for slot in range(self.B):
                 if slot_state[slot] is None and pending:
+                    if self.pool is not None and not self._fits(pending[0]):
+                        # capacity gate: QUEUE instead of overrunning the
+                        # pool, FIFO (a smaller request behind the head
+                        # never jumps it, which would starve long prompts)
+                        break
                     req = pending.popleft()
                     if (self._degraded and req.priority <= 0
                             and req.max_new_tokens > self.degrade_max_new):
@@ -593,6 +836,13 @@ class ServeLoop:
                     pf["off_last"] = off
                     continue
                 self._admit_finish(pf, slot)
+                if self._prefix_cache is not None:
+                    # registered only now that the insert has written the
+                    # blocks: an earlier admission matching them would
+                    # gather unwritten pages (first-wins per hash)
+                    self._prefix_cache.register(
+                        pf["padded"][0, :pf["L"]],
+                        self.pool._slot_blocks[slot])
                 del st["prefill"]
             if worked:
                 self._sync()
@@ -606,6 +856,15 @@ class ServeLoop:
 
         def dispatch_and_drain() -> None:
             n = self._plan_steps(slot_state)
+            if self.pool is not None:
+                # grow-on-decode-boundary: every decoding lane's pages
+                # cover the segment's worst case (drawn from its admit-time
+                # reservation, so this cannot fail); prefilling lanes do
+                # not grow.  Then the table goes to the device.
+                for slot, st in enumerate(slot_state):
+                    if st is not None and "prefill" not in st:
+                        self.pool.grow(slot, n)
+                self._stamp_table()
             t0 = time.perf_counter()
             emits_dev, corrupt_dev = self._segment(n)
             emits = emits_dev.cpu().numpy()

@@ -20,16 +20,26 @@ The flax ``cache`` collection becomes an explicit cache: a list with one
 dict per layer holding the packed ``[B, S, Hkv·D]`` ``cached_key`` /
 ``cached_value`` buffers, the ``cache_index`` (a 0-D int32 tensor, or a
 ``[B]`` vector for the per-row serve mode) and, in the side-buffer serve
-mode, ``side_key`` / ``side_value`` / ``side_index``.  A forward with a
+mode, ``side_key`` / ``side_value`` / ``side_index``.  The PAGED layout
+(``cache_layout="paged"``) holds ``paged_key`` / ``paged_value`` block
+pools ``[kv_num_blocks, kv_block_size, Hkv·D]`` and a ``[B, M]`` int32
+``page_table`` in place of the dense buffers: slot ``b``'s position ``p``
+lives at ``pool[page_table[b, p // block], p % block]``.  A forward with a
 cache writes the new K/V into those buffers IN PLACE (the JAX version
 returns updated copies; at 8k context a copy per step would cost more than
 the step), advances the index, and returns ``(logits, cache)``.  Index
 arithmetic stays on the device, so a decode step never waits on the host.
 
+Each attention layer picks its path from the cache node it is handed, so
+one paged model serves both its slot pool and the dense batch-1 cache that
+admission prefills into (the JAX ServeLoop builds a second, dense model for
+that).
+
 Cached attention always goes through the kernel wrappers (the JAX
 package's ``decode_attention="flash"``): prefill chunks through the
-flash-forward kernel (K1), decode steps through the flash-decode kernel
-(K2).  On CPU tensors the wrappers run their plain versions.  The one
+flash-forward kernel (K1), dense decode steps through the flash-decode
+kernel (K2), paged decode steps through the paged flash-decode kernel
+(K5).  On CPU tensors the wrappers run their plain versions.  The one
 cached branch without a kernel is the per-row decode of a sliding-window
 model without side buffers (the JAX package has none either); it runs
 the plain masked softmax and is off the serve path's main configuration.
@@ -38,8 +48,8 @@ the plain masked softmax and is off the serve path's main configuration.
 eagerly, so there is no trace to shrink; the model runs its unrolled
 ``ModuleList``, and ``from_flax_params`` unstacks a scanned checkpoint.
 
-Not ported yet: the paged layout (``_paged_attend``), sharded decode
-(``decode_shard``) and the per-row speculative verify chunk.  Each raises
+Not ported yet: sharded decode (``decode_shard``) and the per-row
+speculative verify chunk without side buffers.  Each raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -55,19 +65,19 @@ import torch.utils.checkpoint
 from torch import nn
 
 from tpudist_torch.ops.flash_attention import _flash_forward
-from tpudist_torch.ops.flash_decode import flash_decode
+from tpudist_torch.ops.flash_decode import flash_decode, paged_flash_decode
 from tpudist_torch.utils.device import resolve_device
 
 # (q, k, v, *, causal, window=None) on [batch, seq, heads, head_dim] tensors
 AttentionFn = Callable[..., torch.Tensor]
 
-_PAGED_TODO = ("cache_layout='paged' is not ported yet (ROADMAP Queue A: "
-               "paged KV with kernel B5)")
 _SHARD_TODO = ("sharded decode (decode_shard) is not ported yet (ROADMAP "
                "Queue A: serving breadth, sharded decode)")
 _VERIFY_TODO = ("a per-row multi-token verify chunk without side buffers is "
                 "not ported yet (ROADMAP Queue A: speculative decoding, "
                 "roles and preemption)")
+_PAGED_WINDOW = ("the paged cache has no sliding-window trim yet; use "
+                 "cache_layout='dense' for windowed models")
 
 
 def _masked_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -149,26 +159,45 @@ class TransformerConfig:
 
 def blank_cache(cfg: TransformerConfig, batch: int, *,
                 device: torch.device, per_row: bool = False,
-                side_slots: int = 0) -> list[dict[str, torch.Tensor]]:
+                side_slots: int = 0, kv_block_size: int = 0,
+                kv_num_blocks: int = 0) -> list[dict[str, torch.Tensor]]:
     """A fresh zeroed KV cache: one dict per layer with the packed
     ``[batch, max_seq_len, Hkv·D]`` K/V buffers and a 0-D ``cache_index``
     (``per_row``: a ``[batch]`` vector, the serve mode), plus
     ``[batch, side_slots, Hkv·D]`` side buffers and a 0-D ``side_index``
-    when ``side_slots > 0``.  Zeros, not empty: masked positions are never
-    attended, but a NaN bit pattern times a zero probability would still
-    poison a sum."""
+    when ``side_slots > 0``.  With ``kv_num_blocks > 0`` the layer is
+    PAGED instead: ``[kv_num_blocks, kv_block_size, Hkv·D]`` pools, a
+    ``[batch, ceil(max_seq_len / kv_block_size)]`` int32 ``page_table``
+    (0 is a valid pool index) and a ``[batch]`` ``cache_index``.  Zeros,
+    not empty: masked positions are never attended, but a NaN bit pattern
+    times a zero probability would still poison a sum."""
     flat = cfg.kv_heads * cfg.head_dim
     layers = []
     for _ in range(cfg.num_layers):
-        layer = {
-            "cached_key": torch.zeros((batch, cfg.max_seq_len, flat),
-                                      dtype=cfg.compute_dtype, device=device),
-            "cached_value": torch.zeros((batch, cfg.max_seq_len, flat),
-                                        dtype=cfg.compute_dtype,
-                                        device=device),
-            "cache_index": torch.zeros((batch,) if per_row else (),
-                                       dtype=torch.int32, device=device),
-        }
+        if kv_num_blocks > 0:
+            m = -(-cfg.max_seq_len // kv_block_size)
+            pool = (kv_num_blocks, kv_block_size, flat)
+            layer = {
+                "paged_key": torch.zeros(pool, dtype=cfg.compute_dtype,
+                                         device=device),
+                "paged_value": torch.zeros(pool, dtype=cfg.compute_dtype,
+                                           device=device),
+                "page_table": torch.zeros((batch, m), dtype=torch.int32,
+                                          device=device),
+                "cache_index": torch.zeros((batch,), dtype=torch.int32,
+                                           device=device),
+            }
+        else:
+            layer = {
+                "cached_key": torch.zeros((batch, cfg.max_seq_len, flat),
+                                          dtype=cfg.compute_dtype,
+                                          device=device),
+                "cached_value": torch.zeros((batch, cfg.max_seq_len, flat),
+                                            dtype=cfg.compute_dtype,
+                                            device=device),
+                "cache_index": torch.zeros((batch,) if per_row else (),
+                                           dtype=torch.int32, device=device),
+            }
         if side_slots:
             layer["side_key"] = torch.zeros((batch, side_slots, flat),
                                             dtype=cfg.compute_dtype,
@@ -178,6 +207,23 @@ def blank_cache(cfg: TransformerConfig, batch: int, *,
                                               device=device)
         layers.append(layer)
     return layers
+
+
+def check_cache_layout(cfg: TransformerConfig, cache_layout: str,
+                       kv_block_size: int, kv_num_blocks: int) -> None:
+    """The paged layout's construction-time contract (the JAX module
+    raises the same errors at its first paged call)."""
+    if cache_layout not in ("dense", "paged"):
+        raise ValueError(f"cache_layout must be 'dense' or 'paged', got "
+                         f"{cache_layout!r}")
+    if cache_layout != "paged":
+        return
+    if kv_block_size < 1 or kv_num_blocks < 1:
+        raise ValueError(
+            "cache_layout='paged' needs kv_block_size and kv_num_blocks > 0 "
+            f"(got {kv_block_size}, {kv_num_blocks})")
+    if cfg.attention_window is not None:
+        raise ValueError(_PAGED_WINDOW)
 
 
 class LayerNorm(nn.Module):
@@ -232,6 +278,7 @@ class Embed(nn.Embedding):
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, attention_fn: AttentionFn = sdpa,
                  *, serve_side_slots: int = 0, cache_layout: str = "dense",
+                 kv_block_size: int = 0, kv_num_blocks: int = 0,
                  decode_shard: Any = None, param_dtype=None,
                  device=None) -> None:
         super().__init__()
@@ -244,11 +291,7 @@ class CausalSelfAttention(nn.Module):
                 f"cfg.attention_window={cfg.attention_window}; set the "
                 "window on TransformerConfig (the single source of "
                 "truth) or make the two agree")
-        if cache_layout == "paged":
-            raise NotImplementedError(_PAGED_TODO)
-        if cache_layout != "dense":
-            raise ValueError(f"cache_layout must be 'dense' or 'paged', got "
-                             f"{cache_layout!r}")
+        check_cache_layout(cfg, cache_layout, kv_block_size, kv_num_blocks)
         if decode_shard is not None:
             raise NotImplementedError(_SHARD_TODO)
         self.cfg = cfg
@@ -284,7 +327,10 @@ class CausalSelfAttention(nn.Module):
         """Decoding against the layer's cache.  ``s == 1`` is the per-token
         decode step; ``s > 1`` is PREFILL — the chunk lands in the cache and
         attends causally over itself and everything cached before it.  A
-        ``[B]`` cache_index selects the per-row serve path."""
+        ``[B]`` cache_index selects the per-row serve path, a paged node
+        (``paged_key``) the paged serve path."""
+        if "paged_key" in cache:
+            return self._paged_attend(q, k, v, cache)
         cfg = self.cfg
         b, s, _, d = q.shape
         h_kv = k.shape[2]
@@ -348,19 +394,50 @@ class CausalSelfAttention(nn.Module):
         merge).  Attention is ONE flash-decode call over the frozen main
         cache at each row's length plus the side buffer's live positions,
         in the same online softmax."""
-        b, s, _, d = q.shape
-        h_kv = k.shape[2]
-        flat = h_kv * d
+        self._write_side(k, v, cache)
+        return flash_decode(q, cache["cached_key"], cache["cached_value"],
+                            cache["cache_index"], side_k=cache["side_key"],
+                            side_v=cache["side_value"],
+                            side_len=cache["side_index"],
+                            packed_kv_heads=k.shape[2])
+
+    def _write_side(self, k, v, cache) -> None:
+        """Stage the step's K/V in the side buffer at the scalar in-segment
+        index (clamped so an ``s``-token chunk fits) and advance it."""
+        b, s, h_kv, d = k.shape
         cap = self.serve_side_slots
         sk, sv, sidx = cache["side_key"], cache["side_value"], cache["side_index"]
-        at = sidx.clamp(max=cap - s).long() + torch.arange(s, device=q.device)
-        sk.index_copy_(1, at, k.reshape(b, s, flat).to(sk.dtype))
-        sv.index_copy_(1, at, v.reshape(b, s, flat).to(sv.dtype))
+        at = sidx.clamp(max=cap - s).long() + torch.arange(s, device=k.device)
+        sk.index_copy_(1, at, k.reshape(b, s, h_kv * d).to(sk.dtype))
+        sv.index_copy_(1, at, v.reshape(b, s, h_kv * d).to(sv.dtype))
         cache["side_index"] = sidx + s
-        return flash_decode(q, cache["cached_key"], cache["cached_value"],
-                            cache["cache_index"], side_k=sk, side_v=sv,
-                            side_len=cache["side_index"],
-                            packed_kv_heads=h_kv)
+
+    def _paged_attend(self, q, k, v, cache):
+        """One decode step against the PAGED cache: the pool is frozen
+        within a segment, so the step's K/V stage in the side buffer (the
+        ServeLoop's segment merge scatters them into pool pages through
+        the page table), and attention is ONE paged flash-decode call (K5)
+        over the pool at each row's length plus the side buffer's live
+        positions.  Raises the JAX module's errors: per-row vector
+        ``cache_index`` only, no sliding window, side buffers required."""
+        if cache["cache_index"].dim() == 0:
+            raise ValueError(
+                "the paged cache decodes through per-row vector "
+                "cache_index only (ServeLoop with cache_layout='paged'); "
+                "scalar-index rollouts use the dense layout")
+        if self.cfg.attention_window is not None:
+            raise ValueError(_PAGED_WINDOW)
+        if self.serve_side_slots <= 0:
+            raise ValueError(
+                "cache_layout='paged' requires serve_side_slots > 0 (the "
+                "pool is frozen within a segment; tokens stage in the side "
+                "buffer)")
+        self._write_side(k, v, cache)
+        return paged_flash_decode(
+            q, cache["paged_key"], cache["paged_value"], cache["page_table"],
+            cache["cache_index"], packed_kv_heads=k.shape[2],
+            side_k=cache["side_key"], side_v=cache["side_value"],
+            side_len=cache["side_index"])
 
     def _prefill_attend(self, q, k_all, v_all, idx):
         """Chunk prefill: queries at global positions ``[idx, idx + s)``
@@ -412,17 +489,23 @@ class TransformerLM(nn.Module):
     :func:`~tpudist_torch.models.convert.from_flax_params`' output, or draw
     random ones with :meth:`init_weights`).  ``param_dtype`` (default:
     ``compute_dtype``) is the storage type of the projection and
-    embedding weights; ``remat`` recomputes each block in the backward."""
+    embedding weights; ``remat`` recomputes each block in the backward.
+    ``cache_layout="paged"`` with ``kv_block_size`` / ``kv_num_blocks``
+    sizes the slot cache :func:`~tpudist_torch.models.generate._blank_cache`
+    builds for it as a block pool (the serve path's side buffers,
+    ``serve_side_slots > 0``, are then required)."""
 
     def __init__(self, cfg: TransformerConfig, *,
                  attention_fn: AttentionFn = sdpa, remat: bool = False,
                  param_dtype: torch.dtype | None = None,
                  serve_side_slots: int = 0, cache_layout: str = "dense",
+                 kv_block_size: int = 0, kv_num_blocks: int = 0,
                  decode_shard: Any = None, device=None) -> None:
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.remat = remat
+        self.kv_block_size, self.kv_num_blocks = kv_block_size, kv_num_blocks
         dt, pd = cfg.compute_dtype, param_dtype
         self.tok_embed = Embed(cfg.vocab_size, cfg.embed_dim, cfg, pd, device)
         self.pos_embed = Embed(cfg.max_seq_len, cfg.embed_dim, cfg, pd,
@@ -430,7 +513,10 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             DecoderBlock(cfg, attention_fn, device, param_dtype=pd,
                          serve_side_slots=serve_side_slots,
-                         cache_layout=cache_layout, decode_shard=decode_shard)
+                         cache_layout=cache_layout,
+                         kv_block_size=kv_block_size,
+                         kv_num_blocks=kv_num_blocks,
+                         decode_shard=decode_shard)
             for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.embed_dim, dt, device)
         self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size, cfg, pd, device)

@@ -14,8 +14,13 @@ Hopper port of the Pallas ``_decode_kernel``: a split-K grid plus an LSE
 merge); on a CPU tensor it runs :func:`flash_decode_plain`.  There is no
 fallback from the first to the second.
 
-``paged_flash_decode``, ``flash_decode_q8`` and ``sp_flash_decode`` wait
-for later slices.
+:func:`paged_flash_decode` is the same step against a paged block pool
+read through a page table (kernel K5 on CUDA tensors,
+:func:`paged_flash_decode_plain` — :func:`paged_gather_kv` then
+:func:`flash_decode_plain` — on CPU tensors), and :func:`flash_decode_q8`
+the same step over an int8 cache from :func:`quantize_kv` (kernel K6,
+:func:`flash_decode_q8_plain`).  ``sp_flash_decode`` waits for sharded
+decode (ROADMAP Queue A item 9).
 """
 
 from __future__ import annotations
@@ -36,6 +41,18 @@ FLASH_DECODE = _cuda.Kernel(
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
        ctypes.c_void_p])
+PAGED_FLASH_DECODE = _cuda.Kernel(
+    "flash_decode", "tpudist_paged_flash_decode",
+    [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+    + [_c_ll] * 16
+    + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+       ctypes.c_void_p])
+FLASH_DECODE_Q8 = _cuda.Kernel(
+    "flash_decode", "tpudist_flash_decode_q8",
+    [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    + [_c_ll] * 16
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+       ctypes.c_float, ctypes.c_void_p])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -129,24 +146,50 @@ def flash_decode_plain(q, k_cache, v_cache, cache_len, *, window=None,
     return out, (m + torch.log(l)).reshape(b, h)
 
 
+def _check_query(fn: str, q: torch.Tensor, h_kv: int) -> None:
+    """What every decode kernel takes: f32 or bf16 queries (the cache type
+    too, except K6's int8), a head_dim it was compiled for, at most
+    ``_MAX_GROUP`` query heads per KV head, 16-byte-aligned rows."""
+    h, d = q.shape[2], q.shape[3]
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"{fn} kernel takes float32 or bfloat16 queries, "
+                         f"got {q.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"{fn} kernel takes head_dim in {_HEAD_DIMS}, got "
+                         f"{d}")
+    if h // h_kv > _MAX_GROUP:
+        raise ValueError(f"{fn} kernel takes at most {_MAX_GROUP} query "
+                         f"heads per KV head, got {h // h_kv}")
+    _cuda.check_cuda_tensor("q", q, q.dtype, q.device, 4)
+
+
+def _device_int32(x, name, dev):
+    """``x`` as a contiguous int32 tensor on ``dev`` (no implicit move
+    between devices)."""
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+    return x.to(torch.int32).contiguous()
+
+
+def _length(x, name, dev):
+    """A length argument as the kernels take it: ``(device int32 tensor |
+    None, stride, immediate value)`` — a per-row ``[B]`` tensor has stride
+    1, a 0-D tensor stride 0, an int travels by value."""
+    if not isinstance(x, torch.Tensor):
+        return None, 0, int(x)
+    x = _device_int32(x, name, dev)
+    return x, (1 if x.dim() == 1 else 0), 0
+
+
 def _launch_kernel(q, k_cache, v_cache, cache_len, *, window, return_lse,
                    side_k, side_v, side_len, packed_kv_heads):
     """One K2 launch (split pass + merge) for single-query decode."""
     dev = q.device
     b, _, h, d = q.shape
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_decode kernel takes float32 or bfloat16, "
-                         f"got {q.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash_decode kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {d}")
     k4 = _as_4d(k_cache, packed_kv_heads, d)
     v4 = _as_4d(v_cache, packed_kv_heads, d)
     s, h_kv = k4.shape[1], k4.shape[2]
-    if h // h_kv > _MAX_GROUP:
-        raise ValueError(f"flash_decode kernel takes at most {_MAX_GROUP} "
-                         f"query heads per KV head, got {h // h_kv}")
-    _cuda.check_cuda_tensor("q", q, q.dtype, dev, 4)
+    _check_query("flash_decode", q, h_kv)
     for name, t in (("k_cache", k4), ("v_cache", v4)):
         _cuda.check_cuda_tensor(name, t, q.dtype, dev, 4)
         if t.shape != (b, s, h_kv, d):
@@ -176,17 +219,8 @@ def _launch_kernel(q, k_cache, v_cache, cache_len, *, window, return_lse,
     lse = (torch.empty((b, h), dtype=torch.float32, device=dev)
            if return_lse else None)
 
-    def length(x, name):
-        """(device int32 tensor | None, stride, immediate value)"""
-        if not isinstance(x, torch.Tensor):
-            return None, 0, int(x)
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, expected {dev}")
-        x = x.to(torch.int32).contiguous()
-        return x, (1 if x.dim() == 1 else 0), 0
-
-    len_t, len_stride, len_val = length(cache_len, "cache_len")
-    side_t, _, side_val = length(side_len, "side_len")
+    len_t, len_stride, len_val = _length(cache_len, "cache_len", dev)
+    side_t, _, side_val = _length(side_len, "side_len", dev)
     zeros = (0, 0, 0)
     FLASH_DECODE(
         _DTYPES[q.dtype], _cuda.ptr(q), _cuda.ptr(k4), _cuda.ptr(v4),
@@ -253,3 +287,306 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, window=None,
     return one(q, k_cache, v_cache, cache_len, window=window,
                return_lse=return_lse, side_k=side_k, side_v=side_v,
                side_len=side_len, packed_kv_heads=packed_kv_heads)
+
+
+# ---- paged KV: kernel K5 ----------------------------------------------------
+
+def paged_gather_kv(pool: torch.Tensor, page_table: torch.Tensor
+                    ) -> torch.Tensor:
+    """Gather a paged pool into a contiguous per-slot view: ``[N, bs, F]``
+    pool + ``[B, M]`` page table -> ``[B, M*bs, F]`` (slot ``b``'s logical
+    position ``p`` lands at row ``p``).  The plain path's first half and
+    the view K5 is held against on the card."""
+    b, m = page_table.shape
+    _, bs, flat = pool.shape
+    return pool[page_table.reshape(-1).long()].reshape(b, m * bs, flat)
+
+
+def paged_flash_decode_plain(q, k_pool, v_pool, page_table, cache_len, *,
+                             packed_kv_heads, side_k=None, side_v=None,
+                             side_len=0):
+    """The plain version of single-query :func:`paged_flash_decode`:
+    :func:`paged_gather_kv` of both pools, then :func:`flash_decode_plain`
+    over the gathered view."""
+    return flash_decode_plain(
+        q, paged_gather_kv(k_pool, page_table),
+        paged_gather_kv(v_pool, page_table), cache_len, side_k=side_k,
+        side_v=side_v, side_len=side_len, packed_kv_heads=packed_kv_heads)
+
+
+def _validate_paged(q, k_pool, page_table, cache_len, packed_kv_heads,
+                    side_k):
+    """The JAX function's contract errors, in its order."""
+    b, _, h, d = q.shape
+    if k_pool.dim() != 3:
+        raise ValueError(f"paged pools are packed 3-D [N, block, Hkv*D]; "
+                         f"got {tuple(k_pool.shape)}")
+    _, block, flat = k_pool.shape
+    h_kv = packed_kv_heads
+    if flat != h_kv * d:
+        raise ValueError(f"pool minor dim {flat} != H_kv*D = {h_kv * d}")
+    if h % h_kv:
+        raise ValueError(f"num_heads {h} not a multiple of kv heads {h_kv}")
+    if block < 8 or block % 8:
+        raise ValueError(f"block_size must be a multiple of 8, got {block}")
+    if not isinstance(cache_len, torch.Tensor) or cache_len.dim() != 1 \
+            or cache_len.shape[0] != b:
+        shape = (tuple(cache_len.shape) if isinstance(cache_len, torch.Tensor)
+                 else ())
+        raise ValueError(f"paged decode takes per-row cache_len [B={b}]; "
+                         f"got {shape}")
+    if page_table.dim() != 2 or page_table.shape[0] != b:
+        raise ValueError(f"page_table must be [B={b}, max_blocks]; got "
+                         f"{tuple(page_table.shape)}")
+    if side_k is not None and side_k.dim() != 3:
+        raise ValueError("side buffers must be packed 3-D [B, cap, Hkv*D]")
+
+
+def _launch_paged(q, k_pool, v_pool, page_table, cache_len, *,
+                  packed_kv_heads, side_k, side_v, side_len):
+    """One K5 launch (split pass through the page table + merge)."""
+    dev = q.device
+    b, _, h, d = q.shape
+    h_kv = packed_kv_heads
+    g = h // h_kv
+    _check_query("paged_flash_decode", q, h_kv)
+    bs = k_pool.shape[1]
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        _cuda.check_cuda_tensor(name, t, q.dtype, dev, 3)
+        if t.shape != k_pool.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{tuple(k_pool.shape)}")
+    kp4, vp4 = (t.unflatten(2, (h_kv, d)) for t in (k_pool, v_pool))
+    table = _device_int32(page_table, "page_table", dev)
+    m = table.shape[1]
+    lens = _device_int32(cache_len, "cache_len", dev)
+    split = _split_keys()
+    n_main = -(-(m * bs) // split)
+    cap = 0
+    sk4 = sv4 = None
+    if side_k is not None:
+        cap = side_k.shape[1]
+        for name, t in (("side_k", side_k), ("side_v", side_v)):
+            _cuda.check_cuda_tensor(name, t, q.dtype, dev, 3)
+            if t.shape != (b, cap, h_kv * d):
+                raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                                 f"{(b, cap, h_kv * d)}")
+        sk4, sv4 = side_k.unflatten(2, (h_kv, d)), side_v.unflatten(2,
+                                                                    (h_kv, d))
+    n_split = n_main + -(-cap // split)
+    m_part = torch.empty((b * h_kv, n_split, g), dtype=torch.float32,
+                         device=dev)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((b * h_kv, n_split, g, d), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev)
+    side_t, _, side_val = _length(side_len, "side_len", dev)
+    zeros = (0, 0, 0)
+    PAGED_FLASH_DECODE(
+        _DTYPES[q.dtype], _cuda.ptr(q), _cuda.ptr(k_pool),
+        _cuda.ptr(v_pool), _cuda.ptr(side_k), _cuda.ptr(side_v),
+        _cuda.ptr(out), _cuda.ptr(None), _cuda.ptr(m_part),
+        _cuda.ptr(l_part), _cuda.ptr(acc_part), _cuda.ptr(table),
+        b, h, h_kv, d, m, bs, cap, n_main, n_split,
+        q.stride(0), q.stride(2), *kp4.stride()[:3], *vp4.stride()[:3],
+        *(sk4.stride()[:3] if sk4 is not None else zeros),
+        *(sv4.stride()[:3] if sv4 is not None else zeros),
+        out.stride(0), out.stride(2), _cuda.ptr(lens), _cuda.ptr(side_t),
+        side_val, d ** -0.5, _cuda.stream_handle(dev))
+    return out
+
+
+def paged_flash_decode(q, k_pool, v_pool, page_table, cache_len, *,
+                       packed_kv_heads, side_k=None, side_v=None,
+                       side_len=0):
+    """One decode step of attention against a PAGED KV cache.
+
+    K/V live in one block pool ``[num_blocks, block_size, Hkv·D]`` per
+    layer and slot ``b``'s logical position ``p`` is
+    ``pool[page_table[b, p // block_size], p % block_size]``.
+
+    Args:
+      q: ``[B, s_q, H, D]`` current-token queries.
+      k_pool / v_pool: ``[num_blocks, block_size, Hkv·D]`` packed pools
+        (``block_size`` a positive multiple of 8).
+      page_table: ``[B, max_blocks]`` int32 pool indices; entries past a
+        row's live blocks must hold a valid index (0) and are never
+        followed.
+      cache_len: ``[B]`` per-row valid lengths including the current
+        token.
+      packed_kv_heads: ``Hkv`` of the packed minor dim.
+      side_k / side_v / side_len: the serve loop's segment-local staging
+        (``[B, cap, Hkv·D]``), attended after the pool in the same
+        softmax, as on :func:`flash_decode`.
+
+    ``s_q > 1`` (side buffers required) is ``s_q`` single-query calls:
+    query ``j`` sees side positions ``< side_len - (s_q - 1 - j)``.
+
+    On a CUDA tensor it launches kernel K5; on a CPU tensor it runs
+    :func:`paged_flash_decode_plain`.  Returns ``[B, s_q, H, D]``.
+    """
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"paged_flash_decode runs on cuda or cpu, got "
+                         f"{q.device}")
+    s_q = q.shape[1]
+    if s_q > 1:
+        if side_k is None:
+            raise ValueError(
+                "multi-query paged_flash_decode needs side buffers "
+                "(in-segment tokens stage there; the pool is frozen "
+                "within a segment)")
+        return torch.cat([
+            paged_flash_decode(
+                q[:, j:j + 1], k_pool, v_pool, page_table, cache_len,
+                packed_kv_heads=packed_kv_heads, side_k=side_k,
+                side_v=side_v, side_len=side_len - (s_q - 1 - j))
+            for j in range(s_q)], dim=1)
+    _validate_paged(q, k_pool, page_table, cache_len, packed_kv_heads,
+                    side_k)
+    one = (_launch_paged if q.device.type == "cuda"
+           else paged_flash_decode_plain)
+    return one(q, k_pool, v_pool, page_table, cache_len,
+               packed_kv_heads=packed_kv_heads, side_k=side_k,
+               side_v=side_v, side_len=side_len)
+
+
+# ---- int8 KV: kernel K6 -----------------------------------------------------
+
+def quantize_kv(k: torch.Tensor, v: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization of K/V:
+    ``[..., D] -> (int8 [..., D], f32 scale [..., 1])`` with
+    ``scale = max|x| / 127`` floored at 1e-8 and ``round(x / scale)``
+    (half to even), elementwise f32 as in the JAX package.  Returns
+    ``(k_q8, k_scale, v_q8, v_scale)``."""
+    def q(x):
+        x32 = x.float()
+        scale = (x32.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+        return torch.round(x32 / scale).to(torch.int8), scale
+
+    kq, ks = q(k)
+    vq, vs = q(v)
+    return kq, ks, vq, vs
+
+
+def _validate_q8(q, k_q8, cache_len, window, pos_offset):
+    b, s_q, h, d = q.shape
+    if not (isinstance(pos_offset, int) and pos_offset == 0):
+        raise NotImplementedError(
+            "flash_decode_q8 with pos_offset (a sequence-sharded cache) is "
+            "not ported yet (ROADMAP Queue A item 9: sharded decode)")
+    if s_q != 1:
+        raise ValueError("flash_decode_q8 consumes one query token")
+    if k_q8.dim() != 4:
+        raise ValueError("packed caches compose with the bf16 path only")
+    if h % k_q8.shape[2]:
+        raise ValueError(f"num_heads {h} not a multiple of kv heads "
+                         f"{k_q8.shape[2]}")
+    per_row = isinstance(cache_len, torch.Tensor) and cache_len.dim() == 1
+    if per_row and window is not None:
+        raise ValueError(
+            "per-row cache lengths compose with window=None only (the "
+            "sliding-window trim needs one length for the whole batch)")
+    if per_row and cache_len.shape[0] != b:
+        raise ValueError(f"per-row cache_len has {cache_len.shape[0]} "
+                         f"entries for batch {b}")
+
+
+def flash_decode_q8_plain(q, k_q8, k_scale, v_q8, v_scale, cache_len, *,
+                          window=None, return_lse=False):
+    """The plain version of :func:`flash_decode_q8`, with the Pallas int8
+    numerics: q rounded to bf16; scores ``(q·k_int8) · (k_scale · D^-½)``
+    in f32; ``p = exp(s - m)``; the value product over
+    ``round_bf16(p · v_scale)`` while the normalizer sums the unscaled
+    ``p``."""
+    b, _, h, d = q.shape
+    s, h_kv = k_q8.shape[1], k_q8.shape[2]
+    g = h // h_kv
+    dev = q.device
+    qf = q.to(torch.bfloat16).float().reshape(b, h_kv, g, d)
+    lens = torch.as_tensor(cache_len, device=dev).to(torch.long)
+    lens = lens.reshape(-1, 1, 1, 1) if lens.dim() == 1 else lens
+    pos = torch.arange(s, device=dev)
+    keep = pos < lens
+    if window is not None:
+        keep = keep & (pos >= lens - window)
+    ks = (k_scale[..., 0] * d ** -0.5).permute(0, 2, 1)[:, :, None, :]
+    sc = torch.einsum("bjgd,bsjd->bjgs", qf, k_q8.float()) * ks
+    sc = sc.masked_fill(~keep, float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True).clamp_min(_NEG_BIG)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    vs = v_scale[..., 0].permute(0, 2, 1)[:, :, None, :]
+    pv = (p * vs).to(torch.bfloat16).float()
+    o = torch.einsum("bjgs,bsjd->bjgd", pv, v_q8.float()) / l
+    out = o.reshape(b, 1, h, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l)).reshape(b, h)
+
+
+def _launch_q8(q, k_q8, k_scale, v_q8, v_scale, cache_len, *, window,
+               return_lse):
+    """One K6 launch (split pass over int8 tiles + merge)."""
+    dev = q.device
+    b, _, h, d = q.shape
+    s, h_kv = k_q8.shape[1], k_q8.shape[2]
+    g = h // h_kv
+    _check_query("flash_decode_q8", q, h_kv)
+    for name, t in (("k_cache_q8", k_q8), ("v_cache_q8", v_q8)):
+        _cuda.check_cuda_tensor(name, t, torch.int8, dev, 4)
+        if t.shape != (b, s, h_kv, d):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != "
+                             f"{(b, s, h_kv, d)}")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.device != dev or t.dtype != torch.float32 \
+                or t.shape != (b, s, h_kv, 1):
+            raise ValueError(f"{name} must be float32 {(b, s, h_kv, 1)} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    n_split = -(-s // _split_keys())
+    m_part = torch.empty((b * h_kv, n_split, g), dtype=torch.float32,
+                         device=dev)
+    l_part = torch.empty_like(m_part)
+    acc_part = torch.empty((b * h_kv, n_split, g, d), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=dev)
+           if return_lse else None)
+    len_t, len_stride, len_val = _length(cache_len, "cache_len", dev)
+    FLASH_DECODE_Q8(
+        _DTYPES[q.dtype], _cuda.ptr(q), _cuda.ptr(k_q8), _cuda.ptr(k_scale),
+        _cuda.ptr(v_q8), _cuda.ptr(v_scale), _cuda.ptr(out), _cuda.ptr(lse),
+        _cuda.ptr(m_part), _cuda.ptr(l_part), _cuda.ptr(acc_part),
+        b, h, h_kv, d, s, n_split,
+        q.stride(0), q.stride(2), *k_q8.stride()[:3], *v_q8.stride()[:3],
+        *k_scale.stride()[:3], *v_scale.stride()[:3],
+        out.stride(0), out.stride(2),
+        _cuda.ptr(len_t), len_stride, len_val,
+        int(window) if window is not None else 0, d ** -0.5,
+        _cuda.stream_handle(dev))
+    return (out, lse) if return_lse else out
+
+
+def flash_decode_q8(q, k_cache_q8, k_scale, v_cache_q8, v_scale, cache_len,
+                    *, window=None, pos_offset=0, return_lse=False):
+    """:func:`flash_decode` over an int8 KV cache from :func:`quantize_kv`.
+
+    Args:
+      q: ``[B, 1, H, D]`` queries (bf16 or f32; rounded to bf16 for the
+        score product, as the Pallas kernel does).
+      k_cache_q8 / v_cache_q8: ``[B, S, Hkv, D]`` int8.
+      k_scale / v_scale: ``[B, S, Hkv, 1]`` f32 per-(token, head) scales.
+      cache_len, window, return_lse: as on :func:`flash_decode`.
+      pos_offset: only 0 (sharded decode is not ported).
+
+    On a CUDA tensor it launches kernel K6; on a CPU tensor it runs
+    :func:`flash_decode_q8_plain`.  Returns ``[B, 1, H, D]`` in
+    ``q.dtype`` (plus ``[B, H]`` f32 lse when requested).
+    """
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_decode_q8 runs on cuda or cpu, got "
+                         f"{q.device}")
+    _validate_q8(q, k_cache_q8, cache_len, window, pos_offset)
+    one = _launch_q8 if q.device.type == "cuda" else flash_decode_q8_plain
+    return one(q, k_cache_q8, k_scale, v_cache_q8, v_scale, cache_len,
+               window=window, return_lse=return_lse)
