@@ -52,7 +52,21 @@ Phases, each printing one JSON line and each fatal on failure:
    20 steps through make_dp_train_step with launch counts reset just
    before and read just after (K1 = K3 = K4 = steps x layers), the loss
    falling; ms per step, tokens/s, model FLOPs and their share of the
-   bf16 peak, peak memory; then one step under torch.profiler.
+   bf16 peak, peak memory; then one step under torch.profiler;
+15. kernels_moe — the MoE grouped GEMM K7 against its plain version in
+   bf16 at bench.py's bench_moe layer (T=4096, d=512, f=2048, E=8, top-2,
+   block 128), the training shape (T=16,384), skewed routing (every
+   token on experts 0 and 1) and block 16, each element within
+   1e-2 * max|plain| + 2e-2 * |plain|, with its time beside the bound,
+   torch._grouped_mm's and bench_moe's equal-FLOP dense twin;
+16. train_moe_parity — a full-width 2-layer f32 MoE model trained 3 Adam
+   steps with dispatch="fused" (K7, the ragged remat backward) and
+   dispatch="ragged" (plain) from the same weights and batches: losses,
+   aux and every gradient agree;
+17. train_moe — the train phase's model with every MLP an MoE MLP (E=8,
+   top-2, fused, block 128): 20 steps, launch counts K7 = K1 = K3 = K4 =
+   steps x layers, the loss falling, ms per step, tokens/s, active-weight
+   model FLOPs, peak memory, the mean aux loss, one profiled step.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -91,6 +105,13 @@ GRAD_ATOL_REL, GRAD_RTOL, DELTA_ATOL = 1e-2, 2e-2, 1e-3
 # each parameter's gradient within PGRAD_TOL * max|sdpa gradient| (sums in
 # other orders, through 2 layers and a 32000-way softmax)
 LOSS_RTOL, PGRAD_TOL = 1e-5, 1e-3
+# K7 against its plain version, bf16: each y element within MOE_ATOL_REL *
+# max|plain| + MOE_RTOL * |plain|.  Both round h to bf16 between the two
+# products, but the first product sums in another order, so an element of
+# h may land one bf16 ulp (2^-8 relative) away and its error spreads over
+# the 2048-long second product; the flat term relative to y's largest
+# element covers that, the relative term the largest elements.
+MOE_ATOL_REL, MOE_RTOL = 1e-2, 2e-2
 
 
 def emit(obj) -> None:
@@ -391,9 +412,12 @@ def _counters() -> dict:
     from tpudist_torch.ops import flash_attention as fa
     from tpudist_torch.ops import flash_decode as fd
 
+    from tpudist_torch.ops import moe_dispatch as md
+
     return {"K1": fa.FLASH_FORWARD, "K2": fd.FLASH_DECODE,
             "K3": fa.FLASH_BWD_DQ, "K4": fa.FLASH_BWD_DKV,
-            "K5": fd.PAGED_FLASH_DECODE, "K6": fd.FLASH_DECODE_Q8}
+            "K5": fd.PAGED_FLASH_DECODE, "K6": fd.FLASH_DECODE_Q8,
+            "K7": md.MOE_GMM}
 
 
 def reset_launches():
@@ -1021,7 +1045,8 @@ def phase_train_parity(torch, dev, seed):
 
 def kernel_family(name: str) -> str:
     """The train profile's grouping of device kernels by name."""
-    for family, keys in (("attention (K1, K3, K4)", ("flash_",)),
+    for family, keys in (("MoE grouped GEMM (K7)", ("moe_gmm",)),
+                         ("attention (K1, K3, K4)", ("flash_",)),
                          ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
                          ("optimizer", ("multi_tensor", "adam")),
                          ("reduction", ("reduce_kernel",))):
@@ -1120,6 +1145,347 @@ def phase_train(torch, dev, seed):
     return launches
 
 
+MOE_D, MOE_F, MOE_E, MOE_K = 512, 2048, 8, 2
+
+
+def phase_moe_kernels(torch, dev, seed):
+    """K7 against its plain version (bf16) at bench.py's bench_moe layer
+    (T=4096, d=512, f=2048, E=8, top-2, block 128, routing from random
+    gates), the training shape (T=16,384), skewed routing (every token on
+    experts 0 and 1, gate 0.5) and block 16.  The bound counts the live
+    slots N = T*k only (padding is waste, not work): 4*N*d*f FLOPs, and
+    the rows read and written, both weight stacks and the gate.  Beside
+    it, torch._grouped_mm for the two products with the GELU between
+    (over the same padded groups, a yardstick only), and bench_moe's
+    equal-FLOP dense twin against the port's whole fused MoEMLP layer.
+    Returns ``(rows, bench_layer)``."""
+    import torch.nn.functional as F
+
+    from tpudist_torch.models.moe import MoEConfig, MoEMLP, _gate_choices
+    from tpudist_torch.ops import moe_dispatch as md
+
+    g = torch.Generator(device=dev).manual_seed(seed + 7)
+    bf = torch.bfloat16
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    D, FF, E, K = MOE_D, MOE_F, MOE_E, MOE_K
+    w_up = (torch.randn(E, D, FF, generator=g, device=dev) / D ** 0.5).to(bf)
+    w_down = (torch.randn(E, FF, D, generator=g, device=dev)
+              / FF ** 0.5).to(bf)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    rows, bench_layer = [], None
+    for case, T, bn, skewed in (("bench_moe", 4096, 128, False),
+                                ("train", 16384, 128, False),
+                                ("skewed", 4096, 128, True),
+                                ("block16", 4096, 16, False)):
+        x = torch.randn(T, D, generator=g, device=dev).to(bf)
+        if skewed:
+            ti = torch.stack([torch.zeros(T, dtype=torch.long, device=dev),
+                              torch.ones(T, dtype=torch.long, device=dev)], 1)
+            tv = torch.full((T, K), 0.5, device=dev)
+        else:
+            gates = torch.softmax(torch.randn(T, E, generator=g, device=dev),
+                                  -1)
+            tv, ti, _ = _gate_choices(gates, K)
+        _, xs, gate, be = md._fused_layout(x, ti, tv, E, bn)
+        runs = md._expert_runs(be)
+        ys = md._gmm(be, xs, gate, w_up, w_down, bn)
+        want = md._gmm_plain(be, xs, gate, w_up, w_down, bn, runs=runs)
+        torch.cuda.synchronize()
+        diff = (ys.float() - want.float()).abs()
+        lim = MOE_ATOL_REL * want.float().abs().max() \
+            + MOE_RTOL * want.float().abs()
+        ratio = (diff / lim).max().item()
+        check(ratio <= 1.0 and bool(torch.isfinite(ys).all()),
+              f"K7 disagrees with its plain version ({case}): max error "
+              f"{diff.max().item()} (ratio to limit {ratio})")
+        n = T * K
+        b_ms, b_by = bound(2 * n * D * 2 + 2 * E * D * FF * 2 + n * 4,
+                           4.0 * n * D * FF)
+        row = {"case": case, "tokens": T, "block_rows": bn,
+               "np_pad": xs.shape[0], "max_abs_err": diff.max().item(),
+               "tol_ratio": ratio,
+               "ms": timed_ms(lambda: md._gmm(be, xs, gate, w_up, w_down,
+                                              bn), 10, flush),
+               "plain_ms": timed_ms(lambda: md._gmm_plain(
+                   be, xs, gate, w_up, w_down, bn, runs=runs), 2, flush),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        if grouped_mm is None:
+            row["library"] = ("none: this PyTorch has no torch._grouped_mm")
+        else:
+            # the padded groups' row ends; the trailing pad blocks past
+            # the last group are left out
+            sizes = torch.bincount(ti.reshape(-1), minlength=E)
+            ends = torch.cumsum((sizes + bn - 1) // bn * bn, 0).to(
+                torch.int32)
+            live = int(ends[-1])
+
+            def library():
+                h = F.gelu(grouped_mm(xs[:live], w_up, offs=ends),
+                           approximate="tanh")
+                return grouped_mm(h, w_down, offs=ends) * gate[:live]
+
+            try:
+                library()
+            except RuntimeError as exc:
+                row["library"] = f"torch._grouped_mm refused: {exc}"[:200]
+            else:
+                row["library_ms"] = timed_ms(library, 10, flush)
+                row["library"] = ("torch._grouped_mm twice with the GELU "
+                                  "between, over the padded groups")
+        rows.append(row)
+        if case == "bench_moe":
+            # bench.py's moe_fused_dispatch_overhead: the whole fused MoE
+            # layer (router, gating, dispatch, K7, combine) against a dense
+            # MLP of equal expert FLOPs (d -> k*f -> d), f32 weights cast
+            # at use in both
+            layer = MoEMLP(D, FF, MoEConfig(num_experts=E, top_k=K,
+                                            dispatch="fused"), device=dev)
+            with torch.no_grad():
+                layer.w_up.copy_(w_up)
+                layer.w_down.copy_(w_down)
+                layer.router.weight.normal_(0.0, D ** -0.5, generator=g)
+            w1 = torch.randn(D, K * FF, generator=g, device=dev) / D ** 0.5
+            w2 = torch.randn(K * FF, D, generator=g, device=dev) \
+                / (K * FF) ** 0.5
+
+            def dense():
+                h = F.gelu(x @ w1.to(bf), approximate="tanh")
+                return h @ w2.to(bf)
+
+            with torch.no_grad():
+                fused_ms = timed_ms(lambda: layer(x), 10, flush)
+                dense_ms = timed_ms(dense, 10, flush)
+            bench_layer = {"fused_layer_ms": fused_ms,
+                           "dense_twin_ms": dense_ms,
+                           "moe_fused_dispatch_overhead": fused_ms / dense_ms}
+            del layer, w1, w2
+        del x, xs, gate, be, ys, want
+    del flush_buf, w_up, w_down
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_moe", "K7": rows, "bench_moe_layer": bench_layer,
+          "tolerance": {"atol_rel": MOE_ATOL_REL, "rtol": MOE_RTOL}})
+    return rows, bench_layer
+
+
+def moe_loss_fn(torch, cfg):
+    """tests/test_moe.py's MoE training loss: cross-entropy plus the
+    weighted aux loss, which is also reported."""
+    from tpudist_torch.ops.losses import cross_entropy
+
+    def loss_fn(model, batch, _gen):
+        (toks,) = batch
+        logits, aux = model(toks)
+        ce = cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
+                           toks[:, 1:].reshape(-1))
+        return ce + aux, {"aux": aux}
+
+    return loss_fn
+
+
+def moe_model_config(torch, layers, dtype, max_seq_len):
+    from tpudist_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(vocab_size=32000, num_layers=layers,
+                             num_heads=8, num_kv_heads=2, embed_dim=MOE_D,
+                             max_seq_len=max_seq_len, compute_dtype=dtype)
+
+
+def phase_train_moe_parity(torch, dev, seed):
+    """dispatch="fused" (K7 forward, the ragged remat backward) against
+    dispatch="ragged" (all plain): a full-width 2-layer f32 MoE model
+    (vocab 32000, H=8, Hkv=2, embed 512, f=2048, E=8, top-2, block 128,
+    flash attention in both), B=2, S=512, 3 Adam steps from the same
+    weights and batches."""
+    import numpy as np
+
+    from tpudist_torch.models.moe import MoEConfig, MoETransformerLM
+    from tpudist_torch.ops.flash_attention import flash_attention_fn
+    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.train import TrainState, adam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = moe_model_config(torch, 2, torch.float32, 512)
+
+    def moe_cfg(dispatch):
+        return MoEConfig(num_experts=MOE_E, top_k=MOE_K, dispatch=dispatch,
+                         fused_block_rows=128)
+
+    sd = MoETransformerLM(cfg, moe_cfg("fused"), device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed + 8)).state_dict()
+    rng = np.random.default_rng(seed + 8)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 512)))
+               .to(dev) for _ in range(3)]
+    runs = {}
+    for name in ("fused", "ragged"):
+        model = MoETransformerLM(cfg, moe_cfg(name),
+                                 attention_fn=flash_attention_fn(),
+                                 device=dev)
+        model.load_state_dict(sd)
+        state = TrainState.create(model, adam(3e-4), seed=seed)
+        step = make_dp_train_step(moe_loss_fn(torch, cfg))
+        reset_launches()
+        losses, auxes, grads = [], [], []
+        for toks in batches:
+            state, m = step(state, toks)
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
+            grads.append({n: p.grad.clone()
+                          for n, p in model.named_parameters()})
+        runs[name] = (losses, auxes, grads, read_launches())
+        del model, state
+    (fl, fa, fg, fla), (rl, ra, rg, rla) = runs["fused"], runs["ragged"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(fl, rl))
+    aux_err = max(abs(a - b) / abs(b) for a, b in zip(fa, ra))
+    worst = max(((a[n] - b[n]).abs().max().item()
+                 / max(b[n].abs().max().item(), 1e-30), i, n)
+                for i, (a, b) in enumerate(zip(fg, rg)) for n in b)
+    want = 3 * cfg.num_layers
+    check(all(np.isfinite(fl)) and loss_err <= LOSS_RTOL
+          and aux_err <= LOSS_RTOL,
+          f"train_moe_parity: fused losses {fl} aux {fa} vs ragged {rl} "
+          f"aux {ra}")
+    check(worst[0] <= PGRAD_TOL,
+          f"train_moe_parity: gradient of {worst[2]} at step {worst[1]} "
+          f"differs by {worst[0]} of its max")
+    check(fla["K7"] == fla["K1"] == fla["K3"] == fla["K4"] == want,
+          f"train_moe_parity: fused run launches {fla}, want {want} each")
+    check(rla["K7"] == 0 and rla["K1"] == want,
+          f"train_moe_parity: the ragged run launches {rla}")
+    torch.cuda.empty_cache()
+    emit({"phase": "train_moe_parity", "losses_fused": fl,
+          "losses_ragged": rl, "aux_fused": fa, "aux_ragged": ra,
+          "loss_max_rel_err": loss_err, "aux_max_rel_err": aux_err,
+          "grad_worst_rel_to_max": worst[0], "grad_worst_param": worst[2],
+          "grad_worst_step": worst[1], "launches_fused": fla,
+          "launches_ragged": rla,
+          "tolerance": {"loss_rtol": LOSS_RTOL,
+                        "grad_rel_to_max": PGRAD_TOL}})
+
+
+def phase_train_moe(torch, dev, seed):
+    """The train phase's model with every MLP an MoE MLP, trained as the
+    train phase trains it (bf16 compute, f32 master weights, flash
+    attention, Adam 3e-4, seq 2048, batch 8, the markov stream from
+    --seed): MoEConfig(num_experts=8, top_k=2, dispatch="fused",
+    fused_block_rows=128), loss = cross-entropy + aux; 2 warm-up steps,
+    then 20 measured, then one under torch.profiler."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudist_torch.data import markov_tokens
+    from tpudist_torch.models.moe import MoEConfig, MoETransformerLM
+    from tpudist_torch.ops.flash_attention import flash_attention_fn
+    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.train import TrainState, adam
+
+    cfg = moe_model_config(torch, 8, torch.bfloat16, 8192)
+    moe = MoEConfig(num_experts=MOE_E, top_k=MOE_K, dispatch="fused",
+                    fused_block_rows=128)
+    B, S, steps = 8, 2048, 20
+    model = MoETransformerLM(cfg, moe, attention_fn=flash_attention_fn(),
+                             device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed + 9))
+    tokens = torch.from_numpy(markov_tokens(B, S, cfg.vocab_size,
+                                            seed)).to(dev)
+    state = TrainState.create(model, adam(3e-4), seed=seed)
+    step = make_dp_train_step(moe_loss_fn(torch, cfg))
+    for _ in range(2):                 # warm-up: cuBLAS, allocator
+        state, _ = step(state, tokens)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    losses, auxes = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, tokens)
+        losses.append(m["loss"])
+        auxes.append(m["aux"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [float(x) for x in losses]
+    auxes = [float(x) for x in auxes]
+    want = steps * cfg.num_layers
+    check(all(np.isfinite(losses)) and all(np.isfinite(auxes)),
+          f"train_moe: non-finite loss {losses} or aux {auxes}")
+    check(losses[-1] < losses[0],
+          f"train_moe: loss did not fall ({losses[0]} -> {losses[-1]})")
+    check(launches["K7"] == launches["K1"] == launches["K3"]
+          == launches["K4"] == want,
+          f"train_moe: launches {launches}, want {want} of K7, K1, K3, K4")
+    ms = wall / steps * 1e3
+    # model FLOPs: 6 per ACTIVE weight per token — the attention
+    # projections, the router, k of E experts' two matrices and lm_head
+    # (the embeddings are lookups) — plus 3x the attention forward's 4
+    # per live (q, k) pair, head and head dim; the remat's extra expert
+    # forward is not counted
+    active = 0.0
+    for n, p in model.named_parameters():
+        if n.endswith(("w_up", "w_down")):
+            active += p.numel() * MOE_K / MOE_E
+        elif n.endswith(".weight") and "embed" not in n:
+            active += p.numel()
+    attn = 3 * 4.0 * live_pairs(S, None) * B * cfg.num_heads \
+        * cfg.head_dim * cfg.num_layers
+    flops = 6.0 * active * B * S + attn
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, tokens)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, tokens)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    check(device_ms > 0, "train_moe: the profiler saw no device time")
+    families = {}
+    for k, t, _ in rows:
+        families[kernel_family(k)] = families.get(kernel_family(k), 0.0) + t
+    check(families.get("MoE grouped GEMM (K7)", 0.0) > 0,
+          f"train_moe: the profiled step shows no K7 time: {families}")
+    # the host's side of one more step: self time by op, the MoE
+    # backward's inclusive time (its group sizes are read on the host,
+    # so it waits there for the device) and the ATen calls a step makes
+    with profile(activities=[ProfilerActivity.CPU]) as host_prof:
+        state, _ = step(state, tokens)
+        torch.cuda.synchronize()
+    host = host_prof.key_averages()
+    host_top = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                       for e in host), key=lambda r: -r[1])
+    emit({"phase": "train_moe", "steps": steps, "batch": B, "seq_len": S,
+          "experts": MOE_E, "top_k": MOE_K, "block_rows": 128,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "losses": losses, "aux_mean": sum(auxes) / len(auxes),
+          "launches": launches, "wall_s": wall, "ms_per_step": ms,
+          "tokens_per_s": B * S / (ms / 1e3),
+          "active_weights": active, "model_flops_per_step": flops,
+          "bf16_peak_share": flops / (ms / 1e3) / BF16_FLOPS,
+          "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(dev),
+          "profile": {"step_wall_ms": step_ms, "device_ms": device_ms,
+                      "device_busy_share": device_ms / step_ms,
+                      "by_family_ms": families,
+                      "top": [{"kernel": k[:80], "ms": t, "count": n}
+                              for k, t, n in rows[:12]]},
+          "host_profile": {
+              "moe_backward_ms": sum(e.cpu_time_total for e in host
+                                     if e.key == "_FusedMoEBackward") / 1e3,
+              "aten_calls": sum(e.count for e in host
+                                if e.key.startswith("aten::")),
+              "top_self": [{"op": k[:60], "ms": t, "count": n}
+                           for k, t, n in host_top[:12]]}})
+    del model, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1165,6 +1531,9 @@ def main(argv=None) -> int:
     bwd_rows, k1_train = phase_backward_kernels(torch, dev, args.seed)
     phase_train_parity(torch, dev, args.seed)
     train_launches = phase_train(torch, dev, args.seed)
+    moe_rows, _ = phase_moe_kernels(torch, dev, args.seed)
+    phase_train_moe_parity(torch, dev, args.seed)
+    moe_launches = phase_train_moe(torch, dev, args.seed)
 
     main_k1 = next(r for r in k1 if r["q_offset"] == 7168)
     main_k2 = next(r for r in k2 if r["case"] == "per_row_side")
@@ -1219,6 +1588,16 @@ def main(argv=None) -> int:
             "tol_ratio": max(r["tol_ratio"] for r in rows),
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")}})
+    main_k7 = next(r for r in moe_rows if r["case"] == "train")
+    kernels.append({
+        "name": "moe_gmm (K7)", "route": "cuda",
+        "source": "tpudist_torch/csrc/moe_gmm.cu",
+        "replaces": "tpudist/ops/moe_dispatch.py:39",
+        "launches": moe_launches["K7"],
+        "max_abs_err": max(r["max_abs_err"] for r in moe_rows),
+        "tol_ratio": max(r["tol_ratio"] for r in moe_rows),
+        **{k: main_k7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

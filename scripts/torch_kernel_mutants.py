@@ -6,11 +6,12 @@
 For each mutant — K3 with its first live K/V tile's contribution dropped,
 K4 with its first live q-tile's dropped, K5 reading each key's page-table
 entry one block too far (``table[b, p / bs + 1]``), K6 with the V scale
-left out of the value product — copies ``tpudist_torch/`` into
-``DIR/<mutant>/`` (default ``_scratch/mutants``, git-ignored), breaks the
-kernel source there, and runs the ``chip_smoke`` phase that holds that
-kernel against its plain version (``phase_backward_kernels`` or
-``phase_paged_kernels``) against the broken copy in a subprocess, with
+left out of the value product, K7 with the gate left out of its epilogue
+— copies ``tpudist_torch/`` into ``DIR/<mutant>/`` (default
+``_scratch/mutants``, git-ignored), breaks the kernel source there, and
+runs the ``chip_smoke`` phase that holds that kernel against its plain
+version (``phase_backward_kernels``, ``phase_paged_kernels`` or
+``phase_moe_kernels``) against the broken copy in a subprocess, with
 ``chip_smoke.check`` replaced by a collector.  Prints one JSON line per
 mutant: the worst ``tol_ratio`` of each kernel in each case and the
 checks that failed.  Exits non-zero if any mutant passes every check (the
@@ -29,11 +30,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BWD, DEC = "csrc/flash_attention_bwd.cu", "csrc/flash_decode.cu"
+GMM = "csrc/moe_gmm.cu"
 K3_PRODUCTS = "    two_products<T, NT, D>(s, dp, Qw, Kw, dOw, Vw, r0, g, t4);\n"
 K4_PRODUCTS = ("      two_products<T, NT, D>(s, dp, Kw, Qw, Vw, dOw, r0, g, "
                "t4);\n")
 K5_TABLE = "a.table[(long long)b * a.M + (lo + r) / a.bs]"
 K6_PV = "sr[j] = round_to<__nv_bfloat16>(p * vsc[j]);"
+K7_GATE = "const float gt = a.gate[row0 + r];"
 # the chip_smoke phase that holds the kernel, and the expression (over its
 # return value `out`) giving {case: {kernel: tol_ratio}}
 BWD_RUN = ("rows, _ = chip_smoke.phase_backward_kernels(torch, dev, {seed})",
@@ -42,6 +45,8 @@ BWD_RUN = ("rows, _ = chip_smoke.phase_backward_kernels(torch, dev, {seed})",
 DEC_RUN = ("out = chip_smoke.phase_paged_kernels(torch, dev, {seed})",
            '{k + "_" + r["case"]: r["tol_ratio"] for k in ("K5", "K6") '
            'for r in out[k]}')
+GMM_RUN = ("rows, _ = chip_smoke.phase_moe_kernels(torch, dev, {seed})",
+           '{r["case"]: r["tol_ratio"] for r in rows}')
 MUTANTS = {
     "K3_drop_first_k_tile": (BWD, BWD_RUN, K3_PRODUCTS,
                              "    if (kt == kv_lo) continue;\n"
@@ -54,6 +59,8 @@ MUTANTS = {
         "a.table[(long long)b * a.M + (lo + r) / a.bs + 1]"),
     "K6_skip_v_scale": (DEC, DEC_RUN, K6_PV,
                         "sr[j] = round_to<__nv_bfloat16>(p);"),
+    "K7_no_gate_in_epilogue": (GMM, GMM_RUN, K7_GATE,
+                               "const float gt = 1.f;"),
 }
 
 RUNNER = r"""

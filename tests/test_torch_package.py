@@ -13,10 +13,12 @@ import pytest
 import torch
 
 import tpudist_torch
+from tpudist_torch.models.moe import MoEConfig, MoETransformerLM
 from tpudist_torch.models.transformer import TransformerConfig, TransformerLM
 from tpudist_torch.ops import _cuda
 from tpudist_torch.ops import flash_attention as tfa
 from tpudist_torch.ops import flash_decode as tfd
+from tpudist_torch.ops import moe_dispatch as tmd
 from tpudist_torch.utils.config import env_flag
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -61,6 +63,8 @@ def test_imports_and_runs_with_jax_blocked():
         "import tpudist_torch.models.kv_pages",
         "import tpudist_torch.ops.flash_attention, tpudist_torch.ops.losses",
         "import tpudist_torch.train, tpudist_torch.parallel",
+        "import tpudist_torch.models.moe, tpudist_torch.ops.moe_dispatch",
+        "from tpudist_torch.models import MoEConfig, MoETransformerLM",
         "from tpudist_torch import TransformerConfig, TransformerLM",
         "from tpudist_torch import greedy_generate",
         "cfg = TransformerConfig(vocab_size=32, num_layers=1, num_heads=2,",
@@ -69,6 +73,11 @@ def test_imports_and_runs_with_jax_blocked():
         "sd = TransformerLM(cfg, device='cpu').init_weights(g).state_dict()",
         "out = greedy_generate(cfg, sd, [[1, 2, 3]], 4, device='cpu')",
         "assert out.shape == (1, 7), out.shape",
+        "moe = MoETransformerLM(cfg, MoEConfig(num_experts=4,",
+        "                       dispatch='fused', fused_block_rows=8),",
+        "                       device='cpu').init_weights(g)",
+        "logits, aux = moe(torch.tensor([[1, 2, 3]]))",
+        "assert logits.shape == (1, 3, 32), logits.shape",
         "print('ok')",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -88,13 +97,16 @@ def test_entry_points_need_cuda_unless_told():
         tpudist_torch.greedy_generate(CFG, sd, [[1, 2]], 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tpudist_torch.ServeLoop(CFG, sd, num_slots=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MoETransformerLM(CFG, MoEConfig(dispatch="fused"))
 
 
 def test_cpu_tensors_take_the_plain_path():
     """CPU tensors never touch the kernels: launch counts stay put and no
     kernel library is built or loaded."""
-    kernels = (tfa.FLASH_FORWARD, tfd.FLASH_DECODE,
-               tfd.PAGED_FLASH_DECODE, tfd.FLASH_DECODE_Q8)
+    kernels = (tfa.FLASH_FORWARD, tfa.FLASH_BWD_DQ, tfa.FLASH_BWD_DKV,
+               tfd.FLASH_DECODE, tfd.PAGED_FLASH_DECODE, tfd.FLASH_DECODE_Q8,
+               tmd.MOE_GMM)
     counts = [k.launches for k in kernels]
     libs = dict(_cuda._libs)
     q = torch.randn(1, 5, 2, 16)
@@ -113,6 +125,12 @@ def test_cpu_tensors_take_the_plain_path():
                                        cache_layout=layout, kv_block_size=8,
                                        device="cpu")
         loop.run([tpudist_torch.Request(np.arange(5), 3)])
+    moe = MoETransformerLM(CFG, MoEConfig(num_experts=4, dispatch="fused",
+                                          fused_block_rows=8),
+                           attention_fn=tfa.flash_attention_fn(),
+                           device="cpu")
+    logits, aux = moe(torch.tensor([[1, 2, 3, 4]]))
+    (logits.sum() + aux).backward()
     assert [k.launches for k in kernels] == counts
     assert _cuda._libs == libs
 

@@ -2,7 +2,8 @@
 
 :func:`from_flax_params` takes a flax ``TransformerLM`` parameter tree as
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) and
-returns the port's ``state_dict``.  It imports nothing of the JAX package:
+returns the port's ``state_dict``; :func:`from_flax_moe_params` does the
+same for a ``MoETransformerLM``.  It imports nothing of the JAX package:
 the tree is plain numpy.
 """
 
@@ -38,17 +39,21 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
-def from_flax_params(params: Mapping[str, Any],
-                     cfg: TransformerConfig) -> dict[str, torch.Tensor]:
-    """The port's ``state_dict`` (f32 CPU tensors) from a flax parameter
-    tree: Dense kernels ``[in, out]`` become ``nn.Linear`` weights
-    ``[out, in]``; embeddings and LayerNorm ``scale``/``bias`` map as they
-    are; a scanned checkpoint is unstacked first.  ``load_state_dict``
-    casts to the model's dtype and device."""
+def _unwrap(params: Mapping[str, Any],
+            cfg: TransformerConfig) -> Mapping[str, Any]:
+    """The bare parameter tree: a ``{"params": ...}`` wrapper removed and
+    a scanned layer stack unstacked."""
     if "params" in params and "tok_embed" not in params:
         params = params["params"]
     if "blocks" in params:
         params = unstack_layer_params(params, cfg.num_layers)
+    return params
+
+
+def _shared_params(params: Mapping[str, Any],
+                   cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """What the dense and the MoE LM share: embeddings, the final
+    LayerNorm, the head, and each block's LayerNorms and attention."""
     sd = {
         "tok_embed.weight": _t(params["tok_embed"]["embedding"]),
         "pos_embed.weight": _t(params["pos_embed"]["embedding"]),
@@ -65,7 +70,37 @@ def from_flax_params(params: Mapping[str, Any],
         for name in names:
             sd[pre + f"attn.{name}.weight"] = _t(
                 blk["attn"][name]["kernel"]).T.contiguous()
+    return sd
+
+
+def from_flax_params(params: Mapping[str, Any],
+                     cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """The port's ``state_dict`` (f32 CPU tensors) from a flax parameter
+    tree: Dense kernels ``[in, out]`` become ``nn.Linear`` weights
+    ``[out, in]``; embeddings and LayerNorm ``scale``/``bias`` map as they
+    are; a scanned checkpoint is unstacked first.  ``load_state_dict``
+    casts to the model's dtype and device."""
+    params = _unwrap(params, cfg)
+    sd = _shared_params(params, cfg)
+    for i in range(cfg.num_layers):
         for name in ("up", "down"):
-            sd[pre + f"mlp.{name}.weight"] = _t(
-                blk["mlp"][name]["kernel"]).T.contiguous()
+            sd[f"blocks.{i}.mlp.{name}.weight"] = _t(
+                params[f"block{i}"]["mlp"][name]["kernel"]).T.contiguous()
+    return sd
+
+
+def from_flax_moe_params(params: Mapping[str, Any],
+                         cfg: TransformerConfig) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of :class:`~tpudist_torch.models.moe.MoETransformerLM`
+    from a flax ``MoETransformerLM`` tree: the shared layers map as in
+    :func:`from_flax_params`; ``block{i}/moe/router/kernel [d, E]``
+    becomes the ``nn.Linear`` weight ``[E, d]``; the expert stacks
+    ``w_up [E, d, f]`` and ``w_down [E, f, d]`` keep their layout."""
+    params = _unwrap(params, cfg)
+    sd = _shared_params(params, cfg)
+    for i in range(cfg.num_layers):
+        moe, pre = params[f"block{i}"]["moe"], f"blocks.{i}.moe."
+        sd[pre + "router.weight"] = _t(moe["router"]["kernel"]).T.contiguous()
+        sd[pre + "w_up"] = _t(moe["w_up"])
+        sd[pre + "w_down"] = _t(moe["w_down"])
     return sd
