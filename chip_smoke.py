@@ -66,7 +66,29 @@ Phases, each printing one JSON line and each fatal on failure:
 17. train_moe — the train phase's model with every MLP an MoE MLP (E=8,
    top-2, fused, block 128): 20 steps, launch counts K7 = K1 = K3 = K4 =
    steps x layers, the loss falling, ms per step, tokens/s, active-weight
-   model FLOPs, peak memory, the mean aux loss, one profiled step.
+   model FLOPs, peak memory, the mean aux loss, one profiled step;
+18. kernels_ring — K8 (dQ from a given Delta, the ring backward's) against
+   its plain version in bf16 at train_sp's shape (B=1, S=8192), at the
+   training shape, at the ring's three block kinds at S_loc = 2048
+   (diagonal, fully live, fully masked: exact zeros from K8 and K4, and
+   O = 0, LSE = -1e30 from K1), a 1024 window at offsets, and in f32,
+   with K1 and K4 on the same blocks against theirs; fed K3's Delta,
+   bit-identical to K3's dQ; times beside K3's, the bound and SDPA's
+   backward;
+19. ring_sp4 — ring flash attention for 4 virtual ranks in one process
+   (B=1, S=4 x 2048, H=8, Hkv=2, D=64), through the module's step
+   functions with the blocks rotating as _ring_rotate would, causal and
+   with a 1024 window, in bf16 and f32: forward and backward against one
+   flash_attention call over the whole sequence and against the same ring
+   on the plain versions; K1 = K8 = K4 = 16 launches a run, K3 = 0;
+20. train_sp — the train phase's model at seq 8192, batch 1, trained
+   through make_sp_train_step with ring flash attention on a one-rank
+   NCCL group and a data 1 x seq 1 mesh: step 0's loss and gradients
+   against the dense flash step's, then 10 measured steps (K1 = K8 = K4
+   = 8 a step, K3 = 0), the loss falling and tracking a dense run's from
+   the same weights step by step, the loss and gradients against the
+   dense step's again after training, ms a step beside the dense step's,
+   tokens/s, model FLOPs share, peak memory, one profiled step.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -112,6 +134,25 @@ LOSS_RTOL, PGRAD_TOL = 1e-5, 1e-3
 # the 2048-long second product; the flat term relative to y's largest
 # element covers that, the relative term the largest elements.
 MOE_ATOL_REL, MOE_RTOL = 1e-2, 2e-2
+# f32 kernels against f32 references (exact FMAs on both sides, sums in
+# other orders, the ring's 4 partial sums merged in f32): each element
+# within F32_ATOL + F32_RTOL * |reference|
+F32_ATOL, F32_RTOL = 1e-4, 1e-4
+# train_sp step 0 against the dense flash step (bf16 compute): the loss
+# within SP_LOSS_RTOL (the forward is the same kernels on the same
+# inputs), each parameter's gradient within SP_GRAD_TOL * max|dense
+# gradient| (Delta summed in another order, so an element of dS may round
+# one bf16 ulp away)
+SP_LOSS_RTOL, SP_GRAD_TOL = 1e-6, 1e-2
+# train_sp's 12 SP steps against 12 dense flash steps from the same weights
+# on the same batch: each step's loss within SP_TRAJ_RTOL of the dense
+# one's.  Each step's gradients differ by up to SP_GRAD_TOL of their max,
+# and Adam normalises per element, so an element whose gradient is near
+# zero moves by up to lr on a difference in its last bits: the two runs
+# drift apart by a few lr in such elements over the steps.  A fault of the
+# ring backward gives gradients wrong by their own size, which Adam turns
+# into updates of lr in every element it touches.
+SP_TRAJ_RTOL = 5e-2
 
 
 def emit(obj) -> None:
@@ -417,7 +458,7 @@ def _counters() -> dict:
     return {"K1": fa.FLASH_FORWARD, "K2": fd.FLASH_DECODE,
             "K3": fa.FLASH_BWD_DQ, "K4": fa.FLASH_BWD_DKV,
             "K5": fd.PAGED_FLASH_DECODE, "K6": fd.FLASH_DECODE_Q8,
-            "K7": md.MOE_GMM}
+            "K7": md.MOE_GMM, "K8": fa.FLASH_BWD_DQ_DELTA}
 
 
 def reset_launches():
@@ -851,10 +892,12 @@ def phase_profile(torch, loop, seed, name="profile"):
 
 def grad_ratio(got, want) -> float:
     """Worst ratio of an element's error to its limit GRAD_ATOL_REL *
-    max|plain| + GRAD_RTOL * |plain|; the kernel agrees at <= 1."""
+    max|plain| + GRAD_RTOL * |plain|; the kernel agrees at <= 1.  An
+    exact match counts 0 (an all-zero gradient has a limit of 0)."""
     got, want = got.float(), want.float()
     lim = GRAD_ATOL_REL * want.abs().max() + GRAD_RTOL * want.abs()
-    return ((got - want).abs() / lim).max().item()
+    err = (got - want).abs()
+    return (err / lim).masked_fill(err == 0, 0.0).max().item()
 
 
 def live_pairs(s: int, window) -> int:
@@ -1046,7 +1089,7 @@ def phase_train_parity(torch, dev, seed):
 def kernel_family(name: str) -> str:
     """The train profile's grouping of device kernels by name."""
     for family, keys in (("MoE grouped GEMM (K7)", ("moe_gmm",)),
-                         ("attention (K1, K3, K4)", ("flash_",)),
+                         ("attention (K1, K3, K4, K8)", ("flash_",)),
                          ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
                          ("optimizer", ("multi_tensor", "adam")),
                          ("reduction", ("reduce_kernel",))):
@@ -1486,6 +1529,545 @@ def phase_train_moe(torch, dev, seed):
     return launches
 
 
+def live_pairs_at(sq: int, sk: int, q_off: int, k_off: int, window) -> int:
+    """Live (query, key) pairs of one head of a causal block whose queries
+    sit at global positions q_off + [0, sq) and keys at k_off + [0, sk),
+    within the window when given."""
+    n = 0
+    for r in range(sq):
+        qp = q_off + r
+        lo = k_off if window is None else max(k_off, qp - window + 1)
+        n += max(0, min(k_off + sk - 1, qp) - lo + 1)
+    return n
+
+
+def o_ratio(got, want) -> float:
+    """Worst ratio of an element's error to compare's limit O_ATOL +
+    O_RTOL * |plain|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs() / (O_ATOL + O_RTOL * want.abs())).max().item()
+
+
+def f32_ratio(got, want) -> float:
+    """Worst ratio of an element's error to F32_ATOL + F32_RTOL * |ref|."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs()
+            / (F32_ATOL + F32_RTOL * want.abs())).max().item()
+
+
+def phase_ring_kernels(torch, dev, seed):
+    """K8 against its plain version (``_flash_bwd_dq_plain`` with Delta
+    given), each dQ element within O_ATOL + O_RTOL * |plain|, at:
+    train_sp's shape, the one it launches K8 at (B=1, S=8192, H=8, Hkv=2,
+    D=64, offsets 0, causal, bf16); the train phase's attention shape
+    (B=8, S=2048), where only the bit identity and K3's time beside K8's
+    are of use (dense training launches K3 there); the ring's block kinds
+    at S_loc = 2048 (B=1): diagonal (q_offset = k_offset = 2048), fully
+    live (4096, 0) and fully masked (0, 2048); a 1024 window at offsets
+    (4096, 2048); and the diagonal in f32.  Each backward takes final
+    statistics as the ring's are: the queries' own diagonal block and the
+    case's block folded by the ring's forward step (so P <= 1 over both),
+    Delta from that output.  In every case K1 on the case's block (at its
+    offsets) is held against its plain version as the kernels phase holds
+    it, and K4 (dK, dV with the same Delta) against its plain version by
+    grad_ratio's limit as kernels_bwd holds it; in f32 both by F32_ATOL +
+    F32_RTOL * |plain|.  On the masked block K8 and K4 must write exact
+    zeros and K1 give O = 0 and LSE = -1e30.  Fed K3's Delta, K8 must
+    give K3's dQ bit for bit.  Returns the rows."""
+    import torch.nn.functional as F
+
+    from tpudist_torch.ops import flash_attention as fa
+    from tpudist_torch.parallel.ring_attention import _ring_flash_fwd_step
+
+    g = torch.Generator(device=dev).manual_seed(seed + 10)
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = []
+    for case, (B, S, H, HKV, D, q_off, k_off, W, dt) in (
+            ("train", (8, 2048, 8, 2, 64, 0, 0, None, torch.bfloat16)),
+            ("diagonal", (1, 2048, 8, 2, 64, 2048, 2048, None,
+                          torch.bfloat16)),
+            ("fully_live", (1, 2048, 8, 2, 64, 4096, 0, None,
+                            torch.bfloat16)),
+            ("fully_masked", (1, 2048, 8, 2, 64, 0, 2048, None,
+                              torch.bfloat16)),
+            ("window1024", (1, 2048, 8, 2, 64, 4096, 2048, 1024,
+                            torch.bfloat16)),
+            ("diagonal_f32", (1, 2048, 8, 2, 64, 2048, 2048, None,
+                              torch.float32)),
+            ("train_sp", (1, 8192, 8, 2, 64, 0, 0, None, torch.bfloat16))):
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+        q, do = rnd(B, S, H, D), rnd(B, S, H, D)
+        k_own, v_own = rnd(B, S, HKV, D), rnd(B, S, HKV, D)
+        k, v = (k_own, v_own) if q_off == k_off else (rnd(B, S, HKV, D),
+                                                      rnd(B, S, HKV, D))
+        # the final statistics of these queries: their own block, then the
+        # case's, folded as the ring folds them (block index = offset / S)
+        o = torch.zeros(q.shape, device=dev)
+        lse = torch.full((B, H, S), -1e30, device=dev)
+        blocks = [(k_own, v_own, q_off)] + ([(k, v, k_off)]
+                                            if k_off != q_off else [])
+        for kb, vb, off in blocks:
+            o, lse = _ring_flash_fwd_step(q, kb, vb, o, lse, q_off // S,
+                                          off // S, causal=True, window=W)
+        out = o.to(dt)
+        delta = fa.flash_delta(out, do)
+        kw = dict(causal=True, q_offset=q_off, k_offset=k_off, window=W)
+        f32 = dt == torch.float32
+        # K1 on the case's block at its offsets
+        fkw = {x: kw[x] for x in ("q_offset", "k_offset", "window")}
+        ob, lse_b = fa._flash_forward(q, k, v, True, **fkw)
+        pob, plse_b = fa._flash_forward_plain(q, k, v, True, **fkw)
+        torch.cuda.synchronize()
+        k1 = {"max_abs_err": (ob.float() - pob.float()).abs().max().item(),
+              "tol_ratio": f32_ratio(ob, pob) if f32 else o_ratio(ob, pob),
+              "lse_err": (lse_b - plse_b).abs().max().item()}
+        check(k1["tol_ratio"] <= 1.0 and k1["lse_err"] <= LSE_ATOL,
+              f"K1 disagrees with its plain version ({case}): {k1}")
+        del pob, plse_b
+        dq = fa._flash_bwd_dq_delta(q, k, v, do, lse, delta, **kw)
+        pdq, _ = fa._flash_bwd_dq_plain(q, k, v, do, None, lse, delta=delta,
+                                        **kw)
+        torch.cuda.synchronize()
+        err = (dq.float() - pdq.float()).abs().max().item()
+        ratio = f32_ratio(dq, pdq) if f32 else o_ratio(dq, pdq)
+        check(ratio <= 1.0 and bool(torch.isfinite(dq).all()),
+              f"K8 disagrees with its plain version ({case}): dq {err} "
+              f"(ratio to limit {ratio})")
+        del pdq
+        # K4 with the same Delta
+        dk, dv = fa._flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        pdk, pdv = fa._flash_bwd_dkv_plain(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        k4 = {"max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                 for a, b in ((dk, pdk), (dv, pdv))),
+              "tol_ratio": max((f32_ratio if f32 else grad_ratio)(a, b)
+                               for a, b in ((dk, pdk), (dv, pdv)))}
+        check(k4["tol_ratio"] <= 1.0 and bool(torch.isfinite(dk).all())
+              and bool(torch.isfinite(dv).all()),
+              f"K4 disagrees with its plain version ({case}): {k4}")
+        del pdk, pdv
+        row = {"case": case, "shape": [B, S, H, HKV, D], "q_offset": q_off,
+               "k_offset": k_off, "window": W, "dtype": str(dt),
+               "max_abs_err": err, "tol_ratio": ratio, "K1": k1, "K4": k4}
+        if q_off == k_off:
+            # K3 on the same block writes a Delta; K8 fed it gives K3's dQ
+            dq3, delta3 = fa._flash_bwd_dq(q, k, v, do, out, lse, **kw)
+            dq8 = fa._flash_bwd_dq_delta(q, k, v, do, lse, delta3, **kw)
+            torch.cuda.synchronize()
+            row["bit_identical_to_k3"] = bool(torch.equal(dq8, dq3))
+            check(row["bit_identical_to_k3"], f"K8 fed K3's Delta differs "
+                  f"from K3's dQ ({case}) by "
+                  f"{(dq8.float() - dq3.float()).abs().max().item()}")
+        if case == "fully_masked":
+            zeros = (not dq.any().item() and not dk.any().item()
+                     and not dv.any().item())
+            neg_big = torch.tensor(-1e30, dtype=torch.float32, device=dev)
+            k1_dead = not ob.any().item() and bool((lse_b == neg_big).all())
+            row["exact_zeros"], row["k1_dead_block"] = zeros, k1_dead
+            check(zeros, "K8/K4 on a fully masked block: gradients not all "
+                  "exact zeros")
+            check(k1_dead, f"K1 on a fully masked block: O max "
+                  f"{ob.float().abs().max().item()}, lse range "
+                  f"[{lse_b.min().item()}, {lse_b.max().item()}]")
+        pairs = live_pairs_at(S, S, q_off, k_off, W) * B * H
+        nb = q.element_size()
+        qn, kn = q.numel(), k.numel()
+        # K8 reads q k v dO lse Delta and writes dQ (K3's bytes without
+        # its O-tile prepass and Delta write)
+        b8 = bound((2 * qn + 2 * kn) * nb + 2 * B * H * S * 4 + qn * nb,
+                   6.0 * pairs * D)
+        row.update({
+            "live_pairs": pairs,
+            "ms": timed_ms(lambda: fa._flash_bwd_dq_delta(
+                q, k, v, do, lse, delta, **kw), 10, flush),
+            "bound_ms": b8[0], "bound_by": b8[1]})
+        if case in ("train_sp", "fully_live"):
+            row["plain_ms"] = timed_ms(lambda: fa._flash_bwd_dq_plain(
+                q, k, v, do, None, lse, delta=delta, **kw), 2, flush)
+        if case in ("train_sp", "train"):
+            row["K3_ms"] = timed_ms(lambda: fa._flash_bwd_dq(
+                q, k, v, do, out, lse, **kw), 10, flush)
+        if case == "train_sp":
+            # K4 at the shape train_sp launches it: reads q k v dO lse
+            # Delta, writes dK dV
+            b4 = bound((2 * qn + 2 * kn) * nb + 2 * B * H * S * 4
+                       + 2 * kn * nb, 8.0 * pairs * D)
+            row["K4"].update({
+                "ms": timed_ms(lambda: fa._flash_bwd_dkv(
+                    q, k, v, do, lse, delta, **kw), 10, flush),
+                "bound_ms": b4[0], "bound_by": b4[1]})
+            # the yardstick: SDPA's whole backward on the same inputs
+            # (fwd+bwd minus fwd), one call for the pair K8 + K4
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            dot = do.transpose(1, 2)
+
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+
+            def sdpa_fwd_bwd():
+                torch.autograd.grad(sdpa_fwd(), (qt, kt, vt), dot)
+
+            row["library_ms"] = (timed_ms(sdpa_fwd_bwd, 10, flush)
+                                 - timed_ms(sdpa_fwd, 10, flush))
+        rows.append(row)
+        del q, k, v, do, out, lse, delta, dq, dk, dv, ob, lse_b
+    del flush_buf
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_ring", "K8": rows,
+          "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
+                        "f32_atol": F32_ATOL, "f32_rtol": F32_RTOL}})
+    return rows
+
+
+def _virtual_ring(torch, ra, q, k, v, do, n, window):
+    """Ring flash attention for ``n`` virtual ranks in one process:
+    rank r holds block r of q/k/v/dO (``[B, S/n, ...]``) and runs the
+    module's forward and backward step functions; between steps the list
+    of resident blocks (and, backward, their dK/dV accumulators) rotates
+    as ``_ring_rotate`` moves them, rank r receiving rank r - 1's.
+    Returns the full ``(out, dq, dk, dv)``."""
+    from tpudist_torch.ops.flash_attention import flash_delta
+
+    def split(x):
+        return list(x.chunk(n, 1))
+
+    qs, ks, vs, dos = split(q), split(k), split(v), split(do)
+    b, s_loc, h, d = qs[0].shape
+    o = [torch.zeros((b, s_loc, h, d), device=q.device) for _ in range(n)]
+    lse = [torch.full((b, h, s_loc), -1e30, device=q.device)
+           for _ in range(n)]
+    kb, vb = list(ks), list(vs)
+
+    def rotate(xs):
+        return [xs[(r - 1) % n] for r in range(n)]
+
+    for step in range(n):
+        for r in range(n):
+            o[r], lse[r] = ra._ring_flash_fwd_step(
+                qs[r], kb[r], vb[r], o[r], lse[r], r, (r - step) % n,
+                causal=True, window=window)
+        if step < n - 1:
+            kb, vb = rotate(kb), rotate(vb)
+    outs = [x.to(q.dtype) for x in o]
+    deltas = [flash_delta(outs[r], dos[r]) for r in range(n)]
+    dq = [torch.zeros(x.shape, device=q.device) for x in qs]
+    dk = [torch.zeros(x.shape, device=q.device) for x in ks]
+    dv = [torch.zeros(x.shape, device=q.device) for x in vs]
+    kb, vb = list(ks), list(vs)
+    for step in range(n):
+        for r in range(n):
+            ra._ring_flash_bwd_step(qs[r], kb[r], vb[r], dos[r], lse[r],
+                                    deltas[r], dq[r], dk[r], dv[r], r,
+                                    (r - step) % n, causal=True,
+                                    window=window)
+        kb, vb, dk, dv = rotate(kb), rotate(vb), rotate(dk), rotate(dv)
+    cat = lambda xs, dt: torch.cat(xs, 1).to(dt)
+    return (cat(outs, q.dtype), cat(dq, q.dtype), cat(dk, k.dtype),
+            cat(dv, v.dtype))
+
+
+def phase_ring_sp4(torch, dev, seed):
+    """4 virtual ranks of ring flash attention (B=1, S=8192, H=8, Hkv=2,
+    D=64; S_loc = 2048), causal and with a 1024 window, in bf16 and f32:
+    the ring (K1, K8, K4; counts reset just before and read just after,
+    16 launches each and no K3) against one flash_attention call over the
+    whole sequence under autograd (K1, K3, K4) and against the same ring
+    with the step functions' kernels swapped for their plain versions.
+    bf16: O by compare's limit, each element within O_ATOL + O_RTOL *
+    |ref| (the ring rounds each block's O to bf16 before the f32 merge, as
+    tpudist's does: a bf16 ulp of a block's O, ~1e-4 at these widths, far
+    inside O_ATOL), the gradients by grad_ratio's limit, 1e-2 * max|ref|
+    + 2e-2 * |ref| (as kernels_bwd holds K3 and K4); f32: every element
+    within F32_ATOL + F32_RTOL * |reference|.  Returns the rows and the
+    launch counts of the bf16 causal ring."""
+    from tpudist_torch.ops import flash_attention as fa
+    from tpudist_torch.parallel import ring_attention as ra
+
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    B, S, H, HKV, D, n = 1, 8192, 8, 2, 64, 4
+    rows, main_launches = [], None
+    for dt in (torch.bfloat16, torch.float32):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+        q, k, v, do = rnd(B, S, H, D), rnd(B, S, HKV, D), rnd(B, S, HKV, D), \
+            rnd(B, S, H, D)
+        for W in (None, 1024):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            got = _virtual_ring(torch, ra, q, k, v, do, n, W)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            check(launches["K1"] == launches["K8"] == launches["K4"]
+                  == n * n and launches["K3"] == 0,
+                  f"ring_sp4: launches {launches}, want {n * n} of K1, K8, "
+                  f"K4 and no K3")
+            # the same ring on the plain versions of the kernels
+            saved = ra._flash_forward, ra.flash_block_grads
+            ra._flash_forward = fa._flash_forward_plain
+            ra.flash_block_grads = fa.flash_block_grads_plain
+            try:
+                plain = _virtual_ring(torch, ra, q, k, v, do, n, W)
+            finally:
+                ra._flash_forward, ra.flash_block_grads = saved
+            # one flash_attention call over the whole sequence
+            xs = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            full_out = fa.flash_attention(*xs, causal=True, window=W)
+            full = (full_out,) + torch.autograd.grad(full_out, xs, do)
+            torch.cuda.synchronize()
+            row = {"dtype": str(dt), "window": W, "launches": launches,
+                   "wall_ms": wall * 1e3}
+            for ref_name, ref in (("full_flash", full), ("plain_ring",
+                                                          plain)):
+                ratios = {}
+                for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+                    ratios[name] = (f32_ratio(a, b) if dt == torch.float32
+                                    else o_ratio(a, b) if name == "out"
+                                    else grad_ratio(a, b))
+                    check(ratios[name] <= 1.0 and bool(
+                        torch.isfinite(a).all()),
+                          f"ring_sp4 ({dt}, window {W}): {name} differs "
+                          f"from the {ref_name} (ratio to limit "
+                          f"{ratios[name]})")
+                row[ref_name] = {
+                    "tol_ratio": ratios,
+                    "max_abs_err": max((a.float() - b.float()).abs().max()
+                                       .item() for a, b in zip(got, ref))}
+            rows.append(row)
+            if dt == torch.bfloat16 and W is None:
+                main_launches = launches
+            del got, plain, full, xs, full_out
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    emit({"phase": "ring_sp4", "ranks": n, "shape": [B, S, H, HKV, D],
+          "runs": rows,
+          "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
+                        "grad_atol_rel": GRAD_ATOL_REL,
+                        "grad_rtol": GRAD_RTOL, "f32_atol": F32_ATOL,
+                        "f32_rtol": F32_RTOL}})
+    return rows, main_launches
+
+
+def phase_train_sp(torch, dev, seed):
+    """The train phase's model (vocab 32000, 8 layers, H=8, Hkv=2, embed
+    512, bf16 compute, f32 master weights, Adam 3e-4, the markov stream
+    from --seed) at seq 8192, batch 1, max_seq_len 8192, trained through
+    make_sp_train_step with ring_flash_attention_fn on a one-rank NCCL
+    group (``initialize`` with a HashStore) and a data 1 x seq 1 mesh, the
+    last target masked as long_context_lm_tpu.py masks it.  Step 0 against
+    the dense flash step (make_dp_train_step, flash_attention_fn(), the
+    same loss) from the same weights; then a warm-up and 10 measured SP
+    steps with counts reset just before and read just after; the dense
+    run takes the same 12 steps from the same weights, its losses held
+    against the SP run's step by step and its time beside the SP step's;
+    after training one more SP and dense step from the SP run's weights,
+    held as step 0 is; then one SP step under torch.profiler.  The group
+    is destroyed at the end."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudist_torch.data import markov_tokens
+    from tpudist_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from tpudist_torch.ops.flash_attention import flash_attention_fn
+    from tpudist_torch.ops.losses import cross_entropy_per_token
+    from tpudist_torch.parallel import (
+        make_dp_train_step,
+        make_sp_train_step,
+        ring_flash_attention_fn,
+    )
+    from tpudist_torch.runtime import (
+        initialize,
+        local_block,
+        make_mesh,
+        shutdown,
+    )
+    from tpudist_torch.train import TrainState, adam
+
+    cfg = TransformerConfig(vocab_size=32000, num_layers=8, num_heads=8,
+                            num_kv_heads=2, embed_dim=512, max_seq_len=8192,
+                            compute_dtype=torch.bfloat16)
+    B, S, steps = 1, 8192, 10
+    ctx = initialize(store=dist.HashStore(), world_size=1, rank=0,
+                     device=dev)
+    try:
+        check(dist.get_backend() == "nccl" and ctx.process_count == 1,
+              f"train_sp: backend {dist.get_backend()}, {ctx}")
+        probe = torch.ones(4, device=dev)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        check(probe.tolist() == [1.0] * 4, f"train_sp: NCCL all-reduce on "
+              f"one rank gave {probe.tolist()}")
+        mesh = make_mesh({"data": 1, "seq": 1})
+        tokens = torch.from_numpy(markov_tokens(B, S, cfg.vocab_size,
+                                                seed)).to(dev)
+        targets = torch.cat([tokens[:, 1:],
+                             torch.full_like(tokens[:, :1], -1)], 1)
+        total = B * (S - 1)
+
+        def loss_per_token(logits, tgt):
+            mask = (tgt >= 0).float()
+            return cross_entropy_per_token(logits, tgt.clamp_min(0)) * mask
+
+        def dense_loss(model, batch, _gen):
+            toks, tgt = batch
+            logits = model(toks)
+            return loss_per_token(logits.reshape(-1, cfg.vocab_size),
+                                  tgt.reshape(-1)).sum() / total, {}
+
+        def build(attn):
+            model = TransformerLM(cfg, attention_fn=attn,
+                                  param_dtype=torch.float32, device=dev)
+            model.init_weights(
+                torch.Generator(device=dev).manual_seed(seed + 12))
+            return model, TrainState.create(model, adam(3e-4), seed=seed)
+
+        model, state = build(ring_flash_attention_fn("seq", mesh=mesh))
+        sp_step = make_sp_train_step(model, loss_per_token, mesh, total)
+        batch = (local_block(tokens, mesh), local_block(targets, mesh))
+        dense_model, dense_state = build(flash_attention_fn())
+        dense_step = make_dp_train_step(dense_loss)
+
+        def same_weights_step():
+            """One SP step and one dense step from the SP model's weights:
+            the loss and every gradient against the dense step's."""
+            nonlocal state, dense_state
+            dense_model.load_state_dict(model.state_dict())
+            reset_launches()
+            state, m = sp_step(state, *batch)
+            launches = read_launches()
+            sp_grads = {n: p.grad.clone()
+                        for n, p in model.named_parameters()}
+            dense_state, dm = dense_step(dense_state, tokens, targets)
+            loss_sp, loss_dense = float(m["loss"]), float(dm["loss"])
+            loss_err = abs(loss_sp - loss_dense) / abs(loss_dense)
+            worst = max(((sp_grads[n] - p.grad).abs().max().item()
+                         / max(p.grad.abs().max().item(), 1e-30), n)
+                        for n, p in dense_model.named_parameters())
+            return {"loss_sp": loss_sp, "loss_dense": loss_dense,
+                    "loss_rel_err": loss_err, "grad_worst_rel_to_max":
+                    worst[0], "grad_worst_param": worst[1],
+                    "launches": launches}
+
+        def check_same_weights(r, when):
+            check(np.isfinite(r["loss_sp"])
+                  and r["loss_rel_err"] <= SP_LOSS_RTOL,
+                  f"train_sp: {when} loss {r['loss_sp']} against the dense "
+                  f"flash step's {r['loss_dense']}")
+            check(r["grad_worst_rel_to_max"] <= SP_GRAD_TOL,
+                  f"train_sp: {when} gradient of {r['grad_worst_param']} "
+                  f"differs from the dense step's by "
+                  f"{r['grad_worst_rel_to_max']} of its max")
+            check(r["launches"]["K3"] == 0 and r["launches"]["K8"]
+                  == cfg.num_layers, f"train_sp: {when} launches "
+                  f"{r['launches']}")
+
+        # step 0: the same weights through both steps
+        step0 = same_weights_step()
+        check_same_weights(step0, "step-0")
+        losses = [step0["loss_sp"]]
+        state, m = sp_step(state, *batch)        # warm-up
+        losses.append(m["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = sp_step(state, *batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [float(x) for x in losses]
+        want = steps * cfg.num_layers
+        check(all(np.isfinite(losses)), f"train_sp: non-finite loss "
+              f"{losses}")
+        check(losses[-1] < losses[0],
+              f"train_sp: loss did not fall ({losses[0]} -> {losses[-1]})")
+        check(launches["K1"] == launches["K8"] == launches["K4"] == want
+              and launches["K3"] == 0,
+              f"train_sp: launches {launches}, want {want} of K1, K8, K4 "
+              f"and no K3")
+        # the dense flash step at the same shape, on the same steps from
+        # step 0: its losses beside the SP run's, its time beside the SP
+        # step's
+        dense_losses = [step0["loss_dense"]]
+        dense_state, dm = dense_step(dense_state, tokens, targets)
+        dense_losses.append(dm["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            dense_state, dm = dense_step(dense_state, tokens, targets)
+            dense_losses.append(dm["loss"])
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) / steps * 1e3
+        ms = wall / steps * 1e3
+        dense_losses = [float(x) for x in dense_losses]
+        traj_err = [abs(a - b) / abs(b) for a, b in zip(losses,
+                                                        dense_losses)]
+        check(max(traj_err) <= SP_TRAJ_RTOL, f"train_sp: the SP run's "
+              f"losses {losses} left the dense run's {dense_losses}")
+        # after training: the same weights through both steps again
+        final = same_weights_step()
+        check_same_weights(final, f"step-{len(losses)}")
+        # one more SP step under the profiler: device time by family
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            state, _ = sp_step(state, *batch)
+            torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages() if e.self_device_time_total > 0]
+        device_ms = sum(r[1] for r in rows)
+        check(device_ms > 0, "train_sp: the profiler saw no device time")
+        families = {}
+        for k, t, _ in rows:
+            families[kernel_family(k)] = families.get(kernel_family(k),
+                                                      0.0) + t
+        weights = sum(p.numel() for n, p in model.named_parameters()
+                      if n.endswith(".weight") and "embed" not in n)
+        flops = 6.0 * weights * B * S + 3 * 4.0 * live_pairs(S, None) * B \
+            * cfg.num_heads * cfg.head_dim * cfg.num_layers
+        emit({"phase": "train_sp", "mesh": {"data": 1, "seq": 1},
+              "backend": "nccl", "steps": steps, "batch": B, "seq_len": S,
+              "step0": step0, "after_training": final,
+              "losses": losses, "dense_losses": dense_losses,
+              "loss_rel_err_by_step": traj_err,
+              "launches": launches, "wall_s": wall,
+              "ms_per_step": ms, "tokens_per_s": B * S / (ms / 1e3),
+              "model_flops_per_step": flops,
+              "bf16_peak_share": flops / (ms / 1e3) / BF16_FLOPS,
+              "max_memory_allocated_bytes": peak,
+              "dense_flash_ms_per_step": dense_ms,
+              "profile": {"step_wall_ms": step_ms, "device_ms": device_ms,
+                          "device_busy_share": device_ms / step_ms,
+                          "by_family_ms": families},
+              "tolerance": {"loss_rtol": SP_LOSS_RTOL,
+                            "grad_rel_to_max": SP_GRAD_TOL,
+                            "trajectory_rtol": SP_TRAJ_RTOL}})
+        del model, state, dense_model, dense_state
+    finally:
+        shutdown()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1534,6 +2116,9 @@ def main(argv=None) -> int:
     moe_rows, _ = phase_moe_kernels(torch, dev, args.seed)
     phase_train_moe_parity(torch, dev, args.seed)
     moe_launches = phase_train_moe(torch, dev, args.seed)
+    ring_rows = phase_ring_kernels(torch, dev, args.seed)
+    _, sp4_launches = phase_ring_sp4(torch, dev, args.seed)
+    sp_launches = phase_train_sp(torch, dev, args.seed)
 
     main_k1 = next(r for r in k1 if r["q_offset"] == 7168)
     main_k2 = next(r for r in k2 if r["case"] == "per_row_side")
@@ -1542,11 +2127,14 @@ def main(argv=None) -> int:
          "source": "tpudist_torch/csrc/flash_attention.cu",
          "replaces": "tpudist/ops/flash_attention.py:127",
          "launches": launches["K1"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1),
-         "tol_ratio": max(r["tol_ratio"] for r in k1),
+         "max_abs_err": max([r["max_abs_err"] for r in k1]
+                            + [r["K1"]["max_abs_err"] for r in ring_rows]),
+         "tol_ratio": max([r["tol_ratio"] for r in k1]
+                          + [r["K1"]["tol_ratio"] for r in ring_rows]),
          **{k: main_k1[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
          "launches_train": train_launches["K1"],
+         "launches_sp": sp_launches["K1"],
          "train_ms": k1_train["ms"], "train_bound_ms": k1_train["bound_ms"],
          "train_library_ms": k1_train["library_ms"]},
         {"name": "flash_decode (K2)", "route": "cuda",
@@ -1567,12 +2155,32 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "tpudist_torch/csrc/flash_attention_bwd.cu",
             "replaces": src_line, "launches": train_launches[key],
-            "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_rows),
-            "tol_ratio": max(r[key]["tol_ratio"] for r in bwd_rows),
+            "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_rows
+                               + (ring_rows if key == "K4" else [])),
+            "tol_ratio": max(r[key]["tol_ratio"] for r in bwd_rows
+                             + (ring_rows if key == "K4" else [])),
             **{k: main_bwd[key][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")},
             # SDPA's whole backward, one call for the pair K3 + K4
             "library_ms": main_bwd["library_ms"]})
+    # K8 is launched at train_sp's shape; K4 there too (sp_ms)
+    main_k8 = next(r for r in ring_rows if r["case"] == "train_sp")
+    kernels[-1].update({"launches_sp": sp_launches["K4"],
+                        "sp_ms": main_k8["K4"]["ms"],
+                        "sp_bound_ms": main_k8["K4"]["bound_ms"]})
+    train_k8 = next(r for r in ring_rows if r["case"] == "train")
+    kernels.append({
+        "name": "flash_bwd_dq_delta (K8)", "route": "cuda",
+        "source": "tpudist_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "tpudist/ops/flash_attention.py:286",
+        "launches": sp_launches["K8"],
+        "launches_ring_sp4": sp4_launches["K8"],
+        "max_abs_err": max(r["max_abs_err"] for r in ring_rows),
+        "tol_ratio": max(r["tol_ratio"] for r in ring_rows),
+        # library_ms: SDPA's whole backward, one call for the pair K8 + K4
+        **{k: main_k8[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "K3_ms")},
+        "train_ms": train_k8["ms"], "train_K3_ms": train_k8["K3_ms"]})
     for key, name, launched, main_case in (
             ("K5", "paged_flash_decode (K5)", paged_launches["K5"],
              "block128"),

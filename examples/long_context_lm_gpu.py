@@ -1,18 +1,26 @@
-"""Long-context transformer LM training on one NVIDIA GPU (the PyTorch port).
+"""Long-context transformer LM training on NVIDIA GPUs (the PyTorch port).
 
-The twin of the plain data-parallel branch of ``long_context_lm_tpu.py``,
-through ``tpudist_torch``: ``TransformerLM`` with flash attention (kernel
-K1 forward, K3/K4 backward on the card), ``cross_entropy``, Adam and
-``make_dp_train_step``.  Weights are random, drawn from a fixed seed; the
+The twin of ``long_context_lm_tpu.py``'s data-parallel and
+sequence-parallel branches, through ``tpudist_torch``: ``TransformerLM``
+with flash attention (kernel K1 forward, K3/K4 backward on the card),
+``cross_entropy``, Adam and ``make_dp_train_step``; or, with ``--sp N``,
+the sequence split over N processes through ring, ring flash (K1 forward,
+K8/K4 backward) or Ulysses attention and ``make_sp_train_step`` over a
+``data × seq`` mesh.  Weights are random, drawn from a fixed seed; the
 token stream is made with numpy from the same seed.
 
-Run (on the card):  python3 examples/long_context_lm_gpu.py --bf16
+Run (one card):  python3 examples/long_context_lm_gpu.py --bf16
+Run (N cards, sequence-parallel):
+    torchrun --nproc-per-node N examples/long_context_lm_gpu.py \
+        --attn ring_flash --sp N --bf16
 Run (CPU, plain versions of the kernels, tiny):
     python3 examples/long_context_lm_gpu.py --device cpu --seq-len 64 \
         --batch-size 2 --layers 2 --embed-dim 64 --steps 3
+    (add --attn ring_flash --sp 2 under torchrun --nproc-per-node 2 for
+    the sequence-parallel step over gloo)
 
-Sequence and tensor parallelism (``--sp``, ``--tp``) and speculative
-decoding are not ported yet (ROADMAP Queue A 4 and 7).
+Tensor parallelism (``--tp``) and speculative decoding are not ported yet
+(ROADMAP Queue A 4 and 7).
 """
 
 from __future__ import annotations
@@ -45,7 +53,13 @@ def main(argv=None) -> float:
                              "learnable) or 'markov' (a fixed "
                              "token-permutation language)")
     parser.add_argument("--lr", default=3e-4, type=float)
-    parser.add_argument("--attn", default="flash", choices=["flash", "sdpa"])
+    parser.add_argument("--attn", default="flash",
+                        choices=["flash", "sdpa", "ring", "ring_flash",
+                                 "ulysses"])
+    parser.add_argument("--sp", default=1, type=int,
+                        help="sequence-parallel processes (with ring, "
+                             "ring_flash or ulysses attention, under "
+                             "torchrun)")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (f32 params)")
     parser.add_argument("--remat", action="store_true",
@@ -56,6 +70,13 @@ def main(argv=None) -> float:
                         help="'cuda' (default) or 'cpu' (plain versions of "
                              "the kernels)")
     args = parser.parse_args(argv)
+    sequence_parallel = ("ring", "ring_flash", "ulysses")
+    if args.sp > 1 and args.attn not in sequence_parallel:
+        parser.error(f"--sp needs ring/ring_flash/ulysses attention, got "
+                     f"{args.attn}")
+    if args.attn in sequence_parallel and args.sp <= 1:
+        parser.error(f"--attn {args.attn} is sequence-parallel; pass --sp N "
+                     "(N>1)")
 
     import torch
 
@@ -66,12 +87,28 @@ def main(argv=None) -> float:
         sdpa,
     )
     from tpudist_torch.ops.flash_attention import flash_attention_fn
-    from tpudist_torch.ops.losses import cross_entropy
-    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.ops.losses import cross_entropy, cross_entropy_per_token
+    from tpudist_torch.parallel import (
+        broadcast_params,
+        make_dp_train_step,
+        make_sp_train_step,
+        ring_attention_fn,
+        ring_flash_attention_fn,
+        ulysses_attention_fn,
+    )
+    from tpudist_torch.runtime import (
+        initialize,
+        local_block,
+        make_mesh,
+        shutdown,
+    )
     from tpudist_torch.train import TrainState, adam
     from tpudist_torch.utils.device import resolve_device
 
+    ctx = initialize(device=args.device)
     device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = TransformerConfig(
         vocab_size=args.vocab, num_layers=args.layers, num_heads=args.heads,
         num_kv_heads=args.kv_heads, embed_dim=args.embed_dim,
@@ -81,22 +118,50 @@ def main(argv=None) -> float:
     tokens = torch.from_numpy(make(args.batch_size, args.seq_len, args.vocab,
                                    args.seed)).to(device)
 
-    attn_fn = flash_attention_fn() if args.attn == "flash" else sdpa
+    mesh = None
+    if args.sp > 1:
+        mesh = make_mesh({"data": -1, "seq": args.sp})
+        attn_fn = {"ring": ring_attention_fn, "ring_flash":
+                   ring_flash_attention_fn,
+                   "ulysses": ulysses_attention_fn}[args.attn]("seq",
+                                                               mesh=mesh)
+    else:
+        attn_fn = flash_attention_fn() if args.attn == "flash" else sdpa
     model = TransformerLM(cfg, attention_fn=attn_fn, remat=args.remat,
                           param_dtype=torch.float32, device=device)
     model.init_weights(torch.Generator(device=device).manual_seed(args.seed))
-
-    def loss_fn(m, batch, _gen):
-        (toks,) = batch
-        logits = m(toks)
-        return cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
-                             toks[:, 1:].reshape(-1)), {}
-
+    broadcast_params(model, mesh)
     state = TrainState.create(model, adam(args.lr), seed=args.seed)
-    step = make_dp_train_step(loss_fn)
-    print(f"strategy: one {device.type} device ({args.attn}), "
-          f"seq_len={args.seq_len}, batch={args.batch_size}, "
-          f"{sum(p.numel() for p in model.parameters()):,} params")
+
+    if mesh is not None:
+        # next-token prediction with the final position masked out
+        targets = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1],
+                                                            -1)], 1)
+
+        def loss_per_token(logits, tgt):
+            mask = (tgt >= 0).float()
+            return cross_entropy_per_token(logits, tgt.clamp_min(0)) * mask
+
+        sp_step = make_sp_train_step(
+            model, loss_per_token, mesh,
+            total_tokens=args.batch_size * (args.seq_len - 1))
+        batch = (local_block(tokens, mesh), local_block(targets, mesh))
+        step = lambda s, _toks: sp_step(s, *batch)
+        strategy = (f"dp{mesh.size(0)}×sp{args.sp} ({args.attn}) on "
+                    f"{ctx.process_count} {device.type} processes")
+    else:
+        def loss_fn(m, batch, _gen):
+            (toks,) = batch
+            logits = m(toks)
+            return cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
+                                 toks[:, 1:].reshape(-1)), {}
+
+        step = make_dp_train_step(loss_fn)
+        strategy = f"one {device.type} device ({args.attn})"
+    log = print if ctx.is_coordinator else (lambda *a, **k: None)
+    log(f"strategy: {strategy}, seq_len={args.seq_len}, "
+        f"batch={args.batch_size}, "
+        f"{sum(p.numel() for p in model.parameters()):,} params")
 
     def sync():
         if device.type == "cuda":
@@ -111,12 +176,13 @@ def main(argv=None) -> float:
             t0 = time.perf_counter()
         if i % args.log_every == 0 or i == args.steps - 1:
             loss = float(metrics["loss"])
-            print(f"step {i}: loss {loss:.4f}")
+            log(f"step {i}: loss {loss:.4f}")
     if args.steps > 1:
         sync()
         dt = time.perf_counter() - t0
         tps = (args.steps - 1) * tokens.numel() / dt
-        print(f"throughput: {tps:,.0f} tokens/sec")
+        log(f"throughput: {tps:,.0f} tokens/sec")
+    shutdown()
     return loss
 
 

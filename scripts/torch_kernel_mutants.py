@@ -6,17 +6,18 @@
 For each mutant — K3 with its first live K/V tile's contribution dropped,
 K4 with its first live q-tile's dropped, K5 reading each key's page-table
 entry one block too far (``table[b, p / bs + 1]``), K6 with the V scale
-left out of the value product, K7 with the gate left out of its epilogue
-— copies ``tpudist_torch/`` into ``DIR/<mutant>/`` (default
-``_scratch/mutants``, git-ignored), breaks the kernel source there, and
-runs the ``chip_smoke`` phase that holds that kernel against its plain
-version (``phase_backward_kernels``, ``phase_paged_kernels`` or
-``phase_moe_kernels``) against the broken copy in a subprocess, with
-``chip_smoke.check`` replaced by a collector.  Prints one JSON line per
-mutant: the worst ``tol_ratio`` of each kernel in each case and the
-checks that failed.  Exits non-zero if any mutant passes every check (the
-check would not see the fault).  Needs the CUDA toolkit; each copy builds
-its own kernels.
+left out of the value product, K7 with the gate left out of its
+epilogue, K8 reading the caller's Delta as zero — copies
+``tpudist_torch/`` into ``DIR/<mutant>/`` (default ``_scratch/mutants``,
+git-ignored), breaks the kernel source there, and runs the
+``chip_smoke`` phase that holds that kernel against its plain version
+(``phase_backward_kernels``, ``phase_paged_kernels``,
+``phase_moe_kernels`` or ``phase_ring_kernels``) against the broken copy
+in a subprocess, with ``chip_smoke.check`` replaced by a collector.
+Prints one JSON line per mutant: the worst ``tol_ratio`` of each kernel
+in each case and the checks that failed.  Exits non-zero if any mutant
+passes every check (the check would not see the fault).  Needs the CUDA
+toolkit; each copy builds its own kernels.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ K4_PRODUCTS = ("      two_products<T, NT, D>(s, dp, Kw, Qw, Vw, dOw, r0, g, "
 K5_TABLE = "a.table[(long long)b * a.M + (lo + r) / a.bs]"
 K6_PV = "sr[j] = round_to<__nv_bfloat16>(p * vsc[j]);"
 K7_GATE = "const float gt = a.gate[row0 + r];"
+K8_DELTA = "Dl[r] = q0 + r < a.Sq ? a.delta[row_base + q0 + r] : 0.f;"
 # the chip_smoke phase that holds the kernel, and the expression (over its
 # return value `out`) giving {case: {kernel: tol_ratio}}
 BWD_RUN = ("rows, _ = chip_smoke.phase_backward_kernels(torch, dev, {seed})",
@@ -47,6 +49,8 @@ DEC_RUN = ("out = chip_smoke.phase_paged_kernels(torch, dev, {seed})",
            'for r in out[k]}')
 GMM_RUN = ("rows, _ = chip_smoke.phase_moe_kernels(torch, dev, {seed})",
            '{r["case"]: r["tol_ratio"] for r in rows}')
+RING_RUN = ("rows = chip_smoke.phase_ring_kernels(torch, dev, {seed})",
+            '{r["case"]: r["tol_ratio"] for r in rows}')
 MUTANTS = {
     "K3_drop_first_k_tile": (BWD, BWD_RUN, K3_PRODUCTS,
                              "    if (kt == kv_lo) continue;\n"
@@ -61,6 +65,7 @@ MUTANTS = {
                         "sr[j] = round_to<__nv_bfloat16>(p);"),
     "K7_no_gate_in_epilogue": (GMM, GMM_RUN, K7_GATE,
                                "const float gt = 1.f;"),
+    "K8_delta_read_as_zero": (BWD, RING_RUN, K8_DELTA, "Dl[r] = 0.f;"),
 }
 
 RUNNER = r"""

@@ -11,8 +11,14 @@ f32, but the Pallas kernels sum dQ over K blocks and dK/dV over q-blocks
 and group members one block at a time while the plain version reduces in
 one einsum, so sums differ by a few ulp of their largest terms.
 
-The ``cuda`` tests hold kernels K3 and K4 against the plain versions on
-the card.  The JAX package is imported inside a fixture, so on a card host
+The ``future`` case is a block wholly in its queries' future (a causal
+ring's dead block): the forward gives O = 0 and an LSE of -1e30 there, so
+its backward takes the LSE and O of the same queries against their own
+diagonal block, as the ring's final statistics are, and every gradient
+must be an exact zero.
+
+The ``cuda`` tests hold kernels K3, K8 and K4 against the plain versions
+on the card.  The JAX package is imported inside a fixture, so on a card host
 without flax they still run (the parity tests skip there).
 """
 
@@ -36,7 +42,12 @@ CASES = {
     "q_offset": (1, 16, 64, 4, 2, 16, True, 40, 0, None, 16, 16),
     "q_k_offsets": (1, 32, 32, 4, 2, 16, True, 32, 16, None, 16, 16),
     "window_offset": (1, 16, 64, 4, 2, 16, True, 40, 0, 12, 16, 16),
+    "future": (1, 32, 32, 4, 2, 16, True, 0, 32, None, 16, 16),
+    "window_q_after_k": (1, 32, 32, 4, 2, 16, True, 48, 16, 24, 16, 16),
 }
+# cases whose backward takes the statistics of the queries' own diagonal
+# block (their own block is dead)
+DIAGONAL_STATS = {"future"}
 
 
 def _inputs(seed, b, sq, sk, h, h_kv, d):
@@ -58,14 +69,16 @@ def jax_flash():
 
 
 def _jax_case(jfa, case):
-    """The case's inputs and the JAX forward's (out, lse), as numpy."""
+    """The case's inputs and the JAX forward's (out, lse), as numpy (for a
+    ``DIAGONAL_STATS`` case, of the queries against their own block)."""
     import jax.numpy as jnp
 
     b, sq, sk, h, h_kv, d, causal, q_off, k_off, window, bq, bk = CASES[case]
     q, k, v, do = _inputs(sorted(CASES).index(case), b, sq, sk, h, h_kv, d)
+    stats_k_off = q_off if case in DIAGONAL_STATS else k_off
     out, lse = jfa._flash_forward(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, bq, bk, True,
-        q_offset=q_off, k_offset=k_off, window=window)
+        q_offset=q_off, k_offset=stats_k_off, window=window)
     return (q, k, v, do, np.asarray(out), np.asarray(lse)), CASES[case]
 
 
@@ -92,6 +105,8 @@ def test_block_grads_match_jax(jax_flash, case):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
                                    err_msg=name)
+        if case in DIAGONAL_STATS:
+            assert not g.any() and not np.asarray(w).any(), name
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -115,6 +130,28 @@ def test_block_grads_explicit_delta_match_jax(jax_flash, case):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL,
                                    err_msg=name)
+        if case in DIAGONAL_STATS:
+            assert not g.any() and not np.asarray(w).any(), name
+
+
+def test_forward_on_a_future_block_is_dead(jax_flash):
+    """A block wholly in its queries' future: O = 0 and an LSE of -1e30
+    (the running max floored at -1e30, the sum at 1e-30), in both
+    packages, so the ring's log-sum-exp merge adds nothing."""
+    import jax.numpy as jnp
+
+    b, sq, sk, h, h_kv, d, causal, q_off, k_off, window, bq, bk = \
+        CASES["future"]
+    q, k, v, _ = _inputs(0, b, sq, sk, h, h_kv, d)
+    jout, jlse = jax_flash._flash_forward(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, bq, bk, True,
+        q_offset=q_off, k_offset=k_off, window=window)
+    out, lse = tfa._flash_forward(*_t(q, k, v), causal, q_offset=q_off,
+                                  k_offset=k_off, window=window)
+    neg_big = np.float32(-1e30)
+    assert not out.any() and not np.asarray(jout).any()
+    assert (lse.numpy() == neg_big).all()
+    assert (np.asarray(jlse) == neg_big).all()
 
 
 # (b, s, h, h_kv, d, causal, window): self-attention, as flash_attention
@@ -207,7 +244,9 @@ def _bf16_close(got, want, name):
     in other orders, so an element may land one bf16 ulp away."""
     got, want = got.float(), want.float()
     lim = 1e-2 * want.abs().max() + 2e-2 * want.abs()
-    ratio = ((got - want).abs() / lim).max().item()
+    diff = (got - want).abs()
+    # an exact match is within any limit (all-zero gradients have lim 0)
+    ratio = torch.where(diff == 0, 0.0, diff / lim).max().item()
     assert ratio <= 1.0, f"{name}: worst error/limit ratio {ratio}"
 
 
@@ -256,8 +295,38 @@ def test_kernels_take_strided_views_and_autograd(cuda_device):
 
 
 @pytest.mark.cuda
-def test_explicit_delta_raises_on_cuda(cuda_device):
-    q = torch.randn(1, 8, 2, 16, device=cuda_device)
-    lse = torch.zeros(1, 2, 8, device=cuda_device)
-    with pytest.raises(NotImplementedError, match="ring"):
-        tfa.flash_block_grads(q, q, q, q, lse, lse, causal=True)
+def test_explicit_delta_kernel_matches_plain(cuda_device):
+    """K8 (dQ from a given Δ) then K4, against the plain explicit-Δ route
+    at every case, in f32 and bf16; fed the Δ that K3 writes, K8 gives
+    K3's dQ bit for bit."""
+    for dtype, case in ((dt, c) for dt in (torch.float32, torch.bfloat16)
+                        for c in sorted(CASES)):
+        b, sq, sk, h, h_kv, d, causal, q_off, k_off, window, _, _ = \
+            CASES[case]
+        q, k, v, do = (torch.from_numpy(x).to(cuda_device, dtype)
+                       for x in _inputs(6, b, sq, sk, h, h_kv, d))
+        kw = dict(causal=causal, q_offset=q_off, k_offset=k_off,
+                  window=window)
+        stats = dict(kw, k_offset=q_off) if case in DIAGONAL_STATS else kw
+        out, lse = tfa._flash_forward_plain(q, k, v, **stats)
+        delta = tfa.flash_delta(out, do)
+        before = (tfa.FLASH_BWD_DQ.launches, tfa.FLASH_BWD_DQ_DELTA.launches,
+                  tfa.FLASH_BWD_DKV.launches)
+        got = tfa.flash_block_grads(q, k, v, do, lse, delta, **kw)
+        want = tfa.flash_block_grads_plain(q, k, v, do, lse, delta, **kw)
+        dq3, delta3 = tfa._flash_bwd_dq(q, k, v, do, out, lse, **kw)
+        dq8 = tfa._flash_bwd_dq_delta(q, k, v, do, lse, delta3, **kw)
+        torch.cuda.synchronize()
+        assert (tfa.FLASH_BWD_DQ.launches, tfa.FLASH_BWD_DQ_DELTA.launches,
+                tfa.FLASH_BWD_DKV.launches) == (before[0] + 1, before[1] + 2,
+                                                before[2] + 1), case
+        assert torch.equal(dq8, dq3), case
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            if case in DIAGONAL_STATS:
+                assert not g.any(), (case, name)
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4,
+                                           msg=f"{case} {name}")
+            else:
+                _bf16_close(g, w, f"{case} {name}")

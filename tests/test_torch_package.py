@@ -19,6 +19,7 @@ from tpudist_torch.ops import _cuda
 from tpudist_torch.ops import flash_attention as tfa
 from tpudist_torch.ops import flash_decode as tfd
 from tpudist_torch.ops import moe_dispatch as tmd
+from tpudist_torch.parallel import ring_flash_attention_fn
 from tpudist_torch.utils.config import env_flag
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -63,6 +64,7 @@ def test_imports_and_runs_with_jax_blocked():
         "import tpudist_torch.models.kv_pages",
         "import tpudist_torch.ops.flash_attention, tpudist_torch.ops.losses",
         "import tpudist_torch.train, tpudist_torch.parallel",
+        "import tpudist_torch.runtime, tpudist_torch.parallel.ring_attention",
         "import tpudist_torch.models.moe, tpudist_torch.ops.moe_dispatch",
         "from tpudist_torch.models import MoEConfig, MoETransformerLM",
         "from tpudist_torch import TransformerConfig, TransformerLM",
@@ -78,6 +80,9 @@ def test_imports_and_runs_with_jax_blocked():
         "                       device='cpu').init_weights(g)",
         "logits, aux = moe(torch.tensor([[1, 2, 3]]))",
         "assert logits.shape == (1, 3, 32), logits.shape",
+        "from tpudist_torch.parallel import ring_flash_attention_fn",
+        "q = torch.randn(1, 8, 2, 16, requires_grad=True)",
+        "ring_flash_attention_fn()(q, q, q).sum().backward()",
         "print('ok')",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -99,14 +104,16 @@ def test_entry_points_need_cuda_unless_told():
         tpudist_torch.ServeLoop(CFG, sd, num_slots=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         MoETransformerLM(CFG, MoEConfig(dispatch="fused"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpudist_torch.runtime.initialize("file:///nonexistent", 2, 0)
 
 
 def test_cpu_tensors_take_the_plain_path():
     """CPU tensors never touch the kernels: launch counts stay put and no
     kernel library is built or loaded."""
     kernels = (tfa.FLASH_FORWARD, tfa.FLASH_BWD_DQ, tfa.FLASH_BWD_DKV,
-               tfd.FLASH_DECODE, tfd.PAGED_FLASH_DECODE, tfd.FLASH_DECODE_Q8,
-               tmd.MOE_GMM)
+               tfa.FLASH_BWD_DQ_DELTA, tfd.FLASH_DECODE,
+               tfd.PAGED_FLASH_DECODE, tfd.FLASH_DECODE_Q8, tmd.MOE_GMM)
     counts = [k.launches for k in kernels]
     libs = dict(_cuda._libs)
     q = torch.randn(1, 5, 2, 16)
@@ -131,6 +138,9 @@ def test_cpu_tensors_take_the_plain_path():
                            device="cpu")
     logits, aux = moe(torch.tensor([[1, 2, 3, 4]]))
     (logits.sum() + aux).backward()
+    # the ring flash route (K1, then K8 and K4 with an explicit Delta)
+    x = torch.randn(1, 8, 2, 16, requires_grad=True)
+    ring_flash_attention_fn()(x, x, x).sum().backward()
     assert [k.launches for k in kernels] == counts
     assert _cuda._libs == libs
 
@@ -141,6 +151,9 @@ def test_kernel_wrappers_reject_other_devices():
         tfa._flash_forward(q, q, q, True)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfd.flash_decode(q[:, :1], q, q, 3)
+    lse = torch.zeros(1, 2, 5, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfa.flash_block_grads(q, q, q, q, lse, lse, causal=True)
     pool = torch.randn(3, 8, 32, device="meta")
     table = torch.zeros((1, 2), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):

@@ -232,12 +232,71 @@ def test_factory_window_mismatch_raises():
 
 
 def test_multi_process_step_raises(monkeypatch):
+    """Under a world of 2 the step all-reduces its gradients and loss in
+    one flat buffer and averages them: two identical ranks (the
+    all-reduce faked as the sum over them) give the one-process step.  A
+    mesh without the data axis raises.  (The multi-process step itself
+    is held against tpudist in tests/test_torch_data_parallel.py.)"""
     import torch.distributed as dist
 
     _, cfg, params = _setup("mha")
+    toks = torch.from_numpy(_tokens(6)).long()
+    ref = TrainState.create(_port_model(cfg, params), adam(1e-3))
+    _, ref_m = make_dp_train_step(_loss_fn)(ref, toks)
     state = TrainState.create(_port_model(cfg, params), adam(1e-3))
+    calls = []
+
+    def all_reduce(t, op=None, group=None):
+        calls.append(t.numel())
+        t.mul_(2)
+
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        make_dp_train_step(_loss_fn)(state,
-                                     torch.from_numpy(_tokens(6)).long())
+    monkeypatch.setattr(dist, "all_reduce", all_reduce)
+    _, m = make_dp_train_step(_loss_fn)(state, toks)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    assert calls == [n_params + 1]
+    torch.testing.assert_close(m["loss"], ref_m["loss"], rtol=0, atol=0)
+    for (k, p), q in zip(state.model.named_parameters(),
+                         ref.model.parameters()):
+        torch.testing.assert_close(p, q, rtol=0, atol=0, msg=k)
+
+    class SeqOnly:
+        mesh_dim_names = ("seq",)
+
+    with pytest.raises(ValueError, match="not 'data'"):
+        make_dp_train_step(_loss_fn, mesh=SeqOnly())
+
+
+def test_dp_step_keeps_aux_as_given(monkeypatch):
+    """aux entries come back as the loss_fn gave them: one process returns
+    each unchanged (any shape and dtype, as tpudist's pmean takes any
+    shape); under a world of 2 (the all-reduce faked as the sum over two
+    identical ranks) each is averaged and keeps its shape."""
+    import torch.distributed as dist
+
+    _, cfg, params = _setup("mha")
+    toks = torch.from_numpy(_tokens(6)).long()
+    aux = {"counts": torch.tensor([3, 5, 7]),
+           "scale": torch.tensor(0.5, dtype=torch.bfloat16),
+           "grid": torch.arange(6.0).reshape(2, 3)}
+
+    def loss_fn(model, batch, gen):
+        loss, _ = _loss_fn(model, batch, gen)
+        return loss, dict(aux)
+
+    state = TrainState.create(_port_model(cfg, params), adam(1e-3))
+    _, m = make_dp_train_step(loss_fn)(state, toks)
+    for k, v in aux.items():
+        assert m[k].dtype == v.dtype and m[k].shape == v.shape, k
+        torch.testing.assert_close(m[k], v, rtol=0, atol=0)
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "all_reduce",
+                        lambda t, op=None, group=None: t.mul_(2))
+    state = TrainState.create(_port_model(cfg, params), adam(1e-3))
+    _, m = make_dp_train_step(loss_fn)(state, toks)
+    for k, v in aux.items():
+        assert m[k].shape == v.shape, k
+        torch.testing.assert_close(m[k].float(), v.float(), rtol=0, atol=0)

@@ -17,6 +17,7 @@ from tpudist_torch.models.convert import from_flax_params
 from tpudist_torch.models.generate import greedy_generate
 from tpudist_torch.models.serving import Completion, Request, ServeLoop
 from tpudist_torch.models.transformer import TransformerConfig, TransformerLM
+from tpudist_torch.runtime import data_mesh, make_mesh
 
 __version__ = "0.1.0"
 
@@ -26,6 +27,8 @@ __all__ = [
     "ServeLoop",
     "TransformerConfig",
     "TransformerLM",
+    "data_mesh",
     "from_flax_params",
     "greedy_generate",
+    "make_mesh",
 ]

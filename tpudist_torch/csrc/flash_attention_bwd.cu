@@ -1,13 +1,21 @@
-// K3 and K4: the flash-attention backward for Hopper (sm_90a).
+// K3, K8 and K4: the flash-attention backward for Hopper (sm_90a).
 //
 // K3 replaces tpudist/ops/flash_attention.py::_flash_bwd_dq_fused_kernel
 // (Pallas, B2): dQ = scale * sum_k dS K, plus Delta = rowsum(dO * O), which
 // it computes from the dO and O tiles at its first step and writes out as
-// [B, H, Sq] f32 for K4.  K4 replaces ::_flash_bwd_dkv_kernel (B3):
+// [B, H, Sq] f32 for K4.  K8 replaces ::_flash_bwd_dq_kernel (B7): the same
+// dQ with Delta read from the caller (the ring backward computes it once
+// from the ring's final output); it is K3's kernel compiled with a switch
+// that loads Delta instead of the O-tile prepass, with K3's tiling, loop
+// bounds and summation order, so fed the Delta K3 writes it gives K3's dQ
+// bit for bit.  K4 replaces ::_flash_bwd_dkv_kernel (B3):
 // dK = scale * sum dS^T Q and dV = sum P^T dO, summed over every query head
-// of the KV head's GQA group.  Both recompute P = exp(s - lse) from the
-// forward's (K1's) log-sum-exp, with dS = P * (dO V^T - Delta), and run on
-// the training step's backward (flash_block_grads, delta=None).
+// of the KV head's GQA group.  All three recompute P = exp(s - lse) from
+// the forward's (K1's) log-sum-exp, with dS = P * (dO V^T - Delta): K3 and
+// K4 on the training step's backward (flash_block_grads, delta=None), K8
+// and K4 on each step of the ring backward (delta given).  A block wholly
+// in the future of its queries (a causal ring's dead blocks) has an empty
+// loop in all three, so they write exact zeros.
 //
 // What bounds them on an H100: at the training shape (B=8, S=2048, H=8,
 // Hkv=2, D=64, causal) K3 does 6 and K4 8 FLOPs per live (q, k) pair and
@@ -61,7 +69,7 @@ struct BwdArgs {
   const void* dout;
   const void* out;
   const float* lse;   // [B, H, Sq]
-  float* delta;       // [B, H, Sq]: written by K3, read by K4
+  float* delta;       // [B, H, Sq]: written by K3, read by K8 and K4
   void* dq;
   void* dk;
   void* dv;
@@ -229,7 +237,7 @@ __device__ __forceinline__ void two_products(float s[NT][4], float t[NT][4],
   }
 }
 
-// ---- K3: dQ and Delta -------------------------------------------------------
+// ---- K3 (dQ and Delta) and K8 (dQ from a given Delta) ----------------------
 
 template <typename T, int D>
 struct DqLayout : Tile<T, D> {
@@ -240,7 +248,9 @@ struct DqLayout : Tile<T, D> {
                                    (L::kF32 ? kRows * kPld * 4 : 0);
 };
 
-template <typename T, int D>
+// kGivenDelta: K8 (Delta read from a.delta); otherwise K3 (Delta computed
+// from the O and dO tiles and written to a.delta).
+template <typename T, int D, bool kGivenDelta>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const BwdArgs a) {
   using L = DqLayout<T, D>;
@@ -264,7 +274,6 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
   const T* dob = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
-  const T* ob = static_cast<const T*>(a.out) + b * a.o_sb + h * a.o_sh;
   const long long row_base = ((long long)b * a.H + h) * a.Sq;
 
   const int rows_here = min(kRows, a.Sq - q0);
@@ -277,9 +286,14 @@ __global__ void __launch_bounds__(kThreads)
 
   load_rows<T>(Qw, L::kLdw, qb, a.q_ss, q0, a.Sq, kRows, D);
   load_rows<T>(dOw, L::kLdw, dob, a.do_ss, q0, a.Sq, kRows, D);
-  load_rows<T>(Kw, L::kLdw, ob, a.o_ss, q0, a.Sq, kRows, D);  // O, once
-  __syncthreads();
-  {  // Delta = rowsum(dO * O) in f32: two threads per row
+  if constexpr (kGivenDelta) {
+    for (int r = tid; r < kRows; r += kThreads)
+      Dl[r] = q0 + r < a.Sq ? a.delta[row_base + q0 + r] : 0.f;
+    __syncthreads();
+  } else {  // Delta = rowsum(dO * O) in f32: two threads per row
+    const T* ob = static_cast<const T*>(a.out) + b * a.o_sb + h * a.o_sh;
+    load_rows<T>(Kw, L::kLdw, ob, a.o_ss, q0, a.Sq, kRows, D);  // O, once
+    __syncthreads();
     const int r = tid >> 1, half = tid & 1;
     const T* orow = reinterpret_cast<const T*>(Kw) + r * L::kLde + half * (D / 2);
     const T* drow = reinterpret_cast<const T*>(dOw) + r * L::kLde + half * (D / 2);
@@ -292,8 +306,8 @@ __global__ void __launch_bounds__(kThreads)
       Dl[r] = acc;
       if (q0 + r < a.Sq) a.delta[row_base + q0 + r] = acc;
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   const int r0 = warp * 16 + g, r1 = r0 + 8;  // this thread's two rows
   const int qp0 = a.q_off + q0 + r0, qp1 = qp0 + 8;
@@ -527,13 +541,14 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- launch -----------------------------------------------------------------
 
-template <typename T, int D, bool kDq>
+// Kind: 0 = K3 (dQ and Delta), 1 = K8 (dQ from Delta), 2 = K4 (dK, dV).
+template <typename T, int D, int Kind>
 cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   void (*kernel)(const BwdArgs);
   size_t bytes;
   dim3 grid;
-  if constexpr (kDq) {
-    kernel = flash_bwd_dq_kernel<T, D>;
+  if constexpr (Kind != 2) {
+    kernel = flash_bwd_dq_kernel<T, D, Kind == 1>;
     bytes = DqLayout<T, D>::kBytes;
     grid = dim3(a.B * a.H, (a.Sq + kRows - 1) / kRows);
   } else {
@@ -552,22 +567,22 @@ cudaError_t launch(const BwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool kDq>
+template <typename T, int Kind>
 cudaError_t dispatch(int d, const BwdArgs& a, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16, kDq>(a, stream);
-    case 32: return launch<T, 32, kDq>(a, stream);
-    case 64: return launch<T, 64, kDq>(a, stream);
-    case 128: return launch<T, 128, kDq>(a, stream);
+    case 16: return launch<T, 16, Kind>(a, stream);
+    case 32: return launch<T, 32, Kind>(a, stream);
+    case 64: return launch<T, 64, Kind>(a, stream);
+    case 128: return launch<T, 128, Kind>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kDq>
+template <int Kind>
 int run(int dtype, const BwdArgs& a, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = dtype == 1 ? dispatch<__nv_bfloat16, kDq>(D, a, s)
-                             : dispatch<float, kDq>(D, a, s);
+  cudaError_t e = dtype == 1 ? dispatch<__nv_bfloat16, Kind>(D, a, s)
+                             : dispatch<float, Kind>(D, a, s);
   return static_cast<int>(e);
 }
 
@@ -575,9 +590,10 @@ int run(int dtype, const BwdArgs& a, int D, void* stream) {
 
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, (batch, seq,
 // head) for each of q k v dO O dQ dK dV; the head_dim stride is 1.  K3
-// reads q k v dO O lse and writes dQ and delta; K4 reads q k v dO lse
-// delta and writes dK and dV (the pointers a kernel does not use may be
-// null).  Each returns cudaGetLastError() after its launch.
+// reads q k v dO O lse and writes dQ and delta; K8 reads q k v dO lse
+// delta and writes dQ; K4 reads q k v dO lse delta and writes dK and dV
+// (the pointers a kernel does not use may be null).  Each returns
+// cudaGetLastError() after its launch.
 #define TPUDIST_BWD_PARAMS                                                   \
   int dtype, const void *q, const void *k, const void *v, const void *dout,  \
       const void *out, const float *lse, float *delta, void *dq, void *dk,   \
@@ -597,9 +613,13 @@ int run(int dtype, const BwdArgs& a, int D, void* stream) {
           dv_sb, dv_ss, dv_sh, q_off, k_off, causal, window, scale}
 
 extern "C" int tpudist_flash_bwd_dq(TPUDIST_BWD_PARAMS) {
-  return run<true>(dtype, TPUDIST_BWD_ARGS, D, stream);
+  return run<0>(dtype, TPUDIST_BWD_ARGS, D, stream);
+}
+
+extern "C" int tpudist_flash_bwd_dq_delta(TPUDIST_BWD_PARAMS) {
+  return run<1>(dtype, TPUDIST_BWD_ARGS, D, stream);
 }
 
 extern "C" int tpudist_flash_bwd_dkv(TPUDIST_BWD_PARAMS) {
-  return run<false>(dtype, TPUDIST_BWD_ARGS, D, stream);
+  return run<2>(dtype, TPUDIST_BWD_ARGS, D, stream);
 }

@@ -15,8 +15,10 @@ On a CUDA tensor each function launches its kernels: K1
 (``csrc/flash_attention.cu``, the Hopper port of the Pallas
 ``_flash_kernel``) forward, then K3 and K4 (``csrc/flash_attention_bwd.cu``,
 the ports of ``_flash_bwd_dq_fused_kernel`` and ``_flash_bwd_dkv_kernel``)
-backward.  On a CPU tensor it runs the block-free plain PyTorch version of
-the same function (``_flash_forward_plain``, :func:`flash_block_grads_plain`).
+backward; with Δ given (the ring backward) K8, the port of
+``_flash_bwd_dq_kernel``, takes K3's place.  On a CPU tensor it runs the
+block-free plain PyTorch version of the same function
+(``_flash_forward_plain``, :func:`flash_block_grads_plain`).
 There is no fallback from the first to the second.
 
 The JAX functions' ``block_q``/``block_k``/``interpret`` arguments are not
@@ -35,9 +37,6 @@ _NEG_BIG = -1e30
 # Sentinel distinguishing "caller didn't pass window" (the factory's window
 # applies) from an explicit window=None (full causal attention).
 _UNSET = object()
-_RING_TODO = ("flash_block_grads with an explicit delta (the ring backward's "
-              "dQ kernel B7) is not ported yet (ROADMAP Queue A: parallel "
-              "strategies, ring_attention)")
 
 _c_ll = ctypes.c_longlong
 FLASH_FORWARD = _cuda.Kernel(
@@ -46,14 +45,16 @@ FLASH_FORWARD = _cuda.Kernel(
     + [_c_ll] * 12
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-# K3 (dQ and Δ) and K4 (dK, dV) share one argument list: dtype; q k v dO
-# O lse delta dQ dK dV; B Sq Sk H Hkv D; the (b, s, h) strides of q k v dO
-# O dQ dK dV; q/k offsets, causal, window; scale; stream
+# K3 (dQ and Δ), K8 (dQ from a given Δ) and K4 (dK, dV) share one argument
+# list: dtype; q k v dO O lse delta dQ dK dV; B Sq Sk H Hkv D; the (b, s, h)
+# strides of q k v dO O dQ dK dV; q/k offsets, causal, window; scale; stream
 _BWD_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
              + [_c_ll] * 24 + [ctypes.c_int] * 4
              + [ctypes.c_float, ctypes.c_void_p])
 FLASH_BWD_DQ = _cuda.Kernel("flash_attention_bwd", "tpudist_flash_bwd_dq",
                             _BWD_ARGS)
+FLASH_BWD_DQ_DELTA = _cuda.Kernel("flash_attention_bwd",
+                                  "tpudist_flash_bwd_dq_delta", _BWD_ARGS)
 FLASH_BWD_DKV = _cuda.Kernel("flash_attention_bwd", "tpudist_flash_bwd_dkv",
                              _BWD_ARGS)
 
@@ -275,6 +276,18 @@ def _flash_bwd_dq(q, k, v, dout, out, lse, *, causal, q_offset=0,
     return dq, delta
 
 
+def _flash_bwd_dq_delta(q, k, v, dout, lse, delta, *, causal, q_offset=0,
+                        k_offset=0, window=None):
+    """Kernel K8: ``dq`` from the caller's Δ (``[B, H, Sq]`` f32), with
+    K3's tiling and summation order: fed the Δ K3 writes, K8's dQ is K3's
+    bit for bit."""
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _bwd_launch(FLASH_BWD_DQ_DELTA, q, k, v, dout, None, lse, delta, dq,
+                None, None, causal=causal, q_offset=q_offset,
+                k_offset=k_offset, window=window)
+    return dq
+
+
 def _flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal, q_offset=0,
                    k_offset=0, window=None):
     """Kernel K4: ``(dk, dv)``, each summed over the KV head's group of
@@ -293,10 +306,11 @@ def flash_block_grads(q, k, v, dout, lse, delta=None, *, causal,
     statistics ``lse`` (``[B, H, Sq]`` f32) and ``out``.
 
     On CUDA tensors: kernel K3 (dQ, and Δ from the O and dO tiles) then
-    kernel K4 (dK, dV).  ``delta`` given is the ring backward's route
-    (the Pallas ``_flash_bwd_dq_kernel``), which has no kernel here yet:
-    it raises on CUDA.  On CPU tensors: :func:`flash_block_grads_plain`,
-    which takes either.  Offsets are ints on the kernel path."""
+    kernel K4 (dK, dV).  ``delta`` given (``[B, H, Sq]`` f32, the ring
+    backward's route, the Pallas ``_flash_bwd_dq_kernel``): kernel K8 (dQ
+    from that Δ) then K4 with the same Δ; ``out`` is not needed then.  On
+    CPU tensors: :func:`flash_block_grads_plain`, which takes either.
+    Offsets are ints on the kernel path."""
     if q.device.type == "cpu":
         return flash_block_grads_plain(
             q, k, v, dout, lse, delta, causal=causal, q_offset=q_offset,
@@ -304,30 +318,34 @@ def flash_block_grads(q, k, v, dout, lse, delta=None, *, causal,
     if q.device.type != "cuda":
         raise ValueError(f"flash_block_grads runs on cuda or cpu, got "
                          f"{q.device}")
-    if delta is not None:
-        raise NotImplementedError(_RING_TODO)
-    if out is None:
+    if delta is None and out is None:
         raise ValueError("flash_block_grads needs `out` when delta=None")
     if not (isinstance(q_offset, int) and isinstance(k_offset, int)):
         raise ValueError("flash_block_grads kernels take int offsets")
-    _check_inputs("flash_block_grads", q, (("q", q), ("k", k), ("v", v),
-                                           ("dout", dout), ("out", out)),
-                  k, v)
-    if dout.shape != q.shape or out.shape != q.shape:
-        raise ValueError(f"dout/out shapes {tuple(dout.shape)}/"
-                         f"{tuple(out.shape)} must equal q's "
-                         f"{tuple(q.shape)}")
+    like_q = (("dout", dout),) + ((("out", out),) if delta is None else ())
+    _check_inputs("flash_block_grads", q,
+                  (("q", q), ("k", k), ("v", v)) + like_q, k, v)
+    for name, t in like_q:
+        if t.shape != q.shape:
+            raise ValueError(f"{name} shape {tuple(t.shape)} must equal "
+                             f"q's {tuple(q.shape)}")
     b, sq, h, _ = q.shape
-    if (lse.dtype != torch.float32 or lse.shape != (b, h, sq)
-            or lse.device != q.device or not lse.is_contiguous()):
-        raise ValueError(f"lse must be a contiguous [B, H, Sq] = "
-                         f"{(b, h, sq)} float32 tensor on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None and (t.dtype != torch.float32
+                              or t.shape != (b, h, sq)
+                              or t.device != q.device
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous [B, H, Sq] = "
+                             f"{(b, h, sq)} float32 tensor on {q.device}")
     if b == 0 or sq == 0 or k.shape[1] == 0:
         return (torch.zeros_like(q), torch.zeros_like(k),
                 torch.zeros_like(v))
     kw = dict(causal=causal, q_offset=q_offset, k_offset=k_offset,
               window=window)
-    dq, delta = _flash_bwd_dq(q, k, v, dout, out, lse, **kw)
+    if delta is None:
+        dq, delta = _flash_bwd_dq(q, k, v, dout, out, lse, **kw)
+    else:
+        dq = _flash_bwd_dq_delta(q, k, v, dout, lse, delta, **kw)
     dk, dv = _flash_bwd_dkv(q, k, v, dout, lse, delta, **kw)
     return dq, dk, dv
 

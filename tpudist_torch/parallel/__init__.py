@@ -1,6 +1,25 @@
 """The port's parallel strategies (counterpart of :mod:`tpudist.parallel`):
-so far the one-process data-parallel train step."""
+data parallelism across processes and sequence parallelism (ring, ring
+flash and Ulysses attention, the DP×SP train step)."""
 
-from tpudist_torch.parallel.data_parallel import make_dp_train_step
+from tpudist_torch.parallel.data_parallel import (
+    broadcast_params,
+    make_dp_train_step,
+)
+from tpudist_torch.parallel.ring_attention import (
+    make_sp_train_step,
+    ring_attention_fn,
+    ring_flash_attention_fn,
+    sp_forward,
+    ulysses_attention_fn,
+)
 
-__all__ = ["make_dp_train_step"]
+__all__ = [
+    "broadcast_params",
+    "make_dp_train_step",
+    "make_sp_train_step",
+    "ring_attention_fn",
+    "ring_flash_attention_fn",
+    "sp_forward",
+    "ulysses_attention_fn",
+]
