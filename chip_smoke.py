@@ -88,7 +88,27 @@ Phases, each printing one JSON line and each fatal on failure:
    = 8 a step, K3 = 0), the loss falling and tracking a dense run's from
    the same weights step by step, the loss and gradients against the
    dense step's again after training, ms a step beside the dense step's,
-   tokens/s, model FLOPs share, peak memory, one profiled step.
+   tokens/s, model FLOPs share, peak memory, one profiled step;
+21. kernels_gn — K9 (fused GroupNorm forward) and K10 (its backward)
+   against their plain versions at every distinct GroupNorm site shape of
+   ResNet50 at batch 128, 128 px, in each mode the shape takes (relu,
+   add_relu, plain), bf16, plus one f32 case and the 224 px stem's
+   12544 x 64 slab; times beside the bound, the plain versions and
+   F.group_norm (+ add, ReLU) with its autograd backward;
+22. resnet_parity — full-width ResNet50 (norm="group", 1000 classes) in
+   f32 with TF32 off, batch 4 at 64 px: 3 SGD steps on the card and on
+   the CPU from one converted flax-layout tree, the CPU's ReLU masks and
+   max-pool choices replayed on the card: losses, each gradient tensor
+   and the weights after each step agree;
+23. gn_sites — the activations of one ResNet50 train step (batch 128, 128
+   px, bf16) at its 53 GroupNorm sites through the fused op (K9 = K10 =
+   53 launches) against the closed form, every gradient element held
+   but where K9's statistics flip a ReLU mask, and both paths' summed
+   device time beside the bound;
+24. train_resnet — ResNet50 (norm="group", bf16, f32 parameters,
+   sgd(0.05)) at batch 128, 128 px through make_dp_train_step: 20 steps,
+   the loss falling, ms per step, images/s, model FLOPs share, peak
+   memory, one profiled step by kernel family with no layout copies.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -153,6 +173,44 @@ SP_LOSS_RTOL, SP_GRAD_TOL = 1e-6, 1e-2
 # ring backward gives gradients wrong by their own size, which Adam turns
 # into updates of lr in every element it touches.
 SP_TRAJ_RTOL = 5e-2
+# K9/K10 against their plain versions: bf16 y by O_ATOL/O_RTOL (both round
+# one f32 value, from statistics that differ in their last bits), the
+# gradients by grad_ratio (dx sums rounded terms in other orders), the f32
+# mean and rstd within GN_STAT_RTOL of their max (the bf16 cases' inputs
+# carry a mean of up to ~3 std per channel, so E[x²] − mean² cancels about
+# a decimal digit of the sums' rounding); the f32 case (zero-mean input)
+# every output within GN_F32_REL of its tensor's max
+GN_STAT_RTOL, GN_F32_REL = 1e-4, 1e-5
+# gn_sites: the fused op (bf16) against the closed form (f32) at each
+# site.  An element whose f32 pre-activation lies within rounding of 0 may
+# fall on the other side of the ReLU in the two (their statistics are
+# summed in other orders), and then takes or drops a whole dy in dx and
+# dres.  Only such elements (gn_site_flips) may exceed grad_ratio's
+# limit, and at most GN_SITE_FLIP of a gradient's elements; none at a
+# plain site, none of dscale or dbias.
+GN_SITE_FLIP = 1e-5
+# resnet_parity: card (cuDNN, TF32 off) against CPU, f32, at equal
+# weights and with the CPU's discrete choices (each ReLU's mask, the stem
+# max-pool's argmax) replayed on the card and in f64.  At batch 4 and 64
+# px a layer3 channel sums 64 terms, so one ReLU whose input lies within
+# rounding of 0 moves that channel's gradients by whole terms: on the
+# CPU, f32 against f64, two such flips among 3.2M choices set tensors'
+# gradients 0.25% apart (relative L2), and a CPU f32 run on images moved
+# by half an ulp flips another, putting one bias 13 times farther off.
+# With the choices replayed, f32 sits at most 7e-6 from f64 in every
+# tensor.  The loss within RESNET_LOSS_RTOL relative; each parameter's
+# gradient, tensor by tensor (relative L2), within RESNET_NOISE_FACTOR
+# times that tensor's own CPU f32-against-f64 distance at the same
+# weights and choices, and never tighter than RESNET_GRAD_FLOOR (about 80
+# f32 ulps: the best-conditioned tensor, the head's bias, sits 1.6e-7
+# from f64).  A wrong conv or norm on the card is off by its own size.
+# The card's own choices may differ from the CPU's in at most
+# RESNET_FLIP_SHARE of them (a wrong conv flips about half).
+RESNET_FLIP_SHARE = 1e-4
+RESNET_LOSS_RTOL, RESNET_NOISE_FACTOR, RESNET_GRAD_FLOOR = 1e-5, 10.0, 1e-5
+# ... at lr 1e-3, where the loss on 4 images falls every step (at the train
+# cell's 0.05 it falls to a fifth, then jumps sixfold at the third step)
+RESNET_PARITY_LR = 1e-3
 
 
 def emit(obj) -> None:
@@ -453,12 +511,14 @@ def _counters() -> dict:
     from tpudist_torch.ops import flash_attention as fa
     from tpudist_torch.ops import flash_decode as fd
 
+    from tpudist_torch.ops import group_norm as gn
     from tpudist_torch.ops import moe_dispatch as md
 
     return {"K1": fa.FLASH_FORWARD, "K2": fd.FLASH_DECODE,
             "K3": fa.FLASH_BWD_DQ, "K4": fa.FLASH_BWD_DKV,
             "K5": fd.PAGED_FLASH_DECODE, "K6": fd.FLASH_DECODE_Q8,
-            "K7": md.MOE_GMM, "K8": fa.FLASH_BWD_DQ_DELTA}
+            "K7": md.MOE_GMM, "K8": fa.FLASH_BWD_DQ_DELTA,
+            "K9": gn.GN_FWD, "K10": gn.GN_BWD}
 
 
 def reset_launches():
@@ -2068,6 +2128,836 @@ def phase_train_sp(torch, dev, seed):
     return launches
 
 
+
+# ---- GroupNorm (K9, K10) and the ResNet50 path -----------------------------
+
+# ResNet50's GroupNorm sites at 128 px: each (H·W, C) with the modes it
+# takes (a Bottleneck tail's shape is also its projection's)
+GN_SITE_SHAPES = (
+    ((4096, 64), ("relu",)), ((1024, 64), ("relu",)),
+    ((1024, 128), ("relu",)), ((1024, 256), ("add_relu", "plain")),
+    ((256, 128), ("relu",)), ((256, 256), ("relu",)),
+    ((256, 512), ("add_relu", "plain")), ((64, 256), ("relu",)),
+    ((64, 512), ("relu",)), ((64, 1024), ("add_relu", "plain")),
+    ((16, 512), ("relu",)), ((16, 2048), ("add_relu", "plain")))
+RESNET_BATCH, RESNET_HW, RESNET_STEPS = 128, 128, 20
+GN_GROUPS, GN_EPS = 32, 1e-6
+
+
+def gn_bound(b, hw, c, mode, esize, backward) -> tuple[float, str]:
+    """bound() of one K9 (forward) or K10 (backward) call: each tensor
+    read once and written once — K9 reads x (and the residual) and writes
+    y, mean, rstd; K10 reads x, dy (and the residual), scale, bias, mean,
+    rstd and writes dx (and dres), dscale, dbias — at ~10 FLOPs an
+    element."""
+    act = b * hw * c * esize
+    res = act if mode == "add_relu" else 0
+    small = 4 * (2 * c + 2 * b * GN_GROUPS)
+    nbytes = (3 * act + 2 * res if backward else 2 * act + res) + small
+    return bound(nbytes, 10.0 * b * hw * c)
+
+
+def phase_gn_kernels(torch, dev, seed):
+    """K9 (fused GroupNorm forward) and K10 (its backward) against their
+    plain versions, group 32, eps 1e-6, at every distinct GroupNorm site
+    of ResNet50 at batch 128 and 128 px in bf16, in each mode the site
+    shape takes (GN_SITE_SHAPES), plus the layer1 tail in f32 and the
+    224 px stem's 12544 x 64 slab (6.4 MB of f32 a sample, over tpudist's
+    2 MB switch); in bf16, x has a mean of its own in each channel.  K10
+    and its plain version take K9's mean and rstd, as the autograd
+    backward does.  Limits: bf16 y within O_ATOL + O_RTOL *
+    |plain|, dx, dres, dscale, dbias by grad_ratio, mean and rstd within
+    GN_STAT_RTOL of their max; f32 every output within GN_F32_REL of its
+    tensor's max.  Times: the wrappers (K10's includes its sum of the
+    partials), the plain versions, and the library yardstick
+    F.relu(F.group_norm(x, 32, w, b, 1e-6) [+ res]) on the channels_last
+    view (forward; its autograd backward as fwd+bwd minus fwd).  Returns
+    the rows."""
+    import torch.nn.functional as F
+
+    from tpudist_torch.ops import group_norm as gn
+
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    bf = torch.bfloat16
+    cases = [(f"{hw}x{c}_{mode}", RESNET_BATCH, hw, c, mode, bf)
+             for (hw, c), modes in GN_SITE_SHAPES for mode in modes]
+    cases += [("1024x256_add_relu_f32", 32, 1024, 256, "add_relu",
+               torch.float32),
+              ("224px_stem_12544x64_relu", 64, 12544, 64, "relu", bf)]
+    rows = []
+    for case, B, HW, C, mode, dt in cases:
+        h = int(round(HW ** 0.5))
+        res, dy = (torch.randn(B, h, h, C, generator=g, device=dev).to(dt)
+                   for _ in range(2))
+        # bf16: a mean of its own in each channel, as a conv's output has
+        # (so the variance's mean² term matters)
+        x = torch.randn(B, h, h, C, generator=g, device=dev)
+        if dt == bf:
+            x += torch.randn(C, generator=g, device=dev)
+        x = x.to(dt)
+        scale = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
+        bias = 0.1 * torch.randn(C, generator=g, device=dev)
+        r = res if mode == "add_relu" else None
+
+        def flat(t):
+            return None if t is None else t.reshape(B, HW, C)
+
+        def fwd():
+            return gn._fused_call_fwd(x, scale, bias, r, GN_GROUPS, GN_EPS,
+                                      mode)
+
+        y, mean, rstd = fwd()
+
+        def bwd():
+            return gn._fused_call_bwd(x, dy, scale, bias, mean, rstd, r,
+                                      GN_GROUPS, mode)
+
+        def plain_fwd():
+            return gn._fused_fwd_plain(flat(x), scale, bias, flat(r),
+                                       GN_GROUPS, GN_EPS, mode)
+
+        def plain_bwd():
+            return gn._fused_bwd_plain(flat(x), flat(dy), scale, bias, mean,
+                                       rstd, flat(r), GN_GROUPS, mode)
+
+        dx, dscale, dbias, dres = bwd()
+        py, pmean, prstd = plain_fwd()
+        pdx, pds, pdb, pdres = plain_bwd()
+        torch.cuda.synchronize()
+        pairs = {"y": (y, py), "dx": (dx, pdx), "dscale": (dscale, pds.sum(0)),
+                 "dbias": (dbias, pdb.sum(0))}
+        if mode == "add_relu":
+            pairs["dres"] = (dres, pdres)
+        errs = {n: (a.float().reshape(-1) - e.float().reshape(-1)).abs()
+                .max().item() for n, (a, e) in pairs.items()}
+        stat_err = max(((a - e).abs().max() / e.abs().max()).item()
+                       for a, e in ((mean, pmean), (rstd, prstd)))
+        if dt == torch.float32:
+            ratios = {n: errs[n] / (GN_F32_REL * e.float().abs().max().item())
+                      for n, (_, e) in pairs.items()}
+        else:
+            ratios = {n: (o_ratio(a.reshape(e.shape), e) if n == "y"
+                          else grad_ratio(a.reshape(e.shape), e))
+                      for n, (a, e) in pairs.items()}
+        worst = max(ratios.values())
+        check(worst <= 1.0 and stat_err <= GN_STAT_RTOL,
+              f"K9/K10 disagree with their plain versions ({case}): ratios "
+              f"{ratios}, statistics {stat_err}")
+        # the library yardstick on the channels_last (NCHW) view
+        xl, rl, dyl = (None if t is None else t.permute(0, 3, 1, 2)
+                       for t in (x, r, dy))
+        xg = xl.detach().requires_grad_()
+        wg, bg = (t.detach().to(dt).clone().requires_grad_()
+                  for t in (scale, bias))
+        rg = None if rl is None else rl.detach().requires_grad_()
+
+        def lib_fwd():
+            out = F.group_norm(xg, GN_GROUPS, wg, bg, GN_EPS)
+            if rg is not None:
+                out = out + rg
+            return out if mode == "plain" else F.relu(out)
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(lib_fwd(), [t for t in (xg, wg, bg, rg)
+                                            if t is not None], dyl)
+
+        lib_f = timed_ms(lib_fwd, 10, flush)
+        es = x.element_size()
+        b9, b10 = (gn_bound(B, HW, C, mode, es, bw) for bw in (False, True))
+        row = {"case": case, "shape": [B, h, h, C], "mode": mode,
+               "dtype": str(dt).replace("torch.", ""),
+               "splits": gn._splits(HW, C),
+               "max_abs_err": max(errs.values()), "tol_ratio": worst,
+               "errors": errs, "ratios": ratios, "stat_rel_err": stat_err,
+               "K9": {"ms": timed_ms(fwd, 10, flush),
+                      "plain_ms": timed_ms(plain_fwd, 3, flush),
+                      "bound_ms": b9[0], "bound_by": b9[1],
+                      "library_ms": lib_f},
+               "K10": {"ms": timed_ms(bwd, 10, flush),
+                       "plain_ms": timed_ms(plain_bwd, 3, flush),
+                       "bound_ms": b10[0], "bound_by": b10[1],
+                       "library_ms": timed_ms(lib_fwd_bwd, 10, flush)
+                       - lib_f}}
+        rows.append(row)
+        del x, res, dy, y, dx, dres, py, pdx, pdres, xg, rg
+    del flush_buf
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_gn", "cases": rows,
+          "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
+                        "grad_atol_rel": GRAD_ATOL_REL,
+                        "grad_rtol": GRAD_RTOL, "stat_rtol": GN_STAT_RTOL,
+                        "f32_rel_to_max": GN_F32_REL}})
+    return rows
+
+
+def flax_resnet_tree(np, rng, num_classes: int) -> dict:
+    """A ResNet50 parameter tree as flax lays it out (HWIO conv kernels,
+    ``[in, out]`` Dense kernel, GroupNorm ``scale``/``bias``), drawn from
+    ``rng``: kernels normal of std 1/sqrt(fan_in), scales near 1, biases
+    near 0 — the input of ``from_flax_resnet_params``."""
+    from tpudist_torch.models.resnet import _block_plan
+
+    def conv(k, cin, cout):
+        return {"kernel": (rng.standard_normal((k, k, cin, cout))
+                           / np.sqrt(k * k * cin)).astype(np.float32)}
+
+    def norm(c):
+        return {"scale": (1 + 0.1 * rng.standard_normal(c)).astype(
+                    np.float32),
+                "bias": (0.1 * rng.standard_normal(c)).astype(np.float32)}
+
+    tree = {"ResNetStem_0": {"Conv_0": conv(7, 3, 64),
+                             "GroupNorm_0": norm(64)}}
+    cin = 64
+    for i, b in enumerate(_block_plan()):
+        f, out = b.features, 4 * b.features
+        blk = {"Conv_0": conv(1, cin, f), "GroupNorm_0": norm(f),
+               "Conv_1": conv(3, f, f), "GroupNorm_1": norm(f),
+               "Conv_2": conv(1, f, out), "GroupNorm_2": norm(out)}
+        if cin != out or b.strides != 1:
+            blk.update(Conv_3=conv(1, cin, out), GroupNorm_3=norm(out))
+        tree[f"Bottleneck_{i}"] = blk
+        cin = out
+    tree["ResNetHead_0"] = {"Dense_0": {
+        "kernel": (rng.standard_normal((cin, num_classes))
+                   / np.sqrt(cin)).astype(np.float32),
+        "bias": np.zeros(num_classes, np.float32)}}
+    return {"params": {"ResNetSegment_0": tree}}
+
+
+def resnet_loss_fn(torch):
+    """The sweep's loss: softmax cross-entropy over the classes, f32."""
+    from tpudist_torch.ops.losses import cross_entropy
+
+    def loss_fn(model, batch, _gen):
+        images, labels = batch
+        return cross_entropy(model(images), labels), {}
+
+    return loss_fn
+
+
+def rel_l2(got, want) -> float:
+    """||got − want|| / ||want|| in f64 (0 for two zero tensors)."""
+    num = float((got.double() - want.double()).norm())
+    den = float(want.double().norm())
+    return num / den if den else (0.0 if num == 0.0 else float("inf"))
+
+
+class ReplayBranches:
+    """``torch.nn.functional`` as ``models/resnet.py`` calls it, with the
+    model's discrete choices — each ReLU's mask and the stem max-pool's
+    argmax, in call order — recorded (``record()``) on one evaluation and
+    replayed (``replay()``) on another, so that two evaluations of one
+    model differ only by rounding.  A replay counts the choices it
+    overrode (``flips``: a ReLU input of the other sign, or a pooled
+    value other than the evaluation's own maximum) out of ``choices``."""
+
+    def __init__(self, torch):
+        import torch.nn.functional as F
+
+        self.torch, self.F = torch, F
+        self.tape, self.at, self.replaying = [], 0, False
+        self.flips = self.choices = 0
+
+    def __getattr__(self, name):
+        return getattr(self.F, name)
+
+    def record(self):
+        self.tape, self.replaying = [], False
+
+    def replay(self):
+        self.at, self.replaying, self.flips, self.choices = 0, True, 0, 0
+
+    def _next(self, device):
+        self.at += 1
+        return self.tape[self.at - 1].to(device)
+
+    def relu(self, x):
+        if not self.replaying:
+            self.tape.append((x > 0).cpu())
+            return self.F.relu(x)
+        keep = self._next(x.device)
+        self.flips += int(((x > 0) != keep).sum())
+        self.choices += keep.numel()
+        return self.torch.where(keep, x, self.torch.zeros_like(x))
+
+    def max_pool2d(self, x, k, s, padding=0):
+        y, idx = self.F.max_pool2d(x, k, s, padding=padding,
+                                   return_indices=True)
+        if not self.replaying:
+            self.tape.append(idx.cpu())
+            return y
+        idx = self._next(x.device)
+        forced = x.flatten(2).gather(2, idx.flatten(2)).view_as(idx)
+        self.flips += int((forced != y).sum())
+        self.choices += idx.numel()
+        return forced
+
+
+def phase_resnet_parity(torch, dev, seed):
+    """The model and converter on the card: full-width ResNet50 (16
+    blocks, 1000 classes, norm="group") in f32 with TF32 off (cuDNN and
+    cuBLAS, restored after), batch 4 at 64 px, from one flax-layout tree
+    of seeded weights through from_flax_resnet_params and one
+    synthetic_images batch: 3 SGD steps (lr RESNET_PARITY_LR) through
+    make_dp_train_step on the CPU in f32, on the card and on the CPU in
+    f64 (statistics, head and loss in f64 too).  Before each step the
+    card and f64 models take the CPU model's weights and replay its
+    ReLU masks and max-pool argmax (ReplayBranches), so each step
+    compares one gradient at equal weights and equal choices; the card
+    may differ from the CPU's choices in at most RESNET_FLIP_SHARE of
+    them.  The loss within
+    RESNET_LOSS_RTOL; each parameter's gradient within RESNET_NOISE_FACTOR
+    times that tensor's CPU f32-to-f64 distance, or RESNET_GRAD_FLOOR
+    where that is larger; and after each step the card's weights,
+    updated by its own SGD, against the CPU's: apart by at most lr times
+    the gradients' allowed distance plus one f32 rounding of each
+    update."""
+    import numpy as np
+
+    from tpudist_torch.data import synthetic_images
+    from tpudist_torch.models import ResNet50, from_flax_resnet_params
+    from tpudist_torch.models import resnet
+    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.train import TrainState, sgd
+
+    branches, functional = ReplayBranches(torch), resnet.F
+    resnet.F = branches
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sd = from_flax_resnet_params(flax_resnet_tree(
+        np, np.random.default_rng(seed + 13), 1000))
+    x, onehot = synthetic_images(4, hw=64, seed=seed)
+    labels = onehot.argmax(-1)
+    cpu, lr = torch.device("cpu"), RESNET_PARITY_LR
+    models, states, batches = {}, {}, {}
+    for where, d, dt in (("cuda", dev, torch.float32),
+                         ("cpu", cpu, torch.float32),
+                         ("cpu_f64", cpu, torch.float64)):
+        models[where] = ResNet50(compute_dtype=dt, device=d)
+        models[where].load_state_dict(sd)
+        states[where] = TrainState.create(models[where], sgd(lr), seed=seed)
+        batches[where] = (torch.from_numpy(x).to(d, dt),
+                          torch.from_numpy(labels).to(d))
+    step = make_dp_train_step(resnet_loss_fn(torch))
+    rows = []
+    for i in range(3):
+        weights = {k: v.clone() for k, v in models["cpu"].state_dict().items()}
+        models["cuda"].load_state_dict(weights)
+        models["cpu_f64"].load_state_dict(weights)
+        out, flips = {}, {}
+        for where in ("cpu", "cuda", "cpu_f64"):
+            if where == "cpu":
+                branches.record()
+            else:
+                branches.replay()
+            states[where], m = step(states[where], *batches[where])
+            flips[where] = branches.flips / max(branches.choices, 1)
+            out[where] = (float(m["loss"]),
+                          {n: p.grad.detach().cpu().clone()
+                           for n, p in models[where].named_parameters()},
+                          {n: p.detach().cpu().clone()
+                           for n, p in models[where].named_parameters()})
+        (lc, gc, wc), (lh, gh, wh), (l64, g64, _) = (
+            out[k] for k in ("cuda", "cpu", "cpu_f64"))
+        grad, weight = [], []
+        for n in gh:
+            noise = rel_l2(gh[n], g64[n])
+            limit = max(RESNET_NOISE_FACTOR * noise, RESNET_GRAD_FLOOR)
+            got = rel_l2(gc[n], gh[n])
+            grad.append((got / limit, n, got, noise, rel_l2(gc[n], g64[n]),
+                         limit))
+            # each model rounds w − lr·g once (half an ulp of the new
+            # weight each), after lr·g's own rounding
+            w = wh[n].abs()
+            slack = ((torch.nextafter(w, torch.full_like(w, np.inf)) - w)
+                     .double() + 2.0 ** -23 * lr * (gc[n].double().abs()
+                                                    + gh[n].double().abs()))
+            allowed = (lr * limit * float(gh[n].double().norm())
+                       + float(slack.norm()))
+            weight.append((float((wc[n].double() - wh[n].double()).norm())
+                           / allowed, n))
+        worst = max(grad)
+        row = {"step": i, "loss_cuda": lc, "loss_cpu": lh, "loss_f64": l64,
+               "loss_rel_err": abs(lc - lh) / abs(lh),
+               "grad_worst_ratio": worst[0], "grad_worst_param": worst[1],
+               "grad_worst_rel_l2": worst[2],
+               "grad_worst_cpu_f32_vs_f64": worst[3],
+               "grad_worst_cuda_vs_f64": worst[4],
+               "grad_max_rel_l2": max(g[2] for g in grad),
+               "cpu_f32_vs_f64_range": [min(g[3] for g in grad),
+                                        max(g[3] for g in grad)],
+               "grad_tensors_at_floor": sum(
+                   1 for g in grad
+                   if RESNET_NOISE_FACTOR * g[3] < RESNET_GRAD_FLOOR),
+               "weights_worst_ratio": max(weight)[0],
+               "weights_worst_param": max(weight)[1],
+               "choices": branches.choices,
+               "flip_share_cuda": flips["cuda"],
+               "flip_share_f64": flips["cpu_f64"]}
+        rows.append(row)
+        check(np.isfinite(lc) and row["loss_rel_err"] <= RESNET_LOSS_RTOL,
+              f"resnet_parity: step {i} card loss {lc} vs CPU {lh}")
+        check(flips["cuda"] <= RESNET_FLIP_SHARE,
+              f"resnet_parity: step {i} the card's own ReLU masks and "
+              f"max-pool choices differ from the CPU's in {flips['cuda']} "
+              f"of them")
+        for ratio, n, got, _, _, limit in grad:
+            check(ratio <= 1.0, f"resnet_parity: step {i} {n} gradient "
+                  f"{got} apart, limit {limit}")
+        for ratio, n in weight:
+            check(ratio <= 1.0,
+                  f"resnet_parity: step {i} {n} weights after the step "
+                  f"{ratio} of their allowed distance from the CPU's")
+    del models, states
+    resnet.F = functional
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    torch.cuda.empty_cache()
+    emit({"phase": "resnet_parity", "steps": rows,
+          "tolerance": {"loss_rtol": RESNET_LOSS_RTOL,
+                        "noise_factor": RESNET_NOISE_FACTOR,
+                        "grad_floor": RESNET_GRAD_FLOOR,
+                        "flip_share": RESNET_FLIP_SHARE}})
+
+
+def resnet_train_setup(torch, dev, seed):
+    """The train_resnet cell: ResNet50 (norm="group", bf16 compute, f32
+    parameters) from seeded weights, and one synthetic_images batch of 128
+    at 128 px with its integer labels, on the card."""
+    from tpudist_torch.data import synthetic_images
+    from tpudist_torch.models import ResNet50
+
+    model = ResNet50(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed + 14))
+    x, onehot = synthetic_images(RESNET_BATCH, hw=RESNET_HW, seed=seed)
+    return (model, torch.from_numpy(x).to(dev),
+            torch.from_numpy(onehot.argmax(-1)).to(dev))
+
+
+def gn_site_inputs(torch, model, images, labels) -> list:
+    """One forward and backward of ``model`` on the batch, recording each
+    GroupNorm site as the step produced it: ``(name, mode, x, residual,
+    scale, bias)``.  A Bottleneck's norm0 and norm1 and the stem's norm
+    are ReLU sites, norm2 the tail relu(norm2(y) + residual) (residual =
+    the block input, or norm3's output where the block projects), norm3
+    the projection (plain)."""
+    from tpudist_torch.models.resnet import Bottleneck
+    from tpudist_torch.ops.group_norm import GroupNorm
+    from tpudist_torch.ops.losses import cross_entropy
+
+    seen, proj_out, block_in, hooks = {}, {}, {}, []
+
+    def on_norm(name):
+        def hook(mod, args, out):
+            seen[name] = args[0].detach()
+            if name.endswith("norm3"):
+                proj_out[name] = out.detach()
+        return hook
+
+    def on_block(name):
+        def hook(mod, args):
+            block_in[name] = args[0].detach()
+        return hook
+
+    for name, m in model.named_modules():
+        if isinstance(m, GroupNorm):
+            hooks.append(m.register_forward_hook(on_norm(name)))
+        elif isinstance(m, Bottleneck):
+            hooks.append(m.register_forward_pre_hook(on_block(name)))
+    cross_entropy(model(images), labels).backward()
+    for hk in hooks:
+        hk.remove()
+    model.zero_grad(set_to_none=True)
+    sites = []
+    for name, x in seen.items():
+        block, _, norm = name.rpartition(".")
+        mode, res = "relu", None
+        if norm == "norm2":
+            mode = "add_relu"
+            res = proj_out.get(block + ".norm3", block_in.get(block))
+        elif norm == "norm3":
+            mode = "plain"
+        mod = model.get_submodule(name)
+        sites.append((name, mode, x, res, mod.scale.detach(),
+                      mod.bias.detach()))
+    return sites
+
+
+def gn_site_paths(torch, dev, mode, x, res, scale, bias):
+    """One GroupNorm site's two paths: ``(fused, closed_form, wrt)``.
+    ``fused()`` is the fused op in bf16 — GroupNorm(fused="relu" |
+    "add_relu") with the site's parameters, or group_norm_act(mode=
+    "plain") at a projection; ``closed_form(dt)`` the closed form
+    (GroupNorm(fused="none"), then the site's add and ReLU; without the
+    ReLU for ``act=False``) in dtype ``dt`` on the site's inputs cast to
+    it; ``wrt(path)`` the tensors each
+    takes gradients of (x, the residual, scale, bias), ``path`` being
+    "fused" or a dtype."""
+    import torch.nn.functional as F
+
+    from tpudist_torch.ops import group_norm as gn
+
+    bf, c = torch.bfloat16, x.shape[-1]
+
+    def module(fused, dtype):
+        m = gn.GroupNorm(c, GN_GROUPS, GN_EPS, dtype=dtype, fused=fused,
+                         device=dev)
+        with torch.no_grad():
+            m.scale.copy_(scale)
+            m.bias.copy_(bias)
+        return m
+
+    mods = {"fused": module("none" if mode == "plain" else mode, bf),
+            bf: module("none", bf), torch.float32: module("none",
+                                                          torch.float32)}
+    ins = (x,) if res is None else (x, res)
+    leaves = {k: [t.to(bf if k == "fused" else k).detach().requires_grad_()
+                  for t in ins] for k in mods}
+
+    def fused():
+        m, xs = mods["fused"], leaves["fused"]
+        if mode == "plain":
+            return gn.group_norm_act(xs[0], m.scale, m.bias, GN_GROUPS,
+                                     GN_EPS, "plain")
+        return m(*xs)
+
+    def closed_form(dt, act=True):
+        xs = leaves[dt]
+        y = mods[dt](xs[0])
+        if mode == "add_relu":
+            y = xs[1] + y
+        return y if mode == "plain" or not act else F.relu(y)
+
+    def wrt(path):
+        return leaves[path] + [mods[path].scale, mods[path].bias]
+
+    return fused, closed_form, wrt
+
+
+def gn_site_flips(torch, mode, x, res, scale, bias):
+    """K9's statistics and ReLU mask against the closed form's at one
+    site: ``(flipped, stat_ratio, flip_ulps)``.  ``stat_ratio`` is K9's
+    worst mean or rstd error over GN_STAT_RTOL of that statistic's max
+    (a K9 launch made for this comparison).  ``flipped`` marks the
+    elements whose masks differ: K9's, from its statistics through the
+    expression K9 and K10 share, against the closed form's, from its f32
+    pre-activation.  The closed form's pre-activation there lies within
+    what the two paths' statistics move it by, ``|γ|·(|x − mean|·|Δrstd|
+    + rstd·|Δmean|)``, of 0; ``flip_ulps`` is the largest, in f32 ulps of
+    the terms it is computed from, ``(|x| + |mean|)·rstd·|γ| + |β| +
+    |res|``.  A plain site has no mask."""
+    from tpudist_torch.ops import group_norm as gn
+
+    def per_c(v):
+        return gn._expand(v, x.shape, GN_GROUPS)
+
+    x32 = x.float()
+    res32 = None if res is None else res.float()
+    g32, b32 = scale.float(), bias.float()
+    mean, rstd = gn._stats(x32, GN_GROUPS, GN_EPS)
+    _, mean_k, rstd_k = gn._fused_call_fwd(x, scale, bias, res, GN_GROUPS,
+                                           GN_EPS, mode)
+    stat_ratio = max(((k - v).abs().max() / (GN_STAT_RTOL * v.abs().max())
+                      ).item() for k, v in ((mean_k, mean), (rstd_k, rstd)))
+    if mode == "plain":
+        return (torch.zeros(x.shape, dtype=torch.bool, device=x.device),
+                stat_ratio, 0.0)
+    xhat, pre = gn._pre_activation(x32, per_c(mean), per_c(rstd), g32, b32,
+                                   res32)
+    flipped = (pre > 0) != (gn._pre_activation(
+        x32, per_c(mean_k), per_c(rstd_k), g32, b32, res32)[1] > 0)
+    if not bool(flipped.any()):
+        return flipped, stat_ratio, 0.0
+    ulp = 2.0 ** -23 * ((x32.abs() + per_c(mean.abs())) * per_c(rstd)
+                        * g32.abs() + b32.abs()
+                        + (0.0 if res32 is None else res32.abs()))
+    ulps = torch.where(pre == 0, 0.0, pre.abs() / ulp)
+    return flipped, stat_ratio, ulps[flipped].max().item()
+
+
+def gn_sites_check(torch, dev, seed):
+    """The correctness half of gn_sites: the 53 sites of one train_resnet
+    step, the fused op forward and backward at each with launch counts
+    reset just before and read just after (K9 = K10 = 53), held against
+    the closed form in f32.  Returns ``(sites, launches, checks)``.
+
+    ``y`` within O_ATOL + O_RTOL·|closed form|; K9's mean and rstd within
+    GN_STAT_RTOL of their max.  Every gradient element within
+    grad_ratio's limit, except where the two paths' ReLU masks differ
+    (gn_site_flips: at a pre-activation that the statistics' difference
+    carries across 0), at most GN_SITE_FLIP of them: such an element
+    takes or drops a whole dy in dx and dres.  A flip moves a channel's
+    dscale and dbias by one term of B·H·W, so they are held everywhere,
+    as is every gradient of a plain site."""
+    model, images, labels = resnet_train_setup(torch, dev, seed)
+    sites = gn_site_inputs(torch, model, images, labels)
+    del model, images
+    torch.cuda.empty_cache()
+    counts = {m: sum(1 for s in sites if s[1] == m)
+              for m in ("relu", "add_relu", "plain")}
+    check(len(sites) == 53 and counts == {"relu": 33, "add_relu": 16,
+                                          "plain": 4},
+          f"gn_sites: {len(sites)} sites, modes {counts}")
+    g = torch.Generator(device=dev).manual_seed(seed + 15)
+    reset_launches()
+    results = []
+    for name, mode, x, res, scale, bias in sites:
+        fused, closed_form, wrt = gn_site_paths(torch, dev, mode, x, res,
+                                                scale, bias)
+        dy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+        y = fused()
+        grads = torch.autograd.grad(y, wrt("fused"), dy)
+        y32 = closed_form(torch.float32)
+        want = torch.autograd.grad(y32, wrt(torch.float32), dy.float())
+        results.append((name, mode, y, grads, y32, want))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches["K9"] == launches["K10"] == 53,
+          f"gn_sites: launches {launches}, want 53 of K9 and K10")
+    checks = []
+    for (name, mode, y, grads, y32, want), site in zip(results, sites):
+        with torch.no_grad():
+            flipped, stat_ratio, flip_ulps = gn_site_flips(
+                torch, mode, *site[2:])
+        row = {"site": name, "mode": mode, "y_ratio": o_ratio(y, y32),
+               "grad_ratio_held": 0.0, "beyond_share": 0.0,
+               "stat_ratio": stat_ratio, "flips": int(flipped.sum()),
+               "flip_ulps": flip_ulps}
+        gnames = (["dx", "dres"] if mode == "add_relu" else ["dx"]) \
+            + ["dscale", "dbias"]
+        for gname, a, e in zip(gnames, grads, want):
+            a, e = a.float(), e.float()
+            lim = GRAD_ATOL_REL * e.abs().max() + GRAD_RTOL * e.abs()
+            ratio = (a - e).abs() / lim
+            may_flip = flipped if gname in ("dx", "dres") \
+                else torch.zeros_like(ratio, dtype=torch.bool)
+            over = ratio > 1.0
+            share = over.float().mean().item()
+            held = ratio.masked_fill(may_flip, 0.0).max().item()
+            row["grad_ratio_held"] = max(row["grad_ratio_held"], held)
+            row["beyond_share"] = max(row["beyond_share"], share)
+            check(held <= 1.0,
+                  f"gn_sites: {name} ({mode}) {gname}: ratio {held} where "
+                  f"the ReLU masks agree")
+            check(share <= GN_SITE_FLIP,
+                  f"gn_sites: {name} ({mode}) {gname}: {share} of the "
+                  f"elements beyond the limit (allowed {GN_SITE_FLIP})")
+        check(stat_ratio <= 1.0,
+              f"gn_sites: {name} ({mode}): K9's statistics {stat_ratio} "
+              f"of their limit from the closed form's")
+        check(row["y_ratio"] <= 1.0,
+              f"gn_sites: {name} ({mode}) y ratio {row['y_ratio']}")
+        checks.append(row)
+    del results
+    torch.cuda.empty_cache()
+    return sites, launches, checks
+
+
+def phase_gn_sites(torch, dev, seed):
+    """The fused path at every one of ResNet50's 53 GroupNorm sites, on
+    the activations the train_resnet cell's step produces (batch 128, 128
+    px, bf16; gn_site_inputs) and a seeded bf16 dy at each
+    (gn_sites_check): y within O_ATOL + O_RTOL * |closed form in f32|,
+    each gradient by grad_ratio's limit but at ReLU mask flips within
+    rounding of 0, K9 = K10 = 53 launches.  Then both paths as the model would
+    run them in bf16, timed per site (forward, and forward + backward) and
+    summed over the sites beside the summed bound."""
+    sites, launches, checks = gn_sites_check(torch, dev, seed)
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                fn()
+        return run
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed + 16)
+    totals, by_mode, per_site = {}, {}, []
+    for (name, mode, x, res, scale, bias), chk in zip(sites, checks):
+        fused, closed_form, wrt = gn_site_paths(torch, dev, mode, x, res,
+                                                scale, bias)
+        dy = torch.randn(x.shape, generator=g, device=dev).to(bf)
+        b, hh, ww, c = x.shape
+        bound_fwd = gn_bound(b, hh * ww, c, mode, 2, False)[0]
+        t = {"fused_fwd_ms": timed_ms(no_grad(fused), 5, flush),
+             "fused_fwd_bwd_ms": timed_ms(lambda: torch.autograd.grad(
+                 fused(), wrt("fused"), dy), 5, flush),
+             "closed_fwd_ms": timed_ms(no_grad(lambda: closed_form(bf)), 5,
+                                       flush),
+             "closed_fwd_bwd_ms": timed_ms(lambda: torch.autograd.grad(
+                 closed_form(bf), wrt(bf), dy), 5, flush),
+             "bound_fwd_ms": bound_fwd,
+             "bound_fwd_bwd_ms": bound_fwd + gn_bound(b, hh * ww, c, mode, 2,
+                                                      True)[0]}
+        for k, v in t.items():
+            totals[k] = totals.get(k, 0.0) + v
+            by_mode.setdefault(mode, {})[k] = by_mode.get(mode, {}).get(
+                k, 0.0) + v
+        per_site.append({**chk, "shape": list(x.shape), **t})
+    del flush_buf, sites
+    torch.cuda.empty_cache()
+    emit({"phase": "gn_sites", "sites": len(per_site), "launches": launches,
+          "worst_y_ratio": max(c["y_ratio"] for c in checks),
+          "worst_grad_ratio_held": max(c["grad_ratio_held"]
+                                       for c in checks),
+          "worst_stat_ratio": max(c["stat_ratio"] for c in checks),
+          "flips": sum(c["flips"] for c in checks),
+          "worst_flip_ulps": max(c["flip_ulps"] for c in checks),
+          "worst_beyond_share": max(c["beyond_share"] for c in checks),
+          **totals, "by_mode": by_mode,
+          "fused_over_closed_fwd": totals["fused_fwd_ms"]
+          / totals["closed_fwd_ms"],
+          "fused_over_closed_fwd_bwd": totals["fused_fwd_bwd_ms"]
+          / totals["closed_fwd_bwd_ms"],
+          "per_site": per_site,
+          "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
+                        "grad_atol_rel": GRAD_ATOL_REL,
+                        "grad_rtol": GRAD_RTOL,
+                        "share_beyond": GN_SITE_FLIP,
+                        "stat_rtol": GN_STAT_RTOL}})
+    return launches, per_site
+
+
+def resnet_forward_flops(torch, model, images) -> float:
+    """Forward FLOPs of ``model`` on ``images`` from its conv and dense
+    shapes: 2 per multiply-add (output elements × fan-in)."""
+    from tpudist_torch.models.resnet import Conv, ResNetHead
+
+    total = [0.0]
+
+    def count(fan_in):
+        def hook(mod, args, out):
+            total[0] += 2.0 * out.numel() * fan_in(mod)
+        return hook
+
+    hooks = []
+    for m in model.modules():
+        if isinstance(m, Conv):
+            hooks.append(m.register_forward_hook(
+                count(lambda mod: mod.weight[0].numel())))
+        elif isinstance(m, ResNetHead):
+            hooks.append(m.register_forward_hook(
+                count(lambda mod: mod.fc.in_features)))
+    with torch.no_grad():
+        model(images)
+    for hk in hooks:
+        hk.remove()
+    return total[0]
+
+
+def resnet_family(name: str) -> str:
+    """The train_resnet profile's grouping of device kernels by name."""
+    for family, keys in (
+            ("layout copies", ("nchwToNhwc", "nhwcToNchw", "nchw2nhwc",
+                               "nhwc2nchw", "NchwToNhwc", "NhwcToNchw")),
+            ("fused GroupNorm (K9, K10)", ("gn_fwd", "gn_bwd")),
+            ("conv", ("conv", "xmma", "cudnn", "implicit", "fprop", "dgrad",
+                      "wgrad", "gemm", "nvjet", "cutlass", "sm90_")),
+            ("SGD", ("multi_tensor", "sgd")),
+            ("pooling", ("pool",)),
+            ("reductions", ("reduce_kernel",)),
+            ("copies and casts", ("copy",))):
+        if any(k in name for k in keys):
+            return family
+    return "norm and activation elementwise"
+
+
+def phase_train_resnet(torch, dev, seed):
+    """scripts/resnet_mfu_sweep.py's b128_128px_gn_train cell on the port:
+    ResNet50, norm="group" (the closed form, as tpudist builds it), bf16
+    compute and f32 parameters, sgd(0.05), cross-entropy over 1000
+    classes, batch 128 at 128 px, one synthetic_images batch from --seed
+    repeated; 2 warm-up steps, then 20 through make_dp_train_step with
+    launch counts reset just before and read just after (the ResNet runs
+    no port kernel: K9 = K10 = 0), the loss falling; ms per step,
+    images/s, model FLOPs (3x the forward's, from the conv and dense
+    shapes) and their share of the bf16 peak, peak memory; then one step
+    under torch.profiler by kernel family, with no layout copy."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.train import TrainState, sgd
+
+    model, images, labels = resnet_train_setup(torch, dev, seed)
+    flops = 3.0 * resnet_forward_flops(torch, model, images)
+    state = TrainState.create(model, sgd(0.05), seed=seed)
+    step = make_dp_train_step(resnet_loss_fn(torch))
+    for _ in range(2):                 # warm-up: cuDNN plans, allocator
+        state, _ = step(state, images, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(RESNET_STEPS):
+        state, m = step(state, images, labels)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [float(v) for v in losses]
+    check(all(np.isfinite(losses)), f"train_resnet: non-finite loss "
+                                    f"{losses}")
+    check(losses[-1] < losses[0],
+          f"train_resnet: loss did not fall ({losses[0]} -> {losses[-1]})")
+    check(not any(launches.values()),
+          f"train_resnet: the closed-form ResNet launched {launches}")
+    ms = wall / RESNET_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, _ = step(state, images, labels)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, images, labels)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    check(device_ms > 0, "train_resnet: the profiler saw no device time")
+    families, counts = {}, {}
+    for k, t, n in rows:
+        fam = resnet_family(k)
+        families[fam] = families.get(fam, 0.0) + t
+        counts[fam] = counts.get(fam, 0) + n
+    layout = [k[:100] for k, _, _ in rows
+              if resnet_family(k) == "layout copies"]
+    emit({"phase": "train_resnet", "steps": RESNET_STEPS,
+          "batch": RESNET_BATCH, "hw": RESNET_HW, "loss_first": losses[0],
+          "loss_last": losses[-1], "losses": losses, "launches": launches,
+          "wall_s": wall, "ms_per_step": ms,
+          "images_per_s": RESNET_BATCH / (ms / 1e3),
+          "model_flops_per_step": flops,
+          "bf16_peak_share": flops / (ms / 1e3) / BF16_FLOPS,
+          "max_memory_allocated_bytes": peak,
+          "profile": {"step_wall_ms": step_ms, "device_ms": device_ms,
+                      "device_busy_share": device_ms / step_ms,
+                      "by_family_ms": families, "by_family_kernels": counts,
+                      "layout_copy_kernels": layout,
+                      "top": [{"kernel": k[:90], "ms": t, "count": n}
+                              for k, t, n in rows[:16]]}})
+    check(not layout, f"train_resnet: layout copies around the convs: "
+                      f"{layout}")
+    del model, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2119,6 +3009,10 @@ def main(argv=None) -> int:
     ring_rows = phase_ring_kernels(torch, dev, args.seed)
     _, sp4_launches = phase_ring_sp4(torch, dev, args.seed)
     sp_launches = phase_train_sp(torch, dev, args.seed)
+    gn_rows = phase_gn_kernels(torch, dev, args.seed)
+    phase_resnet_parity(torch, dev, args.seed)
+    gn_launches, _ = phase_gn_sites(torch, dev, args.seed)
+    phase_train_resnet(torch, dev, args.seed)
 
     main_k1 = next(r for r in k1 if r["q_offset"] == 7168)
     main_k2 = next(r for r in k2 if r["case"] == "per_row_side")
@@ -2206,6 +3100,18 @@ def main(argv=None) -> int:
         "tol_ratio": max(r["tol_ratio"] for r in moe_rows),
         **{k: main_k7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}})
+    main_gn = next(r for r in gn_rows if r["case"] == "1024x256_add_relu")
+    for key, name, line in (("K9", "group_norm_fwd (K9)", 126),
+                            ("K10", "group_norm_bwd (K10)", 153)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "tpudist_torch/csrc/group_norm.cu",
+            "replaces": f"tpudist/ops/group_norm.py:{line}",
+            "launches": gn_launches[key],
+            "max_abs_err": max(r["max_abs_err"] for r in gn_rows),
+            "tol_ratio": max(r["tol_ratio"] for r in gn_rows),
+            **{k: main_gn[key][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,13 +7,17 @@ For each mutant — K3 with its first live K/V tile's contribution dropped,
 K4 with its first live q-tile's dropped, K5 reading each key's page-table
 entry one block too far (``table[b, p / bs + 1]``), K6 with the V scale
 left out of the value product, K7 with the gate left out of its
-epilogue, K8 reading the caller's Delta as zero — copies
+epilogue, K8 reading the caller's Delta as zero, K9 taking the variance
+as ``E[x²]`` (the ``mean²`` dropped), K10 with the ReLU mask left out —
+copies
 ``tpudist_torch/`` into ``DIR/<mutant>/`` (default ``_scratch/mutants``,
 git-ignored), breaks the kernel source there, and runs the
 ``chip_smoke`` phase that holds that kernel against its plain version
 (``phase_backward_kernels``, ``phase_paged_kernels``,
-``phase_moe_kernels`` or ``phase_ring_kernels``) against the broken copy
-in a subprocess, with ``chip_smoke.check`` replaced by a collector.
+``phase_moe_kernels``, ``phase_ring_kernels``, or for K9 and K10
+``phase_gn_kernels`` and gn_sites' check against the closed form,
+``gn_sites_check``) against the broken copy in a subprocess, with
+``chip_smoke.check`` replaced by a collector.
 Prints one JSON line per mutant: the worst ``tol_ratio`` of each kernel
 in each case and the checks that failed.  Exits non-zero if any mutant
 passes every check (the check would not see the fault).  Needs the CUDA
@@ -31,7 +35,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BWD, DEC = "csrc/flash_attention_bwd.cu", "csrc/flash_decode.cu"
-GMM = "csrc/moe_gmm.cu"
+GMM, GN = "csrc/moe_gmm.cu", "csrc/group_norm.cu"
 K3_PRODUCTS = "    two_products<T, NT, D>(s, dp, Qw, Kw, dOw, Vw, r0, g, t4);\n"
 K4_PRODUCTS = ("      two_products<T, NT, D>(s, dp, Kw, Qw, Vw, dOw, r0, g, "
                "t4);\n")
@@ -39,6 +43,8 @@ K5_TABLE = "a.table[(long long)b * a.M + (lo + r) / a.bs]"
 K6_PV = "sr[j] = round_to<__nv_bfloat16>(p * vsc[j]);"
 K7_GATE = "const float gt = a.gate[row0 + r];"
 K8_DELTA = "Dl[r] = q0 + r < a.Sq ? a.delta[row_base + q0 + r] : 0.f;"
+K9_VAR = "const float var = a2 / n - mean * mean;"
+K10_MASK = "(pre > 0.f ? dy : 0.f)"
 # the chip_smoke phase that holds the kernel, and the expression (over its
 # return value `out`) giving {case: {kernel: tol_ratio}}
 BWD_RUN = ("rows, _ = chip_smoke.phase_backward_kernels(torch, dev, {seed})",
@@ -51,6 +57,14 @@ GMM_RUN = ("rows, _ = chip_smoke.phase_moe_kernels(torch, dev, {seed})",
            '{r["case"]: r["tol_ratio"] for r in rows}')
 RING_RUN = ("rows = chip_smoke.phase_ring_kernels(torch, dev, {seed})",
             '{r["case"]: r["tol_ratio"] for r in rows}')
+# kernels_gn's worst ratio by case; gn_sites' worst y ratio and share of
+# gradient elements beyond the limit, by site mode
+GN_RUN = ("rows = chip_smoke.phase_gn_kernels(torch, dev, {seed})\n"
+          "_, _, sites = chip_smoke.gn_sites_check(torch, dev, {seed})",
+          '{"kernels_gn": {r["case"]: r["tol_ratio"] for r in rows}, '
+          '"gn_sites": {m: {k: max(s[k] for s in sites if s["mode"] == m) '
+          'for k in ("y_ratio", "beyond_share", "grad_ratio_held")} '
+          'for m in ("relu", "add_relu", "plain")}}')
 MUTANTS = {
     "K3_drop_first_k_tile": (BWD, BWD_RUN, K3_PRODUCTS,
                              "    if (kt == kv_lo) continue;\n"
@@ -66,6 +80,9 @@ MUTANTS = {
     "K7_no_gate_in_epilogue": (GMM, GMM_RUN, K7_GATE,
                                "const float gt = 1.f;"),
     "K8_delta_read_as_zero": (BWD, RING_RUN, K8_DELTA, "Dl[r] = 0.f;"),
+    "K9_variance_without_mean_sq": (GN, GN_RUN, K9_VAR,
+                                    "const float var = a2 / n;"),
+    "K10_no_relu_mask": (GN, GN_RUN, K10_MASK, "dy"),
 }
 
 RUNNER = r"""

@@ -302,3 +302,73 @@ def test_initialize_and_make_mesh(tmp_path):
         assert "at most one -1" in out["two_wild"]
         assert "pass mesh=" in out["no_mesh"]
         assert "not divisible" in out["indivisible"]
+
+
+# ---- the step's random stream and its signature ----------------------------
+
+def _stream_rank(rank, world, seed):
+    """Two steps of accum_steps=2 built in tpudist's call form
+    ``make_dp_train_step(loss_fn, mesh, accum_steps=...)``: the 4 values
+    the loss_fn drew from its generator at each (step, micro-batch), twice
+    from the same seed."""
+    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.runtime import data_mesh
+    from tpudist_torch.train import TrainState, sgd
+
+    draws = []
+
+    def loss_fn(m, batch, gen):
+        draws.append(torch.rand(4, generator=gen).numpy())
+        (x,) = batch
+        return (m(x) ** 2).mean(), {}
+
+    runs = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        model = torch.nn.Linear(3, 1)
+        state = TrainState.create(model, sgd(0.1), seed=seed)
+        step = make_dp_train_step(loss_fn, data_mesh(), accum_steps=2)
+        draws.clear()
+        for _ in range(2):
+            state, _ = step(state, torch.ones(4, 3))
+        runs.append(np.stack(draws))
+    return runs
+
+
+def test_dp_step_streams_differ_by_rank_micro_and_step(tmp_path):
+    """tpudist folds the data-shard index and the micro-batch index into
+    the step's key and splits the key every step: the port's loss_fn
+    generators differ between ranks, micro-batches and steps, and repeat
+    from the same seed."""
+    ranks = run_ranks(_stream_rank, 2, tmp_path, 7)
+    other = run_ranks(_stream_rank, 2, tmp_path, 8)
+    for runs in ranks + other:
+        np.testing.assert_array_equal(runs[0], runs[1])   # repeats
+    draws = np.concatenate([ranks[0][0], ranks[1][0]])     # [2 ranks x 4, 4]
+    assert len({row.tobytes() for row in draws}) == len(draws)
+    assert not np.array_equal(ranks[0][0], other[0][0])
+
+
+def test_train_steps_take_tpudists_signatures():
+    """``make_dp_train_step`` and ``make_sp_train_step`` take tpudist's
+    parameters in tpudist's order (``donate`` accepted)."""
+    import inspect
+
+    from tpudist.parallel import data_parallel as jdp
+    from tpudist.parallel import ring_attention as jra
+    from tpudist_torch.parallel import data_parallel as tdp
+    from tpudist_torch.parallel import ring_attention as tra
+
+    for port, ref in ((tdp.make_dp_train_step, jdp.make_dp_train_step),
+                      (tra.make_sp_train_step, jra.make_sp_train_step)):
+        assert list(inspect.signature(port).parameters) == \
+            list(inspect.signature(ref).parameters)
+
+
+def test_fold_in_mixes_every_argument():
+    from tpudist_torch.train import fold_in
+
+    seeds = {fold_in(s, shard, step, micro) for s in (0, 1)
+             for shard in (0, 1) for step in (0, 1, 2) for micro in (0, 1)}
+    assert len(seeds) == 24 and all(0 <= s < 2 ** 64 for s in seeds)
+    assert fold_in(3, 1, 2) == fold_in(3, 1, 2) != fold_in(3, 2, 1)

@@ -18,6 +18,7 @@ from tpudist_torch.models.transformer import TransformerConfig, TransformerLM
 from tpudist_torch.ops import _cuda
 from tpudist_torch.ops import flash_attention as tfa
 from tpudist_torch.ops import flash_decode as tfd
+from tpudist_torch.ops import group_norm as tgn
 from tpudist_torch.ops import moe_dispatch as tmd
 from tpudist_torch.parallel import ring_flash_attention_fn
 from tpudist_torch.utils.config import env_flag
@@ -66,6 +67,12 @@ def test_imports_and_runs_with_jax_blocked():
         "import tpudist_torch.train, tpudist_torch.parallel",
         "import tpudist_torch.runtime, tpudist_torch.parallel.ring_attention",
         "import tpudist_torch.models.moe, tpudist_torch.ops.moe_dispatch",
+        "import tpudist_torch.ops.group_norm, tpudist_torch.ops.batch_norm",
+        "import tpudist_torch.models.resnet, tpudist_torch.models.convert",
+        "from tpudist_torch.data import synthetic_images",
+        "from tpudist_torch.models import ResNet50, resnet50_stages",
+        "from tpudist_torch.ops import GroupNorm, BatchNorm",
+        "from tpudist_torch.train import sgd, fold_in",
         "from tpudist_torch.models import MoEConfig, MoETransformerLM",
         "from tpudist_torch import TransformerConfig, TransformerLM",
         "from tpudist_torch import greedy_generate",
@@ -83,6 +90,8 @@ def test_imports_and_runs_with_jax_blocked():
         "from tpudist_torch.parallel import ring_flash_attention_fn",
         "q = torch.randn(1, 8, 2, 16, requires_grad=True)",
         "ring_flash_attention_fn()(q, q, q).sum().backward()",
+        "x = torch.randn(2, 4, 4, 64, requires_grad=True)",
+        "GroupNorm(64, fused='add_relu', device='cpu')(x, x).sum().backward()",
         "print('ok')",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -113,7 +122,8 @@ def test_cpu_tensors_take_the_plain_path():
     kernel library is built or loaded."""
     kernels = (tfa.FLASH_FORWARD, tfa.FLASH_BWD_DQ, tfa.FLASH_BWD_DKV,
                tfa.FLASH_BWD_DQ_DELTA, tfd.FLASH_DECODE,
-               tfd.PAGED_FLASH_DECODE, tfd.FLASH_DECODE_Q8, tmd.MOE_GMM)
+               tfd.PAGED_FLASH_DECODE, tfd.FLASH_DECODE_Q8, tmd.MOE_GMM,
+               tgn.GN_FWD, tgn.GN_BWD)
     counts = [k.launches for k in kernels]
     libs = dict(_cuda._libs)
     q = torch.randn(1, 5, 2, 16)
@@ -141,6 +151,12 @@ def test_cpu_tensors_take_the_plain_path():
     # the ring flash route (K1, then K8 and K4 with an explicit Delta)
     x = torch.randn(1, 8, 2, 16, requires_grad=True)
     ring_flash_attention_fn()(x, x, x).sum().backward()
+    # the fused GroupNorm modes (K9, K10), through the module
+    x = torch.randn(2, 4, 4, 64, requires_grad=True)
+    tgn.GroupNorm(64, fused="relu", device="cpu")(x).sum().backward()
+    tgn.GroupNorm(64, fused="add_relu", device="cpu")(x, x).sum().backward()
+    tgn.group_norm_act(x, torch.ones(64), torch.zeros(64), 32, 1e-6,
+                       "plain").sum().backward()
     assert [k.launches for k in kernels] == counts
     assert _cuda._libs == libs
 
@@ -163,6 +179,13 @@ def test_kernel_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfd.flash_decode_q8(q[:, :1], q.to(torch.int8), q[..., :1],
                             q.to(torch.int8), q[..., :1], 3)
+    x = torch.randn(2, 4, 4, 64, device="meta")
+    w = torch.ones(64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tgn._fused_call_fwd(x, w, w, None, 32, 1e-6, "relu")
+    mean = torch.zeros(2, 32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tgn._fused_call_bwd(x, x, w, w, mean, mean, x, 32, "add_relu")
 
 
 def test_build_is_keyed_by_source_content(tmp_path, monkeypatch):
@@ -205,3 +228,27 @@ def test_cuda_tensor_launches_kernel():
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.randn(1, 5, 2, 24, device="cuda")
         tfa._flash_forward(x, x, x, True)
+
+
+@pytest.mark.cuda
+def test_group_norm_kernels_need_channels_last_layout():
+    """K9 and K10 read ``[B, H·W, C]``: an NHWC view of a channels-first
+    tensor raises (no quiet copy), as does a residual or gradient in that
+    layout; the contiguous tensors launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (kernels K9 and K10 have no CPU "
+                    "mode)")
+    nchw = torch.randn(2, 64, 4, 4, device="cuda").to(torch.bfloat16)
+    x = nchw.permute(0, 2, 3, 1)                   # NHWC view, NCHW memory
+    good = x.contiguous()
+    w, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        tgn._fused_call_fwd(x, w, b, None, 32, 1e-6, "relu")
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        tgn._fused_call_fwd(good, w, b, x, 32, 1e-6, "add_relu")
+    before = tgn.GN_FWD.launches
+    _, mean, rstd = tgn._fused_call_fwd(good, w, b, None, 32, 1e-6, "relu")
+    torch.cuda.synchronize()
+    assert tgn.GN_FWD.launches == before + 1
+    with pytest.raises(ValueError, match="contiguous NHWC"):
+        tgn._fused_call_bwd(good, x, w, b, mean, rstd, None, 32, "relu")

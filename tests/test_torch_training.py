@@ -252,6 +252,7 @@ def test_multi_process_step_raises(monkeypatch):
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
     monkeypatch.setattr(dist, "all_reduce", all_reduce)
     _, m = make_dp_train_step(_loss_fn)(state, toks)
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -293,6 +294,7 @@ def test_dp_step_keeps_aux_as_given(monkeypatch):
 
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
     monkeypatch.setattr(dist, "all_reduce",
                         lambda t, op=None, group=None: t.mul_(2))
     state = TrainState.create(_port_model(cfg, params), adam(1e-3))

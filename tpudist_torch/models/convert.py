@@ -3,8 +3,9 @@
 :func:`from_flax_params` takes a flax ``TransformerLM`` parameter tree as
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) and
 returns the port's ``state_dict``; :func:`from_flax_moe_params` does the
-same for a ``MoETransformerLM``.  It imports nothing of the JAX package:
-the tree is plain numpy.
+same for a ``MoETransformerLM`` and :func:`from_flax_resnet_params` for a
+ResNet50 or one of its pipeline segments.  It imports nothing of the JAX
+package: the tree is plain numpy.
 """
 
 from __future__ import annotations
@@ -103,4 +104,74 @@ def from_flax_moe_params(params: Mapping[str, Any],
         sd[pre + "router.weight"] = _t(moe["router"]["kernel"]).T.contiguous()
         sd[pre + "w_up"] = _t(moe["w_up"])
         sd[pre + "w_down"] = _t(moe["w_down"])
+    return sd
+
+
+# flax module name prefixes -> the port's, inside a ResNet segment
+_RESNET_PARTS = {"ResNetStem": "stem", "Bottleneck": "blocks", "ResNetHead":
+                 "head"}
+_RESNET_LAYERS = {"Conv": "conv", "GroupNorm": "norm", "BatchNorm": "norm"}
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()) -> dict[tuple, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _resnet_name(path: tuple) -> str:
+    """A flax ResNet leaf path (``("Bottleneck_3", "Conv_1", "kernel")``)
+    as the port's parameter or buffer name (``blocks.3.conv1.weight``)."""
+    if len(path) != 3:
+        raise ValueError(f"unexpected ResNet leaf {'/'.join(path)}")
+    (part, idx), (layer, j), leaf = (path[0].rsplit("_", 1),
+                                     path[1].rsplit("_", 1), path[2])
+    if part not in _RESNET_PARTS or (part == "ResNetHead") != (
+            layer == "Dense"):
+        raise ValueError(f"unexpected ResNet leaf {'/'.join(path)}")
+    if part == "Bottleneck":
+        module = f"blocks.{int(idx)}."
+    else:
+        module = _RESNET_PARTS[part] + "."
+    if layer == "Dense":
+        module += "fc."
+    elif layer in _RESNET_LAYERS:
+        module += f"{_RESNET_LAYERS[layer]}{int(j)}."
+    else:
+        raise ValueError(f"unexpected ResNet leaf {'/'.join(path)}")
+    return module + ("weight" if leaf == "kernel" else leaf)
+
+
+def from_flax_resnet_params(
+        params: Mapping[str, Any],
+        batch_stats: Mapping[str, Any] | None = None,
+) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of a :class:`~tpudist_torch.models.resnet.
+    ResNetSegment` (or ``ResNet50``) from a flax ResNet tree of numpy
+    arrays (a ``{"params": ...}`` wrapper and ``ResNet50``'s
+    ``ResNetSegment_0`` level are removed).
+
+    Conv kernels go from HWIO to OIHW and Dense kernels from ``[in, out]``
+    to ``[out, in]``; norm ``scale``/``bias`` map as they are and
+    ``batch_stats`` ``mean``/``var`` become the norms' buffers.  Every
+    leaf maps to exactly one name: an unknown leaf, or two leaves on one
+    name, raises."""
+    sd: dict[str, torch.Tensor] = {}
+    for tree in (params, batch_stats or {}):
+        for key in ("params", "batch_stats", "ResNetSegment_0"):
+            if set(tree) == {key}:
+                tree = tree[key]
+        for path, leaf in _flatten(tree).items():
+            name = _resnet_name(path)
+            if name in sd:
+                raise ValueError(f"two flax leaves map to {name}")
+            w = _t(leaf)
+            if path[-1] == "kernel":
+                w = (w.permute(3, 2, 0, 1) if w.dim() == 4 else w.T)
+                w = w.contiguous()
+            sd[name] = w
     return sd

@@ -1,7 +1,7 @@
 """Losses (counterpart of :mod:`tpudist.ops.losses`).
 
-All are computed from *logits* in float32, with the log-softmax in its
-stable logsumexp form.
+All are computed from *logits* in float32 (float64 logits stay float64),
+with the log-softmax in its stable logsumexp form.
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ def cross_entropy_per_token(logits: torch.Tensor,
         raise ValueError(
             f"logits {tuple(logits.shape)} must be labels shape "
             f"{tuple(labels.shape)} + one trailing class axis")
-    logp = log_softmax(logits.float())
+    logp = log_softmax(logits.to(torch.promote_types(logits.dtype,
+                                                      torch.float32)))
     return -torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
 
 

@@ -19,6 +19,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from tpudist_torch.runtime.mesh import axis_index
 from tpudist_torch.train.state import TrainState
 
 # loss_fn(model, batch, generator) -> (loss, aux_dict); batch is a tuple of
@@ -67,9 +68,20 @@ def broadcast_params(model: nn.Module, mesh=None) -> nn.Module:
     return model
 
 
-def make_dp_train_step(loss_fn: LossFn, accum_steps: int = 1, *,
-                       mesh=None, axis: str = "data"):
-    """Build ``train_step(state, *batch) -> (state, metrics)``.
+def _shard_index(mesh, axis: str) -> int:
+    """This process's index along the data axis (its rank in the world
+    when ``mesh`` is None; 0 without a process group)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 0
+    if mesh is None:
+        return dist.get_rank()
+    return axis_index(mesh, axis)
+
+
+def make_dp_train_step(loss_fn: LossFn, mesh=None, axis: str = "data",
+                       donate: bool = True, accum_steps: int = 1):
+    """Build ``train_step(state, *batch) -> (state, metrics)``; tpudist's
+    signature and argument order.
 
     ``batch`` is this process's shard.  After the local backward the
     gradients, the loss and the ``aux`` entries are averaged over the
@@ -80,7 +92,15 @@ def make_dp_train_step(loss_fn: LossFn, accum_steps: int = 1, *,
     With ``accum_steps > 1`` the local batch is split into that many
     sequential micro-batches whose gradients and metrics are averaged
     first — the same numerics as the single pass, activation memory
-    divided by ``accum_steps``."""
+    divided by ``accum_steps``.
+
+    ``loss_fn`` gets a generator of its own for each (data shard, step,
+    micro-batch): :meth:`TrainState.generator`, so dropout masks differ
+    between shards, micro-batches and steps and repeat from the state's
+    seed.  ``donate`` is accepted for tpudist's signature and does
+    nothing: an eager step updates the parameters in place, so there is
+    no second copy to donate."""
+    del donate
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if mesh is not None and axis not in (mesh.mesh_dim_names or ()):
@@ -94,9 +114,11 @@ def make_dp_train_step(loss_fn: LossFn, accum_steps: int = 1, *,
                                  f"accum_steps={accum_steps}")
         state.optimizer.zero_grad(set_to_none=True)
         micro = zip(*(x.chunk(accum_steps) for x in batch))
+        shard = _shard_index(mesh, axis)
         loss_sum, aux_sum = None, {}
-        for mb in micro:
-            loss, aux = loss_fn(state.model, tuple(mb), state.generator)
+        for i, mb in enumerate(micro):
+            loss, aux = loss_fn(state.model, tuple(mb),
+                                state.generator(shard, i))
             loss.backward()
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss

@@ -377,6 +377,7 @@ def make_sp_train_step(
     total_tokens: int,
     data_axis: str = "data",
     seq_axis: str = "seq",
+    donate: bool = True,
 ):
     """DP×SP transformer train step: the batch split over ``data``, the
     sequence over ``seq``, the parameters replicated.
@@ -388,7 +389,10 @@ def make_sp_train_step(
     local_block`); ``loss_per_token(logits, targets) -> [tokens]`` returns
     UNREDUCED losses, summed here and divided by ``total_tokens``, so the
     sum of the gradients over the whole ``data × seq`` grid is the global
-    batch's gradient; the loss is summed the same way."""
+    batch's gradient; the loss is summed the same way.  ``donate`` is
+    accepted for tpudist's signature and does nothing (the eager step
+    updates the parameters in place)."""
+    del donate
     _check_mesh(mesh, data_axis, seq_axis)
 
     def train_step(state: TrainState, tokens: torch.Tensor,
