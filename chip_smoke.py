@@ -42,8 +42,9 @@ Phases, each printing one JSON line and each fatal on failure:
    against their plain versions in bf16 at the training shape (causal,
    and with a 512 window) and at bench.py's flash shape, each gradient
    element within 1e-2 * max|plain| + 2e-2 * |plain|, Delta within 1e-3,
-   with times beside the bound and SDPA's backward; K1 at the training
-   shape beside its bound;
+   a second call bitwise equal to the first, with the planner's splits
+   per kernel and times beside the bound and SDPA's backward; K1 at the
+   training shape beside its bound;
 13. train_parity — a full-width 2-layer f32 model trained 3 Adam steps
    through flash attention (K1, K3, K4) and through the plain sdpa from
    the same weights and batches: losses and every gradient agree;
@@ -73,8 +74,9 @@ Phases, each printing one JSON line and each fatal on failure:
    (diagonal, fully live, fully masked: exact zeros from K8 and K4, and
    O = 0, LSE = -1e30 from K1), a 1024 window at offsets, and in f32,
    with K1 and K4 on the same blocks against theirs; fed K3's Delta,
-   bit-identical to K3's dQ; times beside K3's, the bound and SDPA's
-   backward;
+   bit-identical to K3's dQ; K8 and K4 bitwise equal on a second call;
+   the planner's splits per kernel; times beside K3's, the bound and
+   SDPA's backward;
 19. ring_sp4 — ring flash attention for 4 virtual ranks in one process
    (B=1, S=4 x 2048, H=8, Hkv=2, D=64), through the module's step
    functions with the blocks rotating as _ring_rotate would, causal and
@@ -1006,6 +1008,14 @@ def phase_backward_kernels(torch, dev, seed):
                                 ("dv", dv, pdv))}
         d_err = (delta - pdelta).abs().max().item()
         ratio_k3, ratio_k4 = errs["dq"][1], max(errs["dk"][1], errs["dv"][1])
+        again = (fa._flash_bwd_dq(q, k, v, do, out, lse, **kw)
+                 + fa._flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        repeat = all(torch.equal(x, y)
+                     for x, y in zip((dq, delta, dk, dv), again))
+        del again
+        check(repeat, f"K3/K4 ({case}): a second call on the same inputs "
+              f"gave other bits")
+        plan = fa._bwd_plan_for(q, k, **kw)
         check(ratio_k3 <= 1.0 and d_err <= DELTA_ATOL,
               f"K3 disagrees with its plain version ({case}): dq "
               f"{errs['dq']} delta {d_err}")
@@ -1022,6 +1032,8 @@ def phase_backward_kernels(torch, dev, seed):
         b4 = bound((2 * qn + 2 * kn) * nb + 2 * B * H * S * nf
                    + 2 * kn * nb, 8.0 * pairs * D)
         row = {"case": case, "shape": [B, S, H, HKV, D], "window": W,
+               "plan": {"K3": plan.dq_splits, "K4": plan.dkv_splits},
+               "bitwise_repeat": repeat,
                "K3": {"max_abs_err": errs["dq"][0], "tol_ratio": ratio_k3,
                       "delta_err": d_err,
                       "ms": timed_ms(lambda: fa._flash_bwd_dq(
@@ -1713,8 +1725,19 @@ def phase_ring_kernels(torch, dev, seed):
               and bool(torch.isfinite(dv).all()),
               f"K4 disagrees with its plain version ({case}): {k4}")
         del pdk, pdv
+        # a second call of each on the same inputs gives the same bits
+        again = ((fa._flash_bwd_dq_delta(q, k, v, do, lse, delta, **kw),)
+                 + fa._flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        repeat = all(torch.equal(x, y)
+                     for x, y in zip((dq, dk, dv), again))
+        del again
+        check(repeat, f"K8/K4 ({case}): a second call on the same inputs "
+              f"gave other bits")
+        plan = fa._bwd_plan_for(q, k, **kw)
         row = {"case": case, "shape": [B, S, H, HKV, D], "q_offset": q_off,
                "k_offset": k_off, "window": W, "dtype": str(dt),
+               "plan": {"K8": plan.dq_splits, "K4": plan.dkv_splits},
+               "bitwise_repeat": repeat,
                "max_abs_err": err, "tol_ratio": ratio, "K1": k1, "K4": k4}
         if q_off == k_off:
             # K3 on the same block writes a Delta; K8 fed it gives K3's dQ

@@ -4,7 +4,9 @@
     python3 scripts/torch_kernel_mutants.py [--out DIR] [--seed N]
 
 For each mutant — K3 with its first live K/V tile's contribution dropped,
-K4 with its first live q-tile's dropped, K5 reading each key's page-table
+K4 with its first live q-tile's dropped (every group member's), the
+split walks' sum (K3, K8 and K4) leaving out each tile's last non-empty
+split, K5 reading each key's page-table
 entry one block too far (``table[b, p / bs + 1]``), K6 with the V scale
 left out of the value product, K7 with the gate left out of its
 epilogue, K8 reading the caller's Delta as zero, K9 taking the variance
@@ -36,9 +38,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 BWD, DEC = "csrc/flash_attention_bwd.cu", "csrc/flash_decode.cu"
 GMM, GN = "csrc/moe_gmm.cu", "csrc/group_norm.cu"
-K3_PRODUCTS = "    two_products<T, NT, D>(s, dp, Qw, Kw, dOw, Vw, r0, g, t4);\n"
-K4_PRODUCTS = ("      two_products<T, NT, D>(s, dp, Kw, Qw, Vw, dOw, r0, g, "
-               "t4);\n")
+K3_STEP = ("    const int kt = w.lo + i * kBK;\n"
+           "    uint8_t* Ks = kv_stage(i);\n")
+K4_STEP = "    const int qt = w.lo + (i / group) * BQ;\n"
+SPLIT_SUM = "      for (int sp = 0; sp < parts; ++sp) {\n"
 K5_TABLE = "a.table[(long long)b * a.M + (lo + r) / a.bs]"
 K6_PV = "sr[j] = round_to<__nv_bfloat16>(p * vsc[j]);"
 K7_GATE = "const float gt = a.gate[row0 + r];"
@@ -66,12 +69,13 @@ GN_RUN = ("rows = chip_smoke.phase_gn_kernels(torch, dev, {seed})\n"
           'for k in ("y_ratio", "beyond_share", "grad_ratio_held")} '
           'for m in ("relu", "add_relu", "plain")}}')
 MUTANTS = {
-    "K3_drop_first_k_tile": (BWD, BWD_RUN, K3_PRODUCTS,
-                             "    if (kt == kv_lo) continue;\n"
-                             + K3_PRODUCTS),
-    "K4_drop_first_q_tile": (BWD, BWD_RUN, K4_PRODUCTS,
-                             "      if (qt == q_lo) continue;\n"
-                             + K4_PRODUCTS),
+    "K3_drop_first_k_tile": (BWD, BWD_RUN, K3_STEP,
+                             "    if (i == 0) continue;\n" + K3_STEP),
+    "K4_drop_first_q_tile": (BWD, BWD_RUN, K4_STEP,
+                             "    if (i < group) continue;\n" + K4_STEP),
+    "split_sum_drops_last_split": (
+        BWD, RING_RUN, SPLIT_SUM,
+        "      for (int sp = 0; sp < parts - 1; ++sp) {\n"),
     "K5_table_entry_plus_one": (
         DEC, DEC_RUN, K5_TABLE,
         "a.table[(long long)b * a.M + (lo + r) / a.bs + 1]"),

@@ -23,11 +23,16 @@ There is no fallback from the first to the second.
 
 The JAX functions' ``block_q``/``block_k``/``interpret`` arguments are not
 carried over: tiles are the kernels' own choice (64 query rows or keys).
+The backward's walks over key tiles (K3, K8) or query tiles (K4) are cut
+over several CTAs by a host planner, :func:`_bwd_plan`, from the shape,
+offsets, window and the card's SM count.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -47,10 +52,12 @@ FLASH_FORWARD = _cuda.Kernel(
     + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 # K3 (dQ and Δ), K8 (dQ from a given Δ) and K4 (dK, dV) share one argument
 # list: dtype; q k v dO O lse delta dQ dK dV; B Sq Sk H Hkv D; the (b, s, h)
-# strides of q k v dO O dQ dK dV; q/k offsets, causal, window; scale; stream
+# strides of q k v dO O dQ dK dV; q/k offsets, causal, window; scale; the
+# f32 partials dQ dK dV; splits, chunk; stream
 _BWD_ARGS = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-             + [_c_ll] * 24 + [ctypes.c_int] * 4
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [_c_ll] * 24 + [ctypes.c_int] * 4 + [ctypes.c_float]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
 FLASH_BWD_DQ = _cuda.Kernel("flash_attention_bwd", "tpudist_flash_bwd_dq",
                             _BWD_ARGS)
 FLASH_BWD_DQ_DELTA = _cuda.Kernel("flash_attention_bwd",
@@ -249,18 +256,153 @@ def flash_block_grads_plain(q, k, v, dout, lse, delta=None, *, causal,
     return dq, dk, dv
 
 
+# The backward kernels' tiles (csrc/flash_attention_bwd.cu): K3/K8 walk a
+# 64-row q-tile's 64-key tiles, K4 a 64-key tile's (q-tile, group member)
+# steps over q-tiles of _bwd_bq(D) rows
+_BWD_ROWS = 64
+# The planner splits a walk only where it would set the pace: when the
+# longest walk is more than twice the card's fair share of all the steps
+# (the total over _CTAS_PER_SM CTAs an SM), and then so that no CTA takes
+# more than _SPLIT_STEPS tile steps.  A grid of several waves whose
+# longest walks start first (the kernels order them so) is balanced
+# already, and a split only adds its partials' traffic.  At D = 64 an SM
+# holds 4 CTAs of K3/K8 and 2 of K4 (their registers); 3 is the value the
+# H100 runs chose (scripts/flash_bwd_compare.py): it splits K4 at B=1,
+# S=8192, 1.55x faster, and neither kernel at the training shape, where
+# a split cost 8-10%.
+_SPLIT_STEPS = 32
+_CTAS_PER_SM = 3
+
+
+def _bwd_bq(d: int) -> int:
+    """K4's queries per step: 32 at head dim 128 (the register budget),
+    64 below."""
+    return 32 if d >= 128 else 64
+
+
+def _dq_walks(sq, sk, q_offset, k_offset, causal, window):
+    """``[(first key, key tiles)]`` that each 64-row q-tile of K3/K8 walks:
+    from the window band's first tile to the causal limit (the kernels'
+    ``dq_walk``)."""
+    walks = []
+    for q0 in range(0, sq, _BWD_ROWS):
+        lo, hi = 0, sk
+        if causal:
+            hi = max(0, min(sk, q_offset + min(sq, q0 + _BWD_ROWS)
+                            - k_offset))
+            if window:
+                lo = max(0, q_offset + q0 - (window - 1) - k_offset)
+        lo = lo // _BWD_ROWS * _BWD_ROWS
+        walks.append((lo, -(-(hi - lo) // _BWD_ROWS) if hi > lo else 0))
+    return walks
+
+
+def _dkv_walks(sq, sk, d, q_offset, k_offset, causal, window):
+    """``[(first query, q-tiles)]`` that each 64-key tile of K4 walks, each
+    q-tile once per member of the GQA group: from the causal diagonal to
+    the window band's end (the kernels' ``dkv_walk``)."""
+    bq = _bwd_bq(d)
+    walks = []
+    for k0 in range(0, sk, _BWD_ROWS):
+        lo, hi = 0, sq
+        if causal:
+            lo = max(0, k_offset + k0 - q_offset)
+            if window:
+                hi = max(0, min(sq, k_offset + min(sk, k0 + _BWD_ROWS) - 1
+                                + window - q_offset))
+        lo = lo // bq * bq
+        walks.append((lo, -(-(hi - lo) // bq) if hi > lo else 0))
+    return walks
+
+
+class BwdPlan(NamedTuple):
+    """How many CTAs share one output tile's walk (``splits``) and how many
+    steps each takes (``chunk``): split s takes steps ``[s·chunk,
+    (s+1)·chunk)``.  K3 and K8 take the ``dq`` pair, K4 the ``dkv`` one."""
+    dq_splits: int
+    dq_chunk: int
+    dkv_splits: int
+    dkv_chunk: int
+
+
+def _split(walks: list[int], heads: int, sm_count: int, steps: int):
+    """``(splits, chunk)`` for output tiles whose walks take ``walks``
+    steps each, ``heads`` times over."""
+    longest = max(walks)
+    fair = heads * sum(walks) / (_CTAS_PER_SM * sm_count)
+    if longest <= steps or longest <= 2 * fair:
+        return 1, max(longest, 1)
+    splits = -(-longest // steps)
+    return splits, -(-longest // splits)
+
+
+@functools.lru_cache(maxsize=512)
+def _bwd_plan(b, sq, sk, h, h_kv, d, *, causal, q_offset, k_offset, window,
+              sm_count, steps=_SPLIT_STEPS) -> BwdPlan:
+    """The backward kernels' split plan, from the shape, the offsets, the
+    window and the card's SM count (never from data).  ``window`` counts
+    only when ``causal``.  ``steps`` is the longest walk a split CTA may
+    take (the tests shorten it to split small shapes)."""
+    window = int(window) if (causal and window) else 0
+    group = h // h_kv
+    dq = [n for _, n in _dq_walks(sq, sk, q_offset, k_offset, causal,
+                                  window)]
+    dkv = [group * n for _, n in _dkv_walks(sq, sk, d, q_offset, k_offset,
+                                            causal, window)]
+    return BwdPlan(*_split(dq, b * h, sm_count, steps),
+                   *_split(dkv, b * h_kv, sm_count, steps))
+
+
+def _launch_split(kernel, plan: BwdPlan) -> tuple[int, int]:
+    """``(splits, chunk)`` of one backward kernel: K3 and K8 take the
+    same (one tiling, one split, one summation order), K4 its own."""
+    if kernel is FLASH_BWD_DKV:
+        return plan.dkv_splits, plan.dkv_chunk
+    return plan.dq_splits, plan.dq_chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_plan_for(q, k, *, causal, q_offset=0, k_offset=0,
+                  window=None) -> BwdPlan:
+    """The plan K3, K8 and K4 take on these CUDA inputs."""
+    b, sq, h, d = q.shape
+    return _bwd_plan(b, sq, k.shape[1], h, k.shape[2], d,
+                     causal=bool(causal), q_offset=int(q_offset),
+                     k_offset=int(k_offset),
+                     window=int(window) if (causal and window) else 0,
+                     sm_count=_sm_count(q.device.index or 0))
+
+
 def _bwd_launch(kernel, q, k, v, dout, out, lse, delta, dq, dk, dv, *,
                 causal, q_offset, k_offset, window) -> None:
+    """One K3, K8 or K4 call: the plan, the partials' workspace when it
+    splits (its sum runs inside the same call), the launch."""
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
+    window = int(window) if (causal and window) else 0
+    plan = _bwd_plan_for(q, k, causal=causal, q_offset=q_offset,
+                         k_offset=k_offset, window=window)
+    dkv = kernel is FLASH_BWD_DKV
+    splits, chunk = _launch_split(kernel, plan)
+    parts = [None, None, None]
+    if splits > 1:
+        shape = (splits, b, h_kv, sk, d) if dkv else (splits, b, h, sq, d)
+        ws = [torch.empty(shape, dtype=torch.float32, device=q.device)
+              for _ in range(2 if dkv else 1)]
+        parts = [None] + ws if dkv else ws + [None, None]
     strides = []
     for t in (q, k, v, dout, out, dq, dk, dv):
         strides += list(t.stride()[:3]) if t is not None else [0, 0, 0]
     kernel(_DTYPES[q.dtype], *(_cuda.ptr(t) for t in (
         q, k, v, dout, out, lse, delta, dq, dk, dv)),
         b, sq, sk, h, h_kv, d, *strides, int(q_offset), int(k_offset),
-        int(bool(causal)), int(window) if (causal and window) else 0,
-        d ** -0.5, _cuda.stream_handle(q.device))
+        int(bool(causal)), window, d ** -0.5,
+        *(_cuda.ptr(t) for t in parts), splits, chunk,
+        _cuda.stream_handle(q.device))
 
 
 def _flash_bwd_dq(q, k, v, dout, out, lse, *, causal, q_offset=0,
@@ -291,7 +433,8 @@ def _flash_bwd_dq_delta(q, k, v, dout, lse, delta, *, causal, q_offset=0,
 def _flash_bwd_dkv(q, k, v, dout, lse, delta, *, causal, q_offset=0,
                    k_offset=0, window=None):
     """Kernel K4: ``(dk, dv)``, each summed over the KV head's group of
-    query heads inside one block (no atomics)."""
+    query heads; a walk the planner splits has its partials added in
+    split order (no atomics)."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     _bwd_launch(FLASH_BWD_DKV, q, k, v, dout, None, lse, delta, None, dk,
