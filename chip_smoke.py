@@ -12,6 +12,11 @@ Phases, each printing one JSON line and each fatal on failure:
    times the plain value, the LSE within 1e-3), with its time, the plain
    version's, one PyTorch library call's (a yardstick only; the port never calls it)
    and the least time the card could take (bytes or operations bound);
+   K1 with the planner's split (splits, chunk), also against the split
+   walk and merge in plain PyTorch, a second call bitwise equal, and K1's
+   chunk invariance: a 1,024-token prompt over the 8k
+   cache prefilled as one chunk and as 512 + 300 + 212 gives bit-identical
+   out and LSE rows;
 4. kernels_paged — K5 (paged decode, at block 128 and 16, over a pool
    whose page table is a random permutation; bit-identical to K2 over the
    gathered view) and K6 (int8 decode, per-row and scalar length) against
@@ -76,7 +81,8 @@ Phases, each printing one JSON line and each fatal on failure:
    with K1 and K4 on the same blocks against theirs; fed K3's Delta,
    bit-identical to K3's dQ; K8 and K4 bitwise equal on a second call;
    the planner's splits per kernel; times beside K3's, the bound and
-   SDPA's backward;
+   SDPA's backward; K1 at train_sp's shape timed beside its bound and
+   SDPA's forward, with its plan;
 19. ring_sp4 — ring flash attention for 4 virtual ranks in one process
    (B=1, S=4 x 2048, H=8, Hkv=2, D=64), through the module's step
    functions with the blocks rotating as _ring_rotate would, causal and
@@ -322,6 +328,19 @@ def phase_kernels(torch, dev, seed):
         check(ratio <= 1.0 and err_l <= LSE_ATOL,
               f"K1 disagrees with its plain version at q_offset={q_off}: "
               f"O {err_o} (ratio to limit {ratio}) LSE {err_l}")
+        again = fa._flash_forward(q, k4, v4, True, q_offset=off)
+        repeat = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        check(repeat, f"K1 at q_offset={q_off}: a second call on the same "
+              f"inputs gave other bits")
+        plan = fa._fwd_plan_for(q, k4, causal=True)
+        # ... and against the split walk and merge in plain PyTorch
+        so, slse = fa._flash_forward_split_plain(q, k4, v4, True,
+                                                 q_offset=off, plan=plan)
+        _, split_err_l, split_ratio = compare(o, lse, so, slse)
+        check(split_ratio <= 1.0 and split_err_l <= LSE_ATOL,
+              f"K1 disagrees with its split plain version at q_offset="
+              f"{q_off} ({plan}): ratio {split_ratio} LSE {split_err_l}")
+        del so, slse
         live = min(S, q_off + C)
         pairs = sum(min(S, q_off + r + 1) for r in range(C))
         nbytes = (2 * q.numel() * 2 + H * C * 4 + 2 * live * HKV * D * 2)
@@ -331,7 +350,10 @@ def phase_kernels(torch, dev, seed):
                 <= torch.arange(q_off, q_off + C, device=dev)[:, None])
         k1.append({
             "q_offset": q_off, "max_abs_err": err_o, "lse_err": err_l,
-            "tol_ratio": ratio,
+            "tol_ratio": ratio, "bitwise_repeat": repeat,
+            "split_plain": {"tol_ratio": split_ratio,
+                            "lse_err": split_err_l},
+            "plan": {"splits": plan.splits, "chunk": plan.chunk},
             "ms": timed_ms(lambda: fa._flash_forward(q, k4, v4, True,
                                                      q_offset=off), 20, flush),
             "plain_ms": timed_ms(lambda: fa._flash_forward_plain(
@@ -339,6 +361,7 @@ def phase_kernels(torch, dev, seed):
             "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), 20, flush),
             "bound_ms": b_ms, "bound_by": b_by})
+    chunk_inv = k1_chunk_invariance(torch, fa, rnd, k4, v4, dev)
 
     # K2 at the decode shapes: 4 slots at per-row lengths, the side buffer
     # (capacity steps_per_sync = 32) holding 17 tokens; and a scalar length
@@ -392,10 +415,34 @@ def phase_kernels(torch, dev, seed):
                 qt, kt, vt, attn_mask=m, enable_gqa=True), 50, flush),
             "bound_ms": b_ms, "bound_by": b_by})
     del flush_buf
-    emit({"phase": "kernels", "K1": k1, "K2": k2,
+    emit({"phase": "kernels", "K1": k1, "K1_chunk_invariance": chunk_inv,
+          "K2": k2,
           "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
                         "lse_atol": LSE_ATOL}})
     return k1, k2
+
+
+def k1_chunk_invariance(torch, fa, rnd, k4, v4, dev) -> dict:
+    """K1's chunk invariance at the serve shape: a 1,024-token prompt's
+    queries over the packed 8k cache (the planner splits this walk),
+    prefilled as one chunk and as chunks of 512 + 300 + 212 at their
+    offsets (the cache index as a device scalar, as the serve path passes
+    it): every out and LSE row bit-identical."""
+    q = rnd(1, 1024, k4.shape[2] * 4, k4.shape[3])
+    whole_o, whole_l = fa._flash_forward(q, k4, v4, True)
+    chunks, lo, equal = [512, 300, 212], 0, True
+    for n in chunks:
+        off = torch.tensor(lo, dtype=torch.int32, device=dev)
+        o, lse = fa._flash_forward(q[:, lo:lo + n], k4, v4, True,
+                                   q_offset=off)
+        equal = (equal and torch.equal(o, whole_o[:, lo:lo + n])
+                 and torch.equal(lse, whole_l[:, :, lo:lo + n]))
+        lo += n
+    plan = fa._fwd_plan_for(q, k4, causal=True)
+    check(equal, f"K1: the prompt's rows differ between one chunk and "
+          f"chunks {chunks} (plan {plan})")
+    return {"prompt": 1024, "chunks": chunks, "bit_identical": equal,
+            "plan": {"splits": plan.splits, "chunk": plan.chunk}}
 
 
 def phase_paged_kernels(torch, dev, seed):
@@ -1069,8 +1116,10 @@ def phase_backward_kernels(torch, dev, seed):
             # K1 on the training forward (q_offset 0), and SDPA's forward
             b1 = bound(2 * qn * nb + 2 * kn * nb + B * H * S * nf,
                        4.0 * pairs * D)
+            fplan = fa._fwd_plan_for(q, k, causal=True)
             k1_train = {"case": case, "ms": timed_ms(
                 lambda: fa._flash_forward(q, k, v, True), 10, flush),
+                "plan": {"splits": fplan.splits, "chunk": fplan.chunk},
                 "bound_ms": b1[0], "bound_by": b1[1],
                 "library_ms": timed_ms(sdpa_fwd, 10, flush)}
         rows.append(row)
@@ -1801,6 +1850,16 @@ def phase_ring_kernels(torch, dev, seed):
 
             row["library_ms"] = (timed_ms(sdpa_fwd_bwd, 10, flush)
                                  - timed_ms(sdpa_fwd, 10, flush))
+            # K1 at train_sp's shape: reads q k v, writes O and the LSE
+            b1 = bound((2 * qn + 2 * kn) * nb + B * H * S * 4,
+                       4.0 * pairs * D)
+            fplan = fa._fwd_plan_for(q, k, causal=True)
+            row["K1"].update({
+                "ms": timed_ms(lambda: fa._flash_forward(q, k, v, True),
+                               10, flush),
+                "bound_ms": b1[0], "bound_by": b1[1],
+                "library_ms": timed_ms(sdpa_fwd, 10, flush),
+                "plan": {"splits": fplan.splits, "chunk": fplan.chunk}})
         rows.append(row)
         del q, k, v, do, out, lse, delta, dq, dk, dv, ob, lse_b
     del flush_buf
@@ -3039,6 +3098,7 @@ def main(argv=None) -> int:
 
     main_k1 = next(r for r in k1 if r["q_offset"] == 7168)
     main_k2 = next(r for r in k2 if r["case"] == "per_row_side")
+    sp_k1 = next(r for r in ring_rows if r["case"] == "train_sp")["K1"]
     kernels = [
         {"name": "flash_forward (K1)", "route": "cuda",
          "source": "tpudist_torch/csrc/flash_attention.cu",
@@ -3052,8 +3112,11 @@ def main(argv=None) -> int:
                                     "bound_by", "library_ms")},
          "launches_train": train_launches["K1"],
          "launches_sp": sp_launches["K1"],
+         "plan": main_k1["plan"],
          "train_ms": k1_train["ms"], "train_bound_ms": k1_train["bound_ms"],
-         "train_library_ms": k1_train["library_ms"]},
+         "train_library_ms": k1_train["library_ms"],
+         "sp_ms": sp_k1["ms"], "sp_bound_ms": sp_k1["bound_ms"],
+         "sp_library_ms": sp_k1["library_ms"], "sp_plan": sp_k1["plan"]},
         {"name": "flash_decode (K2)", "route": "cuda",
          "source": "tpudist_torch/csrc/flash_decode.cu",
          "replaces": "tpudist/ops/flash_decode.py:62",

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the flash-attention backward of two trees on one NVIDIA GPU.
+"""Time the flash-attention kernels of two trees on one NVIDIA GPU.
 
     python3 scripts/flash_bwd_compare.py --parent DIR [--phases P,...]
         [--order pccp] [--out FILE] [--seed N]
@@ -8,15 +8,23 @@ DIR holds an unpacked older tree of this repository (``git archive``).
 Each run imports ``chip_smoke`` from one tree in a fresh subprocess, so
 that tree's ``tpudist_torch`` builds and runs its own kernels, and runs
 the named ``chip_smoke`` phases there (default ``kernels_bwd`` and
-``kernels_ring``; ``train`` and ``train_sp`` give the steps).  The trees
+``kernels_ring``; ``kernels`` gives K1 at the serve offsets; ``train``,
+``train_sp`` and ``serve`` give the steps and the prefill), or this
+script's own: ``k1_sp`` (K1 at train_sp's shape, B=1, S=8192, H=8,
+Hkv=2, D=64, beside SDPA's forward, which older trees' phases do not
+time) and ``prefill`` (one 7,680-token prompt admitted in one shot by
+the serve model's ServeLoop, on the host clock and under
+torch.profiler: device ms, K1's share).  The trees
 run in turns, ``--order`` naming them (p = parent, c = change, u = change
-with the backward's planner held to one split, so that the split's share
-of a gain shows; default parent, change, change, parent), so drift of the
-card shows as a difference between a tree's two runs.  Prints each run's
-phase lines, then one JSON summary: per timed case, each kernel's device
-ms in every run, the bound and SDPA's backward; per step phase, ms per
-step and the profiled attention ms.  ``--out`` writes the summary there
-as well.
+with the backward's planner held to one split, f = change with K1's
+planner held to one split, so that a split's share of a gain shows;
+default parent, change, change, parent), so drift of the card shows as a
+difference between a tree's two runs.  Prints each run's phase lines,
+then one JSON summary: per timed case, each kernel's device ms in every
+run (K1 at the serve offsets, the training shape and train_sp's shape;
+K3, K8, K4), the bound and SDPA's time; per step phase, ms per step and
+the profiled attention ms; for serve, prefill and decode tokens/s.
+``--out`` writes the summary there as well.
 """
 
 from __future__ import annotations
@@ -29,11 +37,72 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PHASES = {
+    "kernels": "chip_smoke.phase_kernels(torch, dev, {seed})",
     "kernels_bwd": "chip_smoke.phase_backward_kernels(torch, dev, {seed})",
     "kernels_ring": "chip_smoke.phase_ring_kernels(torch, dev, {seed})",
     "train": "chip_smoke.phase_train(torch, dev, {seed})",
     "train_sp": "chip_smoke.phase_train_sp(torch, dev, {seed})",
+    "serve": "chip_smoke.phase_serve(torch, dev, {seed})",
+    "k1_sp": "k1_sp(torch, dev, {seed})",
+    "prefill": "prefill(torch, dev, {seed})",
 }
+# this script's phases, defined in the runner (they use only what every
+# tree of the port has: _flash_forward, ServeLoop._admit, chip_smoke's
+# timing and model helpers)
+OWN_PHASES = r"""
+def k1_sp(torch, dev, seed):
+    import torch.nn.functional as F
+    from tpudist_torch.ops import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(seed + 13)
+    buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    flush = buf.zero_
+    B, S, H, HKV, D = 1, 8192, 8, 2, 64
+    q, k, v = (torch.randn(B, S, n, D, generator=g, device=dev).to(
+        torch.bfloat16) for n in (H, HKV, HKV))
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    pairs = B * H * S * (S + 1) // 2
+    bound = chip_smoke.bound(4 * (q.numel() + k.numel()) + B * H * S * 4,
+                             4.0 * pairs * D)
+    chip_smoke.emit({"phase": "k1_sp", "shape": [B, S, H, HKV, D],
+        "ms": chip_smoke.timed_ms(lambda: fa._flash_forward(q, k, v, True),
+                                  10, flush),
+        "sdpa_ms": chip_smoke.timed_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), 10, flush),
+        "bound_ms": bound[0], "bound_by": bound[1]})
+
+def prefill(torch, dev, seed):
+    import time
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from tpudist_torch.models.serving import Request, ServeLoop
+    from tpudist_torch.models.transformer import TransformerConfig
+    cfg = TransformerConfig(vocab_size=32000, num_layers=8, num_heads=8,
+                            num_kv_heads=2, embed_dim=512, max_seq_len=8192,
+                            compute_dtype=torch.bfloat16)
+    sd = chip_smoke.random_model(torch, cfg, dev, seed + 1).state_dict()
+    loop = ServeLoop(cfg, sd, num_slots=4, steps_per_sync=32,
+                     prefill_chunk=512, device=dev)
+    loop.chunked = False
+    prompt = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, 7680).astype(np.int32)
+    loop._admit(0, Request(prompt, 4))           # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop._admit(1, Request(prompt, 4))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop._admit(2, Request(prompt, 4))
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    device = sum(t for _, t in rows)
+    k1 = sum(t for key, t in rows if "flash_fwd" in key)
+    chip_smoke.emit({"phase": "prefill", "prompt": 7680, "chunk": 512,
+                     "wall_ms": wall, "device_ms": device, "k1_ms": k1,
+                     "device_busy_share": device / wall})
+"""
 RUNNER = r"""
 import sys
 sys.path.insert(0, {tree!r})
@@ -42,6 +111,7 @@ import chip_smoke
 import tpudist_torch
 assert tpudist_torch.__file__.startswith({tree!r}), tpudist_torch.__file__
 dev = torch.device("cuda", 0)
+{own}
 {patch}
 {calls}
 """
@@ -50,16 +120,22 @@ UNSPLIT = """
 from tpudist_torch.ops import flash_attention as fa
 fa._bwd_plan_for = lambda q, k, **kw: fa.BwdPlan(1, 1 << 30, 1, 1 << 30)
 """
+# f: every K1 call takes one split, its walk whole
+UNSPLIT_FWD = """
+from tpudist_torch.ops import flash_attention as fa
+fa._fwd_plan_for = lambda q, k, **kw: fa.FwdPlan(1, 1 << 30)
+"""
+PATCHES = {"u": UNSPLIT, "f": UNSPLIT_FWD}
 
 
 def run_tree(tree: Path, phases: list[str], seed: int,
-             unsplit: bool = False) -> dict:
-    """Run the phases in a subprocess importing ``tree``; return
-    ``{phase: its JSON line}``."""
+             patch: str = "") -> dict:
+    """Run the phases in a subprocess importing ``tree`` (after ``patch``);
+    return ``{phase: its JSON line}``."""
     calls = "\n".join(PHASES[p].format(seed=seed) for p in phases)
     res = subprocess.run(
         [sys.executable, "-c", RUNNER.format(
-            tree=str(tree), calls=calls, patch=UNSPLIT if unsplit else "")],
+            tree=str(tree), calls=calls, own=OWN_PHASES, patch=patch)],
         capture_output=True, text=True, timeout=1800, cwd=tree)
     if res.returncode != 0:
         raise RuntimeError(f"{tree}: runner failed\n{res.stderr[-4000:]}")
@@ -73,9 +149,24 @@ def run_tree(tree: Path, phases: list[str], seed: int,
 
 
 def kernel_times(lines: dict) -> dict:
-    """``{case: {kernel: ms}}`` from the kernels_bwd and kernels_ring
-    lines, with the bound and SDPA's backward beside them."""
+    """``{case: {kernel: ms}}`` from the kernels, kernels_bwd and
+    kernels_ring lines, with the bound, SDPA's time and the plan beside
+    them."""
     out = {}
+    for row in lines.get("kernels", {}).get("K1", []):
+        out[f"serve/q_offset_{row['q_offset']}"] = {
+            "K1": row["ms"], "K1_bound": row["bound_ms"],
+            "sdpa": row["library_ms"], "plan": row.get("plan")}
+    sp = lines.get("k1_sp")
+    if sp:
+        out["train_sp/K1"] = {"K1": sp["ms"], "K1_bound": sp["bound_ms"],
+                              "sdpa": sp["sdpa_ms"]}
+    k1_train = lines.get("kernels_bwd", {}).get("K1_train")
+    if k1_train:
+        out["train/K1"] = {"K1": k1_train["ms"],
+                           "K1_bound": k1_train["bound_ms"],
+                           "sdpa": k1_train["library_ms"],
+                           "plan": k1_train.get("plan")}
     for row in lines.get("kernels_bwd", {}).get("cases", []):
         out[f"bwd/{row['case']}"] = {
             "K3": row["K3"]["ms"], "K4": row["K4"]["ms"],
@@ -91,6 +182,11 @@ def kernel_times(lines: dict) -> dict:
             t["K4"], t["K4_bound"] = row["K4"]["ms"], row["K4"]["bound_ms"]
         if row.get("library_ms") is not None:
             t["sdpa_bwd"] = row["library_ms"]
+        if "ms" in row["K1"]:
+            t.update({"K1": row["K1"]["ms"],
+                      "K1_bound": row["K1"]["bound_ms"],
+                      "K1_sdpa": row["K1"]["library_ms"],
+                      "K1_plan": row["K1"]["plan"]})
         out[f"ring/{row['case']}"] = t
     return out
 
@@ -108,6 +204,15 @@ def step_times(lines: dict) -> dict:
                               if f.startswith("attention")),
                           "dense_flash_ms_per_step":
                               doc.get("dense_flash_ms_per_step")}
+    doc = lines.get("prefill")
+    if doc:
+        out["prefill"] = {k: doc[k] for k in (
+            "wall_ms", "device_ms", "k1_ms", "device_busy_share")}
+    doc = lines.get("serve")
+    if doc:
+        out["serve"] = {k: doc[k] for k in (
+            "wall_s", "prefill_s", "prefill_tokens_per_s",
+            "decode_tokens_per_s", "decode_ms_per_tick")}
     return out
 
 
@@ -120,10 +225,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     phases = args.phases.split(",")
-    trees = {"p": Path(args.parent).resolve(), "c": ROOT, "u": ROOT}
+    trees = {"p": Path(args.parent).resolve(), "c": ROOT, "u": ROOT,
+             "f": ROOT}
     runs = []
     for i, key in enumerate(args.order):
-        lines = run_tree(trees[key], phases, args.seed, unsplit=key == "u")
+        lines = run_tree(trees[key], phases, args.seed,
+                         patch=PATCHES.get(key, ""))
         for doc in lines.values():
             print(json.dumps({"run": i, "tree": key, **doc}), flush=True)
         runs.append((key, lines))

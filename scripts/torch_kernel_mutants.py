@@ -3,7 +3,9 @@
 
     python3 scripts/torch_kernel_mutants.py [--out DIR] [--seed N]
 
-For each mutant — K3 with its first live K/V tile's contribution dropped,
+For each mutant — K1 with its walk's first K/V tile dropped, K1's split
+merge leaving out each row's last non-empty split, K3 with its first
+live K/V tile's contribution dropped,
 K4 with its first live q-tile's dropped (every group member's), the
 split walks' sum (K3, K8 and K4) leaving out each tile's last non-empty
 split, K5 reading each key's page-table
@@ -15,7 +17,7 @@ copies
 ``tpudist_torch/`` into ``DIR/<mutant>/`` (default ``_scratch/mutants``,
 git-ignored), breaks the kernel source there, and runs the
 ``chip_smoke`` phase that holds that kernel against its plain version
-(``phase_backward_kernels``, ``phase_paged_kernels``,
+(``phase_kernels``, ``phase_backward_kernels``, ``phase_paged_kernels``,
 ``phase_moe_kernels``, ``phase_ring_kernels``, or for K9 and K10
 ``phase_gn_kernels`` and gn_sites' check against the closed form,
 ``gn_sites_check``) against the broken copy in a subprocess, with
@@ -36,8 +38,11 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+FWD = "csrc/flash_attention.cu"
 BWD, DEC = "csrc/flash_attention_bwd.cu", "csrc/flash_decode.cu"
 GMM, GN = "csrc/moe_gmm.cu", "csrc/group_norm.cu"
+K1_FIRST = "      softmax_tile(s, rows, a, off, q0, w.lo * kBK, t4, sl2);\n"
+K1_MERGE_END = "(w.hi + a.chunk - 1) / a.chunk : first;"
 K3_STEP = ("    const int kt = w.lo + i * kBK;\n"
            "    uint8_t* Ks = kv_stage(i);\n")
 K4_STEP = "    const int qt = w.lo + (i / group) * BQ;\n"
@@ -50,6 +55,9 @@ K9_VAR = "const float var = a2 / n - mean * mean;"
 K10_MASK = "(pre > 0.f ? dy : 0.f)"
 # the chip_smoke phase that holds the kernel, and the expression (over its
 # return value `out`) giving {case: {kernel: tol_ratio}}
+FWD_RUN = ("k1, _ = chip_smoke.phase_kernels(torch, dev, {seed})",
+           '{r["q_offset"]: {"tol_ratio": r["tol_ratio"], '
+           '"lse_err": r["lse_err"], "plan": r["plan"]} for r in k1}')
 BWD_RUN = ("rows, _ = chip_smoke.phase_backward_kernels(torch, dev, {seed})",
            '{r["case"]: {"K3": r["K3"]["tol_ratio"], '
            '"K4": r["K4"]["tol_ratio"]} for r in rows}')
@@ -69,6 +77,14 @@ GN_RUN = ("rows = chip_smoke.phase_gn_kernels(torch, dev, {seed})\n"
           'for k in ("y_ratio", "beyond_share", "grad_ratio_held")} '
           'for m in ("relu", "add_relu", "plain")}}')
 MUTANTS = {
+    "K1_drop_first_k_tile": (
+        FWD, FWD_RUN, K1_FIRST,
+        "      if (w.lo == fwd_walk(a, off, q0).lo)\n"
+        "        for (int j = 0; j < kBK / 2; ++j) s[j] = -INFINITY;\n"
+        + K1_FIRST),
+    "K1_merge_drops_last_split": (
+        FWD, FWD_RUN, K1_MERGE_END,
+        "(w.hi + a.chunk - 1) / a.chunk - 1 : first;"),
     "K3_drop_first_k_tile": (BWD, BWD_RUN, K3_STEP,
                              "    if (i == 0) continue;\n" + K3_STEP),
     "K4_drop_first_q_tile": (BWD, BWD_RUN, K4_STEP,

@@ -78,18 +78,17 @@
 
 #include <algorithm>
 
-#include "hopper.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
 using namespace tpudist;
 using namespace tpudist::sm90;
+using namespace tpudist::flash;
 
 constexpr int kRows = 64;     // K3/K8: query rows per CTA; K4: keys per CTA
 constexpr int kBK = 64;       // K3/K8: keys per K/V tile
-constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;    // shared buffers of the streamed tiles
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
   const void* q;
@@ -120,66 +119,11 @@ struct BwdArgs {
   int splits, chunk;   // CTAs sharing one output tile's walk; steps each
 };
 
-// f32 tiles: rows of D + 4 floats (the FMA products read row-per-lane
-// without bank conflicts); 16-byte chunk c of row r at r * (D + 4) * 4 +
-// c * 16.
-template <int ROWS, int D>
-struct PadTile {
-  static constexpr int kLd = D + 4;
-  static constexpr int kBytes = ROWS * kLd * 4;
-  static __device__ __forceinline__ uint32_t offset(int r, int c) {
-    return r * kLd * 4 + c * 16;
-  }
-};
-
-template <typename T, int ROWS, int D>
-using TileOf = typename std::conditional<std::is_same<T, float>::value,
-                                         PadTile<ROWS, D>,
-                                         SwTile<ROWS, D>>::type;
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// Start the copy of rows row0 .. row0 + ROWS - 1 of a [*, D] matrix (row r
-// at src + r * stride elements) into a tile; rows at or past `limit` are
-// zero-filled.  The caller commits the group.
-template <typename T, int ROWS, int D>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const T* src,
-                                          long long stride, int row0,
-                                          int limit) {
-  using L = TileOf<T, ROWS, D>;
-  constexpr int kVec = D * (int)sizeof(T) / 16;  // 16-byte chunks per row
-  constexpr int kPer = 16 / (int)sizeof(T);
-  const uint32_t base = smem_u32(dst);
-  for (int i = threadIdx.x; i < ROWS * kVec; i += kThreads) {
-    const int r = i / kVec, c = i % kVec;
-    const bool ok = row0 + r < limit;
-    cp_async16(base + L::offset(r, c),
-               src + (ok ? (long long)(row0 + r) * stride : 0) + c * kPer,
-               ok);
-  }
-}
-
-// 2^x on the SFU (ex2.approx, relative error ~2^-22; flushes results
-// below 2^-126 to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// The CTAs an SM must hold (a register cap for ptxas): N for bf16 at D <=
-// 64, none otherwise.  K3/K8 at 4 (128 registers, 32 bytes spilled) ran
-// 13% faster than at 3 on an H100; K4 capped for 3 (168 registers, 140
-// bytes spilled) ran 10% slower at the training shape and 9% faster at
-// B=1, S=8192, so it keeps its 199 registers (scripts/flash_bwd_compare.py).
-template <typename T, int D, int N>
-struct MinCtas {
-  static constexpr int value =
-      !std::is_same<T, float>::value && D <= 64 ? N : 1;
-};
+// MinCtas (flash_common.cuh): K3/K8 at 4 CTAs an SM (128 registers, 32
+// bytes spilled) ran 13% faster than at 3 on an H100; K4 capped for 3
+// (168 registers, 140 bytes spilled) ran 10% slower at the training
+// shape and 9% faster at B=1, S=8192, so it keeps its 199 registers
+// (scripts/flash_bwd_compare.py).
 
 // Whether key position kp is visible to query position qp.
 __device__ __forceinline__ bool visible(const BwdArgs& a, int qp, int kp) {
@@ -248,45 +192,6 @@ __device__ __forceinline__ void products_f32(float (&s)[NT * 4],
   }
 }
 
-// f32: acc (this warp's 16 rows x D, accumulator layout) += X·Y with X
-// staged in shared memory (row stride xld, KN columns) and Y a PadTile of
-// KN rows.
-template <int KN, int D>
-__device__ __forceinline__ void acc_xy_f32(float (&acc)[D / 2],
-                                           const float* xs, int xld,
-                                           const float* y, int r0, int t4) {
-  constexpr int ld = D + 4;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + t4 * 2;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    for (int kk = 0; kk < KN; ++kk) {
-      const float p0 = xs[r0 * xld + kk], p1 = xs[(r0 + 8) * xld + kk];
-      const float y0 = y[kk * ld + c], y1 = y[kk * ld + c + 1];
-      a0 = fmaf(p0, y0, a0);
-      a1 = fmaf(p0, y1, a1);
-      a2 = fmaf(p1, y0, a2);
-      a3 = fmaf(p1, y1, a3);
-    }
-    acc[4 * n] += a0;
-    acc[4 * n + 1] += a1;
-    acc[4 * n + 2] += a2;
-    acc[4 * n + 3] += a3;
-  }
-}
-
-// f32: stage this thread's accumulator-layout values of x (NT 8-column
-// groups) into rows r0, r0 + 8 of xs (row stride xld).
-template <int NT>
-__device__ __forceinline__ void stage_f32(float* xs, int xld,
-                                          const float (&x)[NT * 4], int r0,
-                                          int t4) {
-#pragma unroll
-  for (int j = 0; j < NT * 4; ++j)
-    xs[((j & 3) < 2 ? r0 : r0 + 8) * xld + (j >> 2) * 8 + t4 * 2 + (j & 1)] =
-        x[j];
-}
-
 // Write a 64-row accumulator tile (rows row0 + r of a [*, D] output at
 // base + row * stride, rows below `limit`) times `scale`, rounded to T.
 template <typename T, int D>
@@ -302,22 +207,6 @@ __device__ __forceinline__ void store_rows(T* base, long long stride,
       p[0] = from_f32<T>(acc[j] * scale);
       p[1] = from_f32<T>(acc[j + 1] * scale);
     }
-  }
-}
-
-// The same tile as an unscaled f32 partial of a [*, D] contiguous
-// workspace slice.
-template <int D>
-__device__ __forceinline__ void store_part(float* base,
-                                           const float (&acc)[D / 2],
-                                           int row0, int limit, int r0,
-                                           int t4) {
-#pragma unroll
-  for (int j = 0; j < D / 2; j += 2) {
-    const int r = row0 + ((j & 3) < 2 ? r0 : r0 + 8);
-    if (r < limit)
-      *reinterpret_cast<float2*>(base + (long long)r * D + (j >> 2) * 8 +
-                                 t4 * 2) = make_float2(acc[j], acc[j + 1]);
   }
 }
 

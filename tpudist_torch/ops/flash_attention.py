@@ -23,9 +23,11 @@ There is no fallback from the first to the second.
 
 The JAX functions' ``block_q``/``block_k``/``interpret`` arguments are not
 carried over: tiles are the kernels' own choice (64 query rows or keys).
-The backward's walks over key tiles (K3, K8) or query tiles (K4) are cut
-over several CTAs by a host planner, :func:`_bwd_plan`, from the shape,
-offsets, window and the card's SM count.
+Long walks over key tiles (K1, K3, K8) or query tiles (K4) are cut over
+several CTAs by host planners from the shape and the card's SM count:
+:func:`_fwd_plan` for K1 (never from Sq or the offsets, so a query row's
+result does not depend on the prefill chunk it arrives in) and
+:func:`_bwd_plan` for the backward.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ FLASH_FORWARD = _cuda.Kernel(
     [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
     + [_c_ll] * 12
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 # K3 (dQ and Δ), K8 (dQ from a given Δ) and K4 (dK, dV) share one argument
 # list: dtype; q k v dO O lse delta dQ dK dV; B Sq Sk H Hkv D; the (b, s, h)
 # strides of q k v dO O dQ dK dV; q/k offsets, causal, window; scale; the
@@ -89,13 +92,12 @@ def _keep_mask(sq: int, sk: int, device, q_offset, k_offset, window):
     return keep
 
 
-def _flash_forward_plain(q, k, v, causal=True, *, q_offset=0, k_offset=0,
-                         window=None):
-    """The plain version: the whole ``[B, H, Sq, Sk]`` score matrix at
-    once, with the kernel's numerics — f32 scores, masked entries ``-inf``,
-    the running max floored at ``-1e30`` (a fully masked row gives zeros
-    and an LSE of about ``-1e30``), probabilities rounded to the value
-    dtype before ``P·V``, f32 accumulation."""
+def _forward_partial_plain(q, k, v, causal, q_offset, k_offset, window):
+    """``(o, m, l)``: the unnormalised f32 output ``[B, Sq, H, D]``, the
+    row max of the scaled scores (floored at ``-1e30``) and the row sum of
+    ``exp(s - m)`` (``[B, H, Sq]`` each), over the whole ``[B, H, Sq, Sk]``
+    score matrix at once: masked scores ``-inf``, probabilities rounded to
+    the value dtype before ``P·V``, f32 accumulation."""
     b, sq, h, d = q.shape
     sk, h_kv = k.shape[1], k.shape[2]
     group = h // h_kv
@@ -107,10 +109,54 @@ def _flash_forward_plain(q, k, v, causal=True, *, q_offset=0, k_offset=0,
         s = s.masked_fill(~keep, float("-inf"))
     m = s.amax(dim=-1, keepdim=True).clamp_min(_NEG_BIG)
     p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vf)
-    out = (o / l.permute(0, 2, 1, 3)).to(q.dtype)
-    lse = (m + torch.log(l))[..., 0]
+    return o, m[..., 0], p.sum(dim=-1)
+
+
+def _flash_forward_plain(q, k, v, causal=True, *, q_offset=0, k_offset=0,
+                         window=None):
+    """The plain version: the whole ``[B, H, Sq, Sk]`` score matrix at
+    once, with the kernel's numerics — f32 scores, masked entries ``-inf``,
+    the running max floored at ``-1e30`` (a fully masked row gives zeros
+    and an LSE of about ``-1e30``), probabilities rounded to the value
+    dtype before ``P·V``, f32 accumulation."""
+    o, m, l = _forward_partial_plain(q, k, v, causal, q_offset, k_offset,
+                                     window)
+    l = l.clamp_min(1e-30)
+    out = (o / l.transpose(1, 2)[..., None]).to(q.dtype)
+    return out, m + torch.log(l)
+
+
+def _flash_forward_split_plain(q, k, v, causal=True, *, q_offset=0,
+                               k_offset=0, window=None, plan):
+    """K1's split walk as plain PyTorch: split s of ``plan`` takes the keys
+    ``[s·chunk·64, (s+1)·chunk·64)`` (absolute key positions), its partial
+    ``(o, m, l)`` over that slice at the slice's offset, and the partials
+    are merged in split order by the log-sum-exp identity, as
+    ``flash_fwd_merge_kernel`` merges them: ``M = max m_s``, ``L = Σ l_s
+    e^(m_s − M)``, ``O = Σ o_s e^(m_s − M) / L``, ``LSE = M + log L``.  A
+    split with no live key for a row (``m_s = −1e30``, ``l_s = 0``) adds
+    nothing; a row with none gives O = 0 and LSE = −1e30.  One split is
+    :func:`_flash_forward_plain`."""
+    if plan.splits == 1:
+        return _flash_forward_plain(q, k, v, causal, q_offset=q_offset,
+                                    k_offset=k_offset, window=window)
+    sk, width = k.shape[1], plan.chunk * _FWD_BK
+    parts = [_forward_partial_plain(q, k[:, lo:lo + width],
+                                    v[:, lo:lo + width], causal, q_offset,
+                                    k_offset + lo, window)
+             for lo in range(0, sk, width)]
+    big_m = torch.stack([m for _, m, _ in parts]).amax(0)
+    big_l = torch.zeros_like(big_m)
+    o = torch.zeros(parts[0][0].shape, device=q.device)
+    for o_s, m_s, l_s in parts:
+        wt = torch.exp(m_s - big_m)
+        big_l = big_l + l_s * wt
+        o = o + o_s * wt.transpose(1, 2)[..., None]
+    live = big_l > 0
+    out = (o / big_l.clamp_min(1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+    lse = torch.where(live, big_m + torch.log(big_l.clamp_min(1e-30)),
+                      torch.full_like(big_m, _NEG_BIG))
     return out, lse
 
 
@@ -137,6 +183,18 @@ def _flash_forward(q, k, v, causal=True, *, q_offset=0, k_offset=0,
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if sq == 0 or b == 0:
         return out, lse
+    _fwd_launch(q, k, v, out, lse, causal=causal, q_offset=q_offset,
+                k_offset=k_offset, window=window,
+                plan=_fwd_plan_for(q, k, causal=causal, window=window))
+    return out, lse
+
+
+def _fwd_launch(q, k, v, out, lse, *, causal, q_offset, k_offset, window,
+                plan) -> None:
+    """One K1 call under ``plan``: with ``plan.splits > 1`` the partials'
+    workspace (``torch.empty``; the merge runs inside the same call)."""
+    b, sq, h, d = q.shape
+    sk, h_kv = k.shape[1], k.shape[2]
     offs = []
     for name, off in (("q_offset", q_offset), ("k_offset", k_offset)):
         if isinstance(off, torch.Tensor):
@@ -146,6 +204,10 @@ def _flash_forward(q, k, v, causal=True, *, q_offset=0, k_offset=0,
             offs += [off.reshape(()).to(torch.int32), 0]
         else:
             offs += [None, int(off)]
+    parts = [None, None]
+    if plan.splits > 1:
+        parts = [torch.empty((plan.splits, b, h, sq, n), dtype=torch.float32,
+                             device=q.device) for n in (d, 2)]
     FLASH_FORWARD(
         _DTYPES[q.dtype], _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v),
         _cuda.ptr(out), _cuda.ptr(lse), b, sq, sk, h, h_kv, d,
@@ -153,8 +215,8 @@ def _flash_forward(q, k, v, causal=True, *, q_offset=0, k_offset=0,
         *out.stride()[:3],
         _cuda.ptr(offs[0]), offs[1], _cuda.ptr(offs[2]), offs[3],
         int(bool(causal)), int(window) if (causal and window) else 0,
-        d ** -0.5, _cuda.stream_handle(q.device))
-    return out, lse
+        d ** -0.5, *(_cuda.ptr(t) for t in parts), plan.splits, plan.chunk,
+        _cuda.stream_handle(q.device))
 
 
 def _check_inputs(fn: str, q, tensors, k, v) -> None:
@@ -375,6 +437,53 @@ def _bwd_plan_for(q, k, *, causal, q_offset=0, k_offset=0,
                      k_offset=int(k_offset),
                      window=int(window) if (causal and window) else 0,
                      sm_count=_sm_count(q.device.index or 0))
+
+
+# K1 walks a 64-row q-tile's 64-key tiles (csrc/flash_attention.cu)
+_FWD_BK = 64
+
+
+class FwdPlan(NamedTuple):
+    """K1's split: ``splits`` CTAs share each q-tile's key walk, split s
+    taking the key tiles ``[s·chunk, (s+1)·chunk)`` in absolute key
+    positions (one split: the whole walk)."""
+    splits: int
+    chunk: int
+
+
+@functools.lru_cache(maxsize=512)
+def _fwd_plan(b, sk, h, *, causal, window, sm_count,
+              steps=_SPLIT_STEPS) -> FwdPlan:
+    """K1's split plan, from Sk, the window, the batch and query head
+    counts and the card's SM count — never from Sq or the offsets, so that
+    a query row's keys fall into the same splits, merged in the same
+    order, whatever prefill chunk the row arrives in.  Not knowing Sq, it
+    plans for the smallest call, one q-tile per (batch, head), whose walk
+    is bounded by Sk (or the window's band): the backward's fair-share rule
+    (:func:`_split`) then splits a walk longer than ``steps`` tiles when
+    the B·H CTAs of one q-tile row leave the card short (B·H < 1.5 × SMs;
+    a long query call fills it anyway, and then pays only the partials'
+    traffic)."""
+    window = int(window) if (causal and window) else 0
+    tiles = max(1, -(-sk // _FWD_BK))
+    walk = tiles
+    if window:   # a q-tile's band spans 63 + window keys
+        walk = min(tiles, -(-(window + _FWD_BK - 1) // _FWD_BK) + 1)
+    splits, chunk = _split([walk], b * h, sm_count, steps)
+    if splits == 1:
+        return FwdPlan(1, tiles)
+    return FwdPlan(-(-tiles // chunk), chunk)
+
+
+def _fwd_plan_for(q, k, *, causal, window=None, sm_count=None) -> FwdPlan:
+    """The plan K1 takes on these inputs (``sm_count``: the card's by
+    default).  It takes no query length and no offsets."""
+    if sm_count is None:
+        sm_count = _sm_count(q.device.index or 0)
+    return _fwd_plan(q.shape[0], k.shape[1], q.shape[2],
+                     causal=bool(causal),
+                     window=int(window) if (causal and window) else 0,
+                     sm_count=sm_count)
 
 
 def _bwd_launch(kernel, q, k, v, dout, out, lse, delta, dq, dk, dv, *,
