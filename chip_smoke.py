@@ -21,6 +21,8 @@ Phases, each printing one JSON line and each fatal on failure:
    whose page table is a random permutation; bit-identical to K2 over the
    gathered view) and K6 (int8 decode, per-row and scalar length) against
    their plain versions at the same decode shapes, timed the same way;
+   for K2 (in kernels), K5 and K6 the split pass's and the merge's device
+   ms apart, from torch.profiler;
 5. parity  — a full-width 2-layer f32 model: ServeLoop completions (per-row
    and side-buffer decode) equal each request's own greedy_generate rollout
    (scalar decode), both through flash-prefill; cached-prefill logits on
@@ -31,8 +33,9 @@ Phases, each printing one JSON line and each fatal on failure:
    --seed): 8 mixed-length requests through a 4-slot ServeLoop, with
    kernel launch counts reset just before and read just after;
 8. profile — one 32-tick decode segment of the serve model on the host
-   clock and under torch.profiler (device busy share, the kernels that
-   take the device's time), on the dense cache and (profile_paged) on a
+   clock and under torch.profiler (device busy share, device time by
+   kernel family, the kernels that take the device's time), on the
+   dense cache and (profile_paged) on a
    full-capacity pool of 128-token blocks;
 9. serve_paged — bench.py's kv_paging cell: the serve model, dense and
    paged (block 128, a 72-block pool), 6 requests of 512-2048 prompt
@@ -63,7 +66,10 @@ Phases, each printing one JSON line and each fatal on failure:
    bf16 at bench.py's bench_moe layer (T=4096, d=512, f=2048, E=8, top-2,
    block 128), the training shape (T=16,384), skewed routing (every
    token on experts 0 and 1) and block 16, each element within
-   1e-2 * max|plain| + 2e-2 * |plain|, with its time beside the bound,
+   1e-2 * max|plain| + 2e-2 * |plain|, a second call bitwise equal, the
+   trailing pad blocks' rows exactly zero, the path each case took
+   (wgmma or mma.sync), with its time beside the function's bound, the
+   design's own (the wgmma path computes h once per half of d),
    torch._grouped_mm's and bench_moe's equal-FLOP dense twin;
 16. train_moe_parity — a full-width 2-layer f32 MoE model trained 3 Adam
    steps with dispatch="fused" (K7, the ragged remat backward) and
@@ -282,6 +288,33 @@ def timed_ms(fn, iters: int, flush) -> float:
     return ms
 
 
+def decode_split_ms(fn, iters: int, flush) -> dict:
+    """Device ms of a decode call's two kernels apart — the split pass
+    (``decode_partial_kernel``) and the merge (``decode_merge_kernel``) —
+    as torch.profiler's mean over ``iters`` calls, each after an L2
+    flush."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for key, name in (("partial_ms", "decode_partial_kernel"),
+                      ("merge_ms", "decode_merge_kernel")):
+        rows = [e for e in prof.key_averages() if name in e.key]
+        check(bool(rows) and sum(e.count for e in rows) == iters,
+              f"the profile shows no {name} per call: "
+              f"{[(e.key[:60], e.count) for e in rows]}")
+        out[key] = sum(e.self_device_time_total for e in rows) / iters / 1e3
+    return out
+
+
 def compare(o, lse, po, plse) -> tuple[float, float, float]:
     """(max |O| error, max |LSE| error, worst ratio of an O element's error
     to its limit O_ATOL + O_RTOL * |plain|); the kernel agrees when the
@@ -413,6 +446,8 @@ def phase_kernels(torch, dev, seed):
                 q, kc, vc, packed_kv_heads=HKV, **kw), 10, flush),
             "library_ms": timed_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=m, enable_gqa=True), 50, flush),
+            **decode_split_ms(lambda: fd.flash_decode(
+                q, kc, vc, packed_kv_heads=HKV, **kw), 20, flush),
             "bound_ms": b_ms, "bound_by": b_by})
     del flush_buf
     emit({"phase": "kernels", "K1": k1, "K1_chunk_invariance": chunk_inv,
@@ -519,6 +554,8 @@ def phase_paged_kernels(torch, dev, seed):
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), 50, flush),
             "library": "SDPA over the gathered view with a mask (gather "
                        "not timed)",
+            **decode_split_ms(lambda: fd.paged_flash_decode(
+                q, kp, vp, table, lens, **kw), 20, flush),
             "bound_ms": b_ms, "bound_by": b_by})
         del kp, vp, kg, vg, keys, vals
     k6 = []
@@ -547,6 +584,8 @@ def phase_paged_kernels(torch, dev, seed):
             "library_ms": None,
             "library": "none: PyTorch has no single call for attention "
                        "over an int8 cache with per-token scales",
+            **decode_split_ms(lambda: fd.flash_decode_q8(
+                q, kq, ks, vq, vs, cache_len), 20, flush),
             "bound_ms": b_ms, "bound_by": b_by})
     del flush_buf, kq, vq
     torch.cuda.empty_cache()
@@ -993,8 +1032,12 @@ def phase_profile(torch, loop, seed, name="profile"):
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     check(device_ms > 0, f"{name}: the profiler saw no device time")
+    families = {}
+    for k, t, _ in rows:
+        families[kernel_family(k)] = families.get(kernel_family(k), 0.0) + t
     emit({"phase": name, "ticks": 32, "wall_ms": wall_ms,
           "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+          "by_family_ms": families,
           "top": [{"kernel": k[:80], "ms": ms, "count": n}
                   for k, ms, n in rows[:12]]})
 
@@ -1208,8 +1251,11 @@ def phase_train_parity(torch, dev, seed):
 
 
 def kernel_family(name: str) -> str:
-    """The train profile's grouping of device kernels by name."""
+    """The profiles' grouping of device kernels by name."""
     for family, keys in (("MoE grouped GEMM (K7)", ("moe_gmm",)),
+                         ("decode split pass (K2, K5, K6)",
+                          ("decode_partial",)),
+                         ("decode merge (K2, K5, K6)", ("decode_merge",)),
                          ("attention (K1, K3, K4, K8)", ("flash_",)),
                          ("GEMM", ("nvjet", "gemm", "cutlass", "xmma")),
                          ("optimizer", ("multi_tensor", "adam")),
@@ -1316,13 +1362,18 @@ def phase_moe_kernels(torch, dev, seed):
     """K7 against its plain version (bf16) at bench.py's bench_moe layer
     (T=4096, d=512, f=2048, E=8, top-2, block 128, routing from random
     gates), the training shape (T=16,384), skewed routing (every token on
-    experts 0 and 1, gate 0.5) and block 16.  The bound counts the live
-    slots N = T*k only (padding is waste, not work): 4*N*d*f FLOPs, and
-    the rows read and written, both weight stacks and the gate.  Beside
-    it, torch._grouped_mm for the two products with the GELU between
-    (over the same padded groups, a yardstick only), and bench_moe's
-    equal-FLOP dense twin against the port's whole fused MoEMLP layer.
-    Returns ``(rows, bench_layer)``."""
+    experts 0 and 1, gate 0.5) and block 16: a second call bitwise equal
+    to the first, the rows of the trailing pad blocks (past the groups'
+    rows, which K7 is told on the device) exactly zero, and the path each
+    case took (wgmma or mma.sync).  The bound counts the live slots N =
+    T*k only (padding is waste, not work): 4*N*d*f FLOPs, and the rows
+    read and written, both weight stacks and the gate; the design's own
+    bound counts the FLOPs the path does on those slots (the wgmma path's
+    first product once per 256-column half of d: 6*N*d*f at d = 512).
+    Beside it, torch._grouped_mm for the two products with the GELU
+    between (over the same padded groups, a yardstick only), and
+    bench_moe's equal-FLOP dense twin against the port's whole fused
+    MoEMLP layer.  Returns ``(rows, bench_layer)``."""
     import torch.nn.functional as F
 
     from tpudist_torch.models.moe import MoEConfig, MoEMLP, _gate_choices
@@ -1354,9 +1405,10 @@ def phase_moe_kernels(torch, dev, seed):
             gates = torch.softmax(torch.randn(T, E, generator=g, device=dev),
                                   -1)
             tv, ti, _ = _gate_choices(gates, K)
-        _, xs, gate, be = md._fused_layout(x, ti, tv, E, bn)
+        _, xs, gate, be, live = md._fused_layout(x, ti, tv, E, bn)
         runs = md._expert_runs(be)
-        ys = md._gmm(be, xs, gate, w_up, w_down, bn)
+        ys = md._gmm(be, xs, gate, w_up, w_down, bn, live)
+        again = md._gmm(be, xs, gate, w_up, w_down, bn, live)
         want = md._gmm_plain(be, xs, gate, w_up, w_down, bn, runs=runs)
         torch.cuda.synchronize()
         diff = (ys.float() - want.float()).abs()
@@ -1366,14 +1418,27 @@ def phase_moe_kernels(torch, dev, seed):
         check(ratio <= 1.0 and bool(torch.isfinite(ys).all()),
               f"K7 disagrees with its plain version ({case}): max error "
               f"{diff.max().item()} (ratio to limit {ratio})")
+        repeat = bool(torch.equal(ys, again))
+        check(repeat, f"K7 ({case}): a second call on the same inputs gave "
+              f"other bits")
+        n_live = int(live)
+        pad_zero = bool((ys[n_live:] == 0).all())
+        check(pad_zero, f"K7 ({case}): the {xs.shape[0] - n_live} rows of "
+              f"the trailing pad blocks are not all zero")
+        variant = md.gmm_variant(bf, D, FF, bn)
         n = T * K
         b_ms, b_by = bound(2 * n * D * 2 + 2 * E * D * FF * 2 + n * 4,
                            4.0 * n * D * FF)
+        halves = D // 256 if variant == "wgmma" else 1
+        design_ms, _ = bound(0, 2.0 * n * D * FF * (halves + 1))
         row = {"case": case, "tokens": T, "block_rows": bn,
-               "np_pad": xs.shape[0], "max_abs_err": diff.max().item(),
-               "tol_ratio": ratio,
+               "np_pad": xs.shape[0], "live_rows": n_live,
+               "variant": variant, "max_abs_err": diff.max().item(),
+               "tol_ratio": ratio, "bitwise_repeat": repeat,
+               "pad_rows_zero": pad_zero,
                "ms": timed_ms(lambda: md._gmm(be, xs, gate, w_up, w_down,
-                                              bn), 10, flush),
+                                              bn, live), 10, flush),
+               "design_bound_ms": design_ms,
                "plain_ms": timed_ms(lambda: md._gmm_plain(
                    be, xs, gate, w_up, w_down, bn, runs=runs), 2, flush),
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -1427,7 +1492,7 @@ def phase_moe_kernels(torch, dev, seed):
                            "dense_twin_ms": dense_ms,
                            "moe_fused_dispatch_overhead": fused_ms / dense_ms}
             del layer, w1, w2
-        del x, xs, gate, be, ys, want
+        del x, xs, gate, be, ys, again, want
     del flush_buf, w_up, w_down
     torch.cuda.empty_cache()
     emit({"phase": "kernels_moe", "K7": rows, "bench_moe_layer": bench_layer,
@@ -3124,7 +3189,8 @@ def main(argv=None) -> int:
          "max_abs_err": max(r["max_abs_err"] for r in k2),
          "tol_ratio": max(r["tol_ratio"] for r in k2),
          **{k: main_k2[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")}},
+                                    "bound_by", "library_ms", "partial_ms",
+                                    "merge_ms")}},
     ]
     main_bwd = next(r for r in bwd_rows if r["case"] == "train")
     for key, name, src_line in (
@@ -3175,7 +3241,8 @@ def main(argv=None) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tol_ratio": max(r["tol_ratio"] for r in rows),
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}})
+                                        "bound_by", "library_ms",
+                                        "partial_ms", "merge_ms")}})
     main_k7 = next(r for r in moe_rows if r["case"] == "train")
     kernels.append({
         "name": "moe_gmm (K7)", "route": "cuda",
@@ -3185,7 +3252,8 @@ def main(argv=None) -> int:
         "max_abs_err": max(r["max_abs_err"] for r in moe_rows),
         "tol_ratio": max(r["tol_ratio"] for r in moe_rows),
         **{k: main_k7[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}})
+                                   "library_ms", "design_bound_ms",
+                                   "variant")}})
     main_gn = next(r for r in gn_rows if r["case"] == "1024x256_add_relu")
     for key, name, line in (("K9", "group_norm_fwd (K9)", 126),
                             ("K10", "group_norm_bwd (K10)", 153)):

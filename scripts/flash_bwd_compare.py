@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the flash-attention kernels of two trees on one NVIDIA GPU.
+"""Time the port's kernels of two trees on one NVIDIA GPU, in turns.
 
     python3 scripts/flash_bwd_compare.py --parent DIR [--phases P,...]
         [--order pccp] [--out FILE] [--seed N]
@@ -8,23 +8,28 @@ DIR holds an unpacked older tree of this repository (``git archive``).
 Each run imports ``chip_smoke`` from one tree in a fresh subprocess, so
 that tree's ``tpudist_torch`` builds and runs its own kernels, and runs
 the named ``chip_smoke`` phases there (default ``kernels_bwd`` and
-``kernels_ring``; ``kernels`` gives K1 at the serve offsets; ``train``,
-``train_sp`` and ``serve`` give the steps and the prefill), or this
-script's own: ``k1_sp`` (K1 at train_sp's shape, B=1, S=8192, H=8,
-Hkv=2, D=64, beside SDPA's forward, which older trees' phases do not
-time) and ``prefill`` (one 7,680-token prompt admitted in one shot by
-the serve model's ServeLoop, on the host clock and under
-torch.profiler: device ms, K1's share).  The trees
-run in turns, ``--order`` naming them (p = parent, c = change, u = change
-with the backward's planner held to one split, f = change with K1's
-planner held to one split, so that a split's share of a gain shows;
-default parent, change, change, parent), so drift of the card shows as a
+``kernels_ring``): ``kernels`` gives K1 at the serve offsets and K2 at
+the serve decode rows, ``kernels_paged`` K5 and K6 there,
+``kernels_moe`` K7 at bench_moe's layer, the training shape, skewed
+routing and block 16, ``kernels_bwd`` and ``kernels_ring`` the backward
+(K3, K8, K4); ``train``, ``train_sp``, ``train_moe`` and ``serve`` give
+the steps and the prefill.  This script's own phases: ``k1_sp`` (K1 at
+train_sp's shape, B=1, S=8192, H=8, Hkv=2, D=64, beside SDPA's forward,
+which older trees' phases do not time) and ``prefill`` (one 7,680-token
+prompt admitted in one shot by the serve model's ServeLoop, on the host
+clock and under torch.profiler: device ms, K1's share).  The trees run in
+turns, ``--order`` naming them (p = parent, c = change, u = change with
+the backward's planner held to one split, f = change with K1's planner
+held to one split, so that a split's share of a gain shows; default
+parent, change, change, parent), so drift of the card shows as a
 difference between a tree's two runs.  Prints each run's phase lines,
 then one JSON summary: per timed case, each kernel's device ms in every
 run (K1 at the serve offsets, the training shape and train_sp's shape;
-K3, K8, K4), the bound and SDPA's time; per step phase, ms per step and
-the profiled attention ms; for serve, prefill and decode tokens/s.
-``--out`` writes the summary there as well.
+K2, K5, K6 with their split pass and merge apart where the tree times
+them; K3, K8, K4; K7 with the path it took), the bound, the library
+call's time; per step phase, ms per step, the profiled attention ms and
+K7's; for serve, prefill and decode tokens/s.  ``--out`` writes the
+summary there as well.
 """
 
 from __future__ import annotations
@@ -38,6 +43,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 PHASES = {
     "kernels": "chip_smoke.phase_kernels(torch, dev, {seed})",
+    "kernels_paged": "chip_smoke.phase_paged_kernels(torch, dev, {seed})",
+    "kernels_moe": "chip_smoke.phase_moe_kernels(torch, dev, {seed})",
+    "train_moe": "chip_smoke.phase_train_moe(torch, dev, {seed})",
     "kernels_bwd": "chip_smoke.phase_backward_kernels(torch, dev, {seed})",
     "kernels_ring": "chip_smoke.phase_ring_kernels(torch, dev, {seed})",
     "train": "chip_smoke.phase_train(torch, dev, {seed})",
@@ -157,6 +165,21 @@ def kernel_times(lines: dict) -> dict:
         out[f"serve/q_offset_{row['q_offset']}"] = {
             "K1": row["ms"], "K1_bound": row["bound_ms"],
             "sdpa": row["library_ms"], "plan": row.get("plan")}
+    decode = [("K2", row) for row in lines.get("kernels", {}).get("K2", [])]
+    for key in ("K5", "K6"):
+        decode += [(key, row)
+                   for row in lines.get("kernels_paged", {}).get(key, [])]
+    for key, row in decode:
+        out[f"decode/{key}_{row['case']}"] = {
+            key: row["ms"], f"{key}_bound": row["bound_ms"],
+            "library": row.get("library_ms"),
+            **{k: row[k] for k in ("partial_ms", "merge_ms") if k in row}}
+    for row in lines.get("kernels_moe", {}).get("K7", []):
+        out[f"moe/{row['case']}"] = {
+            "K7": row["ms"], "K7_bound": row["bound_ms"],
+            "library": row.get("library_ms"),
+            **{k: row[k] for k in ("design_bound_ms", "variant")
+               if k in row}}
     sp = lines.get("k1_sp")
     if sp:
         out["train_sp/K1"] = {"K1": sp["ms"], "K1_bound": sp["bound_ms"],
@@ -193,7 +216,7 @@ def kernel_times(lines: dict) -> dict:
 
 def step_times(lines: dict) -> dict:
     out = {}
-    for phase in ("train", "train_sp"):
+    for phase in ("train", "train_sp", "train_moe"):
         doc = lines.get(phase)
         if doc:
             fam = doc["profile"]["by_family_ms"]
@@ -202,6 +225,8 @@ def step_times(lines: dict) -> dict:
                           "attention_ms": sum(
                               t for f, t in fam.items()
                               if f.startswith("attention")),
+                          "k7_ms": fam.get("MoE grouped GEMM (K7)"),
+                          "by_family_ms": fam,
                           "dense_flash_ms_per_step":
                               doc.get("dense_flash_ms_per_step")}
     doc = lines.get("prefill")

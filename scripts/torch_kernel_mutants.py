@@ -8,14 +8,18 @@ merge leaving out each row's last non-empty split, K3 with its first
 live K/V tile's contribution dropped,
 K4 with its first live q-tile's dropped (every group member's), the
 split walks' sum (K3, K8 and K4) leaving out each tile's last non-empty
-split, K5 reading each key's page-table
-entry one block too far (``table[b, p / bs + 1]``), K6 with the V scale
-left out of the value product, K7 with the gate left out of its
-epilogue, K8 reading the caller's Delta as zero, K9 taking the variance
-as ``E[x²]`` (the ``mean²`` dropped), K10 with the ReLU mask left out —
+split, K5 reading each page's table entry one page too far
+(``table[b, page + 1]``), the decode merge (K2, K5, K6) leaving out each
+row's last live split, K6 with the V scale left out of the value
+product, K7's mma.sync path with the gate left out of its epilogue,
+K7's wgmma path skipping its last f-chunk, writing the second half of d
+into the first's columns, or dropping the gate on every slot that has
+one, K8 reading the caller's Delta as zero, K9 taking the variance as
+``E[x²]`` (the ``mean²`` dropped), K10 with the ReLU mask left out —
 copies
 ``tpudist_torch/`` into ``DIR/<mutant>/`` (default ``_scratch/mutants``,
-git-ignored), breaks the kernel source there, and runs the
+git-ignored) with this tree's built kernel libraries (so only the broken
+source rebuilds), breaks the kernel source there, and runs the
 ``chip_smoke`` phase that holds that kernel against its plain version
 (``phase_kernels``, ``phase_backward_kernels``, ``phase_paged_kernels``,
 ``phase_moe_kernels``, ``phase_ring_kernels``, or for K9 and K10
@@ -47,9 +51,13 @@ K3_STEP = ("    const int kt = w.lo + i * kBK;\n"
            "    uint8_t* Ks = kv_stage(i);\n")
 K4_STEP = "    const int qt = w.lo + (i / group) * BQ;\n"
 SPLIT_SUM = "      for (int sp = 0; sp < parts; ++sp) {\n"
-K5_TABLE = "a.table[(long long)b * a.M + (lo + r) / a.bs]"
+K5_TABLE = "a.table[(long long)b * a.M + first + i]"
+MERGE_SUM = "  for (int j = 0; j < n_live; ++j) {"
 K6_PV = "sr[j] = round_to<__nv_bfloat16>(p * vsc[j]);"
 K7_GATE = "const float gt = a.gate[row0 + r];"
+K7_CHUNKS = "const int nc = (f + kFC - 1) / kFC;"
+K7_OUT_COL = "const long long out_col = (long long)half * kNT;"
+K7_WG_GATE = "const float g0 = a.gate[row0 + r0], g1 = a.gate[row0 + r0 + 8];"
 K8_DELTA = "Dl[r] = q0 + r < a.Sq ? a.delta[row_base + q0 + r] : 0.f;"
 K9_VAR = "const float var = a2 / n - mean * mean;"
 K10_MASK = "(pre > 0.f ? dy : 0.f)"
@@ -93,12 +101,21 @@ MUTANTS = {
         BWD, RING_RUN, SPLIT_SUM,
         "      for (int sp = 0; sp < parts - 1; ++sp) {\n"),
     "K5_table_entry_plus_one": (
-        DEC, DEC_RUN, K5_TABLE,
-        "a.table[(long long)b * a.M + (lo + r) / a.bs + 1]"),
+        DEC, DEC_RUN, K5_TABLE, "a.table[(long long)b * a.M + first + i + 1]"),
+    "merge_drops_last_live_split": (
+        DEC, DEC_RUN, MERGE_SUM, "  for (int j = 0; j < n_live - 1; ++j) {"),
     "K6_skip_v_scale": (DEC, DEC_RUN, K6_PV,
                         "sr[j] = round_to<__nv_bfloat16>(p);"),
     "K7_no_gate_in_epilogue": (GMM, GMM_RUN, K7_GATE,
                                "const float gt = 1.f;"),
+    "K7_skips_last_chunk": (GMM, GMM_RUN, K7_CHUNKS,
+                            "const int nc = (f + kFC - 1) / kFC - 1;"),
+    "K7_second_half_into_first": (GMM, GMM_RUN, K7_OUT_COL,
+                                  "const long long out_col = 0;"),
+    "K7_wgmma_no_gate": (
+        GMM, GMM_RUN, K7_WG_GATE,
+        "const float g0 = a.gate[row0 + r0] != 0.f ? 1.f : 0.f,\n"
+        "              g1 = a.gate[row0 + r0 + 8] != 0.f ? 1.f : 0.f;"),
     "K8_delta_read_as_zero": (BWD, RING_RUN, K8_DELTA, "Dl[r] = 0.f;"),
     "K9_variance_without_mean_sq": (GN, GN_RUN, K9_VAR,
                                     "const float var = a2 / n;"),
@@ -126,12 +143,19 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(ROOT / "_scratch" / "mutants"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    from tpudist_torch.ops import _cuda
+
+    built = _cuda.build()   # the unbroken libraries, reused by each copy
     missed = []
     for name, (rel, (run, ratios), old, new) in MUTANTS.items():
         mut = Path(args.out) / name
         shutil.rmtree(mut, ignore_errors=True)
         shutil.copytree(ROOT / "tpudist_torch", mut / "tpudist_torch",
                         ignore=shutil.ignore_patterns("_build", "__pycache__"))
+        (mut / "tpudist_torch" / "_build").mkdir()
+        for lib in built.values():
+            shutil.copy2(lib, mut / "tpudist_torch" / "_build" / lib.name)
         src = mut / "tpudist_torch" / rel
         text = src.read_text()
         if text.count(old) != 1:

@@ -156,3 +156,46 @@ def test_kernel_matches_plain(cuda_device, dtype, case):
         torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=1e-4)
         got, want = got[0], want[0]
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# ---- on the card: the split merge (K2's, K5's and K6's) ---------------------
+
+# 512 keys = 4 splits of 128 (and the side buffer's own split); name:
+# (cache_len, window, side tokens)
+MERGE_CASES = {
+    "one_live_split": (np.array([100, 7, 128], np.int32), None, None),
+    "all_splits_live": (np.array([512, 512, 512], np.int32), None, None),
+    "window": (500, 200, None),
+    "side_buffer_only": (np.array([0, 0, 0], np.int32), None, 6),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(MERGE_CASES))
+def test_merge_cases_on_the_card(cuda_device, dtype, case):
+    """The merge over rows whose live keys fall in one split, in every
+    split, in a window band, or only in the side buffer: out and LSE
+    against the plain version, and a second call bitwise equal."""
+    cache_len, window, side = MERGE_CASES[case]
+    rng = np.random.default_rng(sorted(MERGE_CASES).index(case))
+    b, s, h, h_kv, d, cap = 3, 512, 8, 2, 64, 8
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            cuda_device, dtype)
+
+    q, k, v = t(b, 1, h, d), t(b, s, h_kv * d), t(b, s, h_kv * d)
+    lens = torch.as_tensor(cache_len).to(cuda_device)
+    kw = dict(window=window, return_lse=True, packed_kv_heads=h_kv)
+    if side is not None:
+        kw.update(side_k=t(b, cap, h_kv * d), side_v=t(b, cap, h_kv * d),
+                  side_len=side)
+    got, lse = tfd.flash_decode(q, k, v, lens, **kw)
+    again, lse2 = tfd.flash_decode(q, k, v, lens, **kw)
+    want, plse = tfd.flash_decode_plain(q, k, v, lens, **kw)
+    torch.cuda.synchronize()
+    tol = TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-4)
+    assert torch.equal(got, again) and torch.equal(lse, lse2)

@@ -156,11 +156,13 @@ def test_layout_matches_jax(jax_dispatch, case):
         jnp.minimum(starts // bn, nb - 1)].add(1)
     want_be = jnp.clip(jnp.cumsum(ids) - 1, 0, e - 1)
     xt, it, vt = _t(x, ti, tv)
-    got_pos, xs, gate, be = td._fused_layout(xt, it, vt, e, bn)
+    got_pos, xs, gate, be, live = td._fused_layout(xt, it, vt, e, bn)
     np.testing.assert_array_equal(got_pos.numpy(), np.asarray(pos))
     np.testing.assert_array_equal(xs.numpy(), np.asarray(want_xs))
     np.testing.assert_array_equal(gate.numpy(), np.asarray(want_gate))
     np.testing.assert_array_equal(be.numpy(), np.asarray(want_be))
+    sizes = np.bincount(ti.reshape(-1), minlength=e)
+    assert int(live) == int(starts[-1]) + -(-int(sizes[-1]) // bn) * bn
 
 
 def test_cpu_call_takes_the_plain_path():
@@ -203,8 +205,8 @@ def _card_layout(dev, dtype, t, e, k, bn, d, f, skewed, seed=0):
     else:
         gates = torch.softmax(torch.randn(t, e, generator=g, device=dev), -1)
         tv, ti, _ = tm._gate_choices(gates, k)
-    _, xs, gate, be = td._fused_layout(x, ti, tv, e, bn)
-    return xs, gate, be, w_up, w_down
+    _, xs, gate, be, live = td._fused_layout(x, ti, tv, e, bn)
+    return xs, gate, be, live, w_up, w_down
 
 
 CARD_CASES = dict(CASES, bench_moe=(4096, 8, 2, 128, 512, 2048, False))
@@ -218,10 +220,10 @@ def test_kernel_matches_plain(cuda_device, dtype, case):
     rounded to bf16 at the same point, the products sum in other orders),
     2e-5 + 1e-4·|plain| in f32 (exact FMAs against f32 GEMMs)."""
     t, e, k, bn, d, f, skewed = CARD_CASES[case]
-    xs, gate, be, w_up, w_down = _card_layout(cuda_device, dtype, t, e, k,
-                                              bn, d, f, skewed)
+    xs, gate, be, live, w_up, w_down = _card_layout(cuda_device, dtype, t, e,
+                                                    k, bn, d, f, skewed)
     before = td.MOE_GMM.launches
-    ys = td._gmm(be, xs, gate, w_up, w_down, bn)
+    ys = td._gmm(be, xs, gate, w_up, w_down, bn, live)
     torch.cuda.synchronize()
     assert td.MOE_GMM.launches == before + 1
     want = td._gmm_plain(be, xs, gate, w_up, w_down, bn).float()
@@ -274,3 +276,144 @@ def test_unsupported_shapes_raise_on_the_card(cuda_device, d, f, bn, dtype,
     with pytest.raises(ValueError, match=match):
         td.fused_moe_mlp(x, w_up, w_down, ti, tv, block_rows=bn)
     assert td.MOE_GMM.launches == before
+
+
+# ---- the live-row count: where the layout's trailing pad blocks start ------
+
+# (t, e, k, block_rows, routing): routing "random" (top-k of softmaxed
+# gates), "skewed" (every token on experts 0 and 1: the last experts
+# empty), "middle_empty" (experts 1 and 2 never chosen), "last_only"
+# (every choice on the last expert)
+LIVE_CASES = {
+    "random_b16": (64, 4, 2, 16, "random"),
+    "random_b128": (300, 8, 2, 128, "random"),
+    "skewed_b16": (48, 4, 2, 16, "skewed"),
+    "middle_empty_b8": (40, 6, 2, 8, "middle_empty"),
+    "last_only_b64": (70, 4, 1, 64, "last_only"),
+}
+
+
+def _routing(case):
+    t, e, k, _, kind = LIVE_CASES[case]
+    rng = np.random.default_rng(100 + sorted(LIVE_CASES).index(case))
+    logits = rng.standard_normal((t, e)).astype(np.float32)
+    if kind == "skewed":
+        ti = np.stack([np.zeros(t, np.int64), np.ones(t, np.int64)], 1)
+    elif kind == "last_only":
+        ti = np.full((t, k), e - 1, np.int64)
+    else:
+        if kind == "middle_empty":
+            logits[:, 1:3] = -1e9
+        ti = np.argsort(-logits, axis=1)[:, :k].astype(np.int64)
+    tv = rng.uniform(0.1, 1.0, (t, k)).astype(np.float32)
+    x = rng.standard_normal((t, 16)).astype(np.float32)
+    return x, ti, tv
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_CASES))
+def test_live_rows_matches_jax_layout(jax_dispatch, case):
+    """``_fused_layout``'s live-row count is the JAX layout's
+    ``starts[-1]`` plus the last group padded to the block: every block
+    past it holds no slot (gate 0, expert id clipped to e - 1), and there
+    are at most E of them."""
+    import jax.numpy as jnp
+    from tpudist.models.moe import _counting_sort
+
+    t, e, k, bn, _ = LIVE_CASES[case]
+    x, ti, tv = _routing(case)
+    _, _, sizes, starts, np_pad = _counting_sort(
+        jnp.asarray(ti.reshape(-1), jnp.int32), e, block_rows=bn)
+    want = int(starts[-1]) + -(-int(sizes[-1]) // bn) * bn
+    _, xs, gate, be, live = td._fused_layout(*_t(x, ti, tv), e, bn)
+    assert live.dtype == torch.int32 and live.dim() == 0
+    assert int(live) == want
+    assert int(live) % bn == 0 and int(live) <= np_pad == xs.shape[0]
+    assert (np_pad - int(live)) // bn <= e
+    assert not gate[int(live):].any()
+    assert (be[int(live) // bn:] == e - 1).all()
+    # every slot lands below the count
+    pos = td._fused_layout(*_t(x, ti, tv), e, bn)[0]
+    assert int(pos.max()) < int(live)
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_CASES))
+def test_plain_gmm_gives_zero_pad_rows(case):
+    """The plain version's rows past the live count are ``0 · finite``:
+    exact zeros, which K7 writes there without a product."""
+    t, e, k, bn, _ = LIVE_CASES[case]
+    x, ti, tv = _routing(case)
+    rng = np.random.default_rng(7)
+    w_up = torch.from_numpy(rng.standard_normal((e, 16, 32), np.float32))
+    w_down = torch.from_numpy(rng.standard_normal((e, 32, 16), np.float32))
+    _, xs, gate, be, live = td._fused_layout(*_t(x, ti, tv), e, bn)
+    ys = td._gmm(be, xs, gate, w_up, w_down, bn, live)
+    assert ys.shape == xs.shape
+    assert (ys[int(live):] == 0).all()
+
+
+# ---- on the card: the wgmma path ------------------------------------------
+
+# (t, e, k, block_rows, d, f, routing)
+WGMMA_CASES = {
+    "b128_d512": (2048, 8, 2, 128, 512, 1024, "random"),
+    "b64_d512": (2048, 8, 2, 64, 512, 1024, "random"),
+    "b128_d256": (1024, 4, 2, 128, 256, 512, "random"),
+    "b64_d256": (1024, 4, 2, 64, 256, 512, "random"),
+    "f_not_multiple_of_64": (1024, 4, 2, 128, 512, 1008, "random"),
+    "expert_without_rows": (1024, 4, 2, 128, 256, 512, "middle_empty"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_wgmma_path_matches_plain(cuda_device, case):
+    """bf16 at block_rows a multiple of 64 and d 256 or 512 takes the
+    wgmma path: each element within 1e-2·max|plain| + 2e-2·|plain| (h
+    rounded to bf16 at the same point, sums in other orders), the rows of
+    the trailing pad blocks exactly zero, a second call bitwise equal."""
+    t, e, k, bn, d, f, kind = WGMMA_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    bf = torch.bfloat16
+    x = torch.randn(t, d, generator=g, device=cuda_device).to(bf)
+    w_up = (torch.randn(e, d, f, generator=g, device=cuda_device)
+            / d ** 0.5).to(bf)
+    w_down = (torch.randn(e, f, d, generator=g, device=cuda_device)
+              / f ** 0.5).to(bf)
+    gates = torch.softmax(torch.randn(t, e, generator=g, device=cuda_device),
+                          -1)
+    if kind == "middle_empty":
+        gates[:, 1] = -1.0
+    tv, ti, _ = tm._gate_choices(gates, k)
+    _, xs, gate, be, live = td._fused_layout(x, ti, tv, e, bn)
+    assert td.gmm_variant(bf, d, f, bn) == "wgmma"
+    before = td.MOE_GMM.launches
+    ys = td._gmm(be, xs, gate, w_up, w_down, bn, live)
+    again = td._gmm(be, xs, gate, w_up, w_down, bn, live)
+    torch.cuda.synchronize()
+    assert td.MOE_GMM.launches == before + 2
+    want = td._gmm_plain(be, xs, gate, w_up, w_down, bn).float()
+    lim = 1e-2 * want.abs().max() + 2e-2 * want.abs()
+    ratio = ((ys.float() - want).abs() / lim).max().item()
+    assert ratio <= 1.0, f"worst error/limit ratio {ratio}"
+    assert (ys[int(live):] == 0).all()
+    assert torch.equal(ys, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,f,bn,want", [
+    (torch.bfloat16, 512, 2048, 128, "wgmma"),
+    (torch.bfloat16, 256, 512, 64, "wgmma"),
+    (torch.bfloat16, 512, 2048, 16, "mma.sync"),
+    (torch.bfloat16, 128, 512, 128, "mma.sync"),
+    (torch.float32, 512, 2048, 128, "mma.sync"),
+])
+def test_variant_follows_dtype_and_shape(cuda_device, dtype, d, f, bn, want):
+    """The path is chosen by dtype and shape alone, as the kernel library
+    reports it."""
+    assert td.gmm_variant(dtype, d, f, bn) == want
+
+
+@pytest.mark.cuda
+def test_variant_of_an_unserved_shape_raises(cuda_device):
+    with pytest.raises(ValueError, match="no path"):
+        td.gmm_variant(torch.bfloat16, 24, 64, 16)

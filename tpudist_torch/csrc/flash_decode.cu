@@ -28,17 +28,29 @@
 // shared memory, and writes its partial (max, sum, unnormalized output)
 // for the g = H/Hkv query heads of that KV head, so each KV head's cache
 // streams once for the whole group.  The side buffer's live positions are
-// one more split.  A second small kernel merges the partials by
-// log-sum-exp, which also yields return_lse.  Dot products are plain f32
-// FMAs: at ~4 FLOP/byte the tensor cores would buy nothing here.
+// one more split.  Dot products are plain f32 FMAs: at ~4 FLOP/byte the
+// tensor cores would buy nothing here.
+//
+// The merge (decode_merge_kernel) combines the partials by log-sum-exp,
+// which also yields return_lse.  At the serve shapes a row has 65 splits
+// and the grid only B*Hkv = 8 (row, KV head) pairs, so the merge runs one
+// warp per (batch row, query head), B*H warps, each a CTA of its own (four
+// a CTA measured slower at the serve shape: scripts/kernel_variants.py
+// merge): the lanes read
+// the splits' maxima and sums, M and L come from shuffle reductions in a
+// fixed tree order, the weights exp(m_i - M) of the live splits go to
+// shared memory in split order (a ballot compacts them), and then each
+// lane sums w_i * acc_i over the live splits, in split order, for its
+// columns of D.  Splits with m_i = -inf (dead chunks, which write no
+// acc) are skipped.  No atomics: two calls agree bit for bit.
 //
 // K5's one difference: key p of row b is pool[table[b, p / bs], p % bs].
-// The block's threads first read the table entries of the chunk's live
-// keys into shared memory (at bs = 16 one 128-key split spans 8 pages,
-// and bs need not divide 128), then load each key's contiguous Hkv*D row
-// with the same 16-byte loads.  Split boundaries and accumulation order
-// are K2's, so K5 over a pool gives bit-identical output to K2 over the
-// gathered view of that pool (paged_gather_kv).
+// The block's threads first read one table entry per page that the
+// chunk's live keys cover into shared memory (at bs = 16 one 128-key
+// split spans 8 pages, and bs need not divide 128), then load each key's
+// contiguous Hkv*D row with the same 16-byte loads.  Split boundaries and
+// accumulation order are K2's, so K5 over a pool gives bit-identical
+// output to K2 over the gathered view of that pool (paged_gather_kv).
 //
 // K6 keeps the Pallas int8 numerics: q rounded to bf16, s = (q·k_int8) ·
 // (k_scale · D^-1/2) with f32 accumulation, p = exp(s - m), the value
@@ -58,6 +70,7 @@ using tpudist::to_f32;
 constexpr int kCK = 128;       // keys per split
 constexpr int kThreads = 128;  // one key per thread in the score pass
 constexpr int kMaxGroup = 32;  // query heads per KV head
+constexpr int kMaxPages = kCK / 8 + 1;  // pages a split covers (bs >= 8)
 
 // How the partial kernel finds a key's row, and what the rows hold.
 enum Mode { kStrided = 0, kPaged = 1, kInt8 = 2 };
@@ -107,22 +120,24 @@ struct Layout {
   }
 };
 
-// K5's row loads: key lo + r of the chunk lives at pool block blk[r],
-// row (lo + r) % bs; rows at or past n are zero-filled (as load_rows does)
+// K5's row loads: key lo + r of the chunk lives at pool block
+// blk[(lo + r) / bs - first], row (lo + r) % bs, where blk holds the
+// table entries of the pages from `first` on; rows at or past n are
+// zero-filled (as load_rows does)
 template <typename T>
 __device__ __forceinline__ void load_paged_rows(uint32_t* dst, int ld_words,
                                                 const T* src, long long sb,
                                                 long long ss, const int* blk,
-                                                int lo, int n, int bs,
-                                                int cols) {
+                                                int lo, int first, int n,
+                                                int bs, int cols) {
   const int vpr = cols * (int)sizeof(T) / 16;  // 16-byte vectors per row
   for (int i = threadIdx.x; i < kCK * vpr; i += blockDim.x) {
     const int r = i / vpr, c = i % vpr;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < n) {
       val = *reinterpret_cast<const uint4*>(
-          src + (long long)blk[r] * sb + (long long)((lo + r) % bs) * ss +
-          c * (16 / (int)sizeof(T)));
+          src + (long long)blk[(lo + r) / bs - first] * sb +
+          (long long)((lo + r) % bs) * ss + c * (16 / (int)sizeof(T)));
     }
     uint32_t* d = dst + r * ld_words + c * 4;
     d[0] = val.x;
@@ -138,8 +153,8 @@ __global__ void __launch_bounds__(kThreads)
     decode_partial_kernel(const DecArgs a) {
   using L = Layout<KV, D>;
   extern __shared__ __align__(16) uint32_t smem[];
-  // K5: the chunk's pool blocks; K6: its keys' K and V scales
-  __shared__ int blk_s[kMode == kPaged ? kCK : 1];
+  // K5: the chunk's pool blocks, one a page; K6: its keys' K and V scales
+  __shared__ int blk_s[kMode == kPaged ? kMaxPages : 1];
   __shared__ float ksc[kMode == kInt8 ? kCK : 1];
   __shared__ float vsc[kMode == kInt8 ? kCK : 1];
   uint32_t* Kw = smem;
@@ -190,12 +205,14 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   const int n = hi - lo;
+  const int first = kMode == kPaged ? lo / a.bs : 0;  // K5: its first page
 
   if constexpr (kMode == kPaged) {
     if (main_split) {
-      // only live keys' table entries are read: p < hi <= cache_len[b]
-      for (int r = tid; r < n; r += kThreads)
-        blk_s[r] = a.table[(long long)b * a.M + (lo + r) / a.bs];
+      // one entry per page of the live keys: p < hi <= cache_len[b]
+      const int pages = (hi - 1) / a.bs - first + 1;
+      for (int i = tid; i < pages; i += kThreads)
+        blk_s[i] = a.table[(long long)b * a.M + first + i];
     }
   }
   if constexpr (kMode == kInt8) {
@@ -210,8 +227,10 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (kMode == kPaged && main_split) {
-    load_paged_rows<KV>(Kw, L::kLdw, kb, a.k_sb, kss, blk_s, lo, n, a.bs, D);
-    load_paged_rows<KV>(Vw, L::kLdw, vb, a.v_sb, vss, blk_s, lo, n, a.bs, D);
+    load_paged_rows<KV>(Kw, L::kLdw, kb, a.k_sb, kss, blk_s, lo, first, n,
+                        a.bs, D);
+    load_paged_rows<KV>(Vw, L::kLdw, vb, a.v_sb, vss, blk_s, lo, first, n,
+                        a.bs, D);
   } else {
     load_rows<KV>(Kw, L::kLdw, kb, kss, lo, hi, kCK, D);
     load_rows<KV>(Vw, L::kLdw, vb, vss, lo, hi, kCK, D);
@@ -281,42 +300,69 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// One warp a CTA per (batch row b, query head h = hk * g + r).  Dynamic
+// shared memory: the live splits' weights and indices.
+template <typename T, int D>
+__global__ void __launch_bounds__(32)
     decode_merge_kernel(const float* m_part, const float* l_part,
-                        const float* acc_part, void* out, float* lse,
-                        int H, int Hkv, int D, int n_split, long long o_sb,
-                        long long o_sh) {
-  __shared__ float Ms[kMaxGroup], Ls[kMaxGroup];
-  const int g = H / Hkv;
-  const int row = blockIdx.x, b = row / Hkv, hk = row % Hkv;
-  const int tid = threadIdx.x;
-  const long long base = (long long)row * n_split;
-  if (tid < g) {
-    float M = TPUDIST_NEG_BIG;
-    for (int i = 0; i < n_split; ++i) M = fmaxf(M, m_part[(base + i) * g + tid]);
-    float Lsum = 0.f;
-    for (int i = 0; i < n_split; ++i) {
-      const float mi = m_part[(base + i) * g + tid];
-      if (mi != -INFINITY) Lsum += l_part[(base + i) * g + tid] * expf(mi - M);
+                        const float* acc_part, void* out, float* lse, int H,
+                        int Hkv, int n_split, long long o_sb, long long o_sh) {
+  extern __shared__ float merge_s[];
+  constexpr int kPer = (D + 31) / 32;  // columns a lane
+  const int lane = threadIdx.x;
+  const int g = H / Hkv, b = blockIdx.x / H, h = blockIdx.x % H, r = h % g;
+  const long long base = ((long long)b * Hkv + h / g) * n_split;
+  float* w_s = merge_s;
+  int* idx_s = reinterpret_cast<int*>(w_s + n_split);
+
+  // M: the lanes over the splits, then a shuffle tree
+  float M = TPUDIST_NEG_BIG;
+  for (int s = lane; s < n_split; s += 32)
+    M = fmaxf(M, m_part[(base + s) * g + r]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
+  // the live splits' weights, compacted in split order; L: each lane's
+  // splits in order, then a shuffle tree
+  float L = 0.f;
+  int n_live = 0;
+  for (int s0 = 0; s0 < n_split; s0 += 32) {
+    const int s = s0 + lane;
+    const float mi = s < n_split ? m_part[(base + s) * g + r] : -INFINITY;
+    const bool live = mi != -INFINITY;
+    const unsigned ball = __ballot_sync(0xffffffffu, live);
+    if (live) {
+      const float w = expf(mi - M);
+      L += l_part[(base + s) * g + r] * w;
+      const int at = n_live + __popc(ball & ((1u << lane) - 1u));
+      w_s[at] = w;
+      idx_s[at] = s;
     }
-    Ms[tid] = M;
-    Ls[tid] = Lsum;
-    if (lse) lse[(long long)b * H + hk * g + tid] = M + logf(fmaxf(Lsum, 1e-30f));
+    n_live += __popc(ball);
   }
-  __syncthreads();
-  T* ob = static_cast<T*>(out) + b * o_sb + (long long)(hk * g) * o_sh;
-  for (int i = tid; i < g * D; i += blockDim.x) {
-    const int r = i / D, d = i % D;
-    const float M = Ms[r];
-    float acc = 0.f;
-    for (int s = 0; s < n_split; ++s) {
-      const float mi = m_part[(base + s) * g + r];
-      if (mi != -INFINITY)
-        acc += acc_part[((base + s) * g + r) * D + d] * expf(mi - M);
-    }
-    ob[r * o_sh + d] = tpudist::from_f32<T>(acc / fmaxf(Ls[r], 1e-30f));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    L += __shfl_xor_sync(0xffffffffu, L, off);
+  __syncwarp();
+  if (lse && lane == 0) lse[(long long)b * H + h] = M + logf(fmaxf(L, 1e-30f));
+
+  // the output: this lane's columns, summed over the live splits in order
+  float acc[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) acc[k] = 0.f;
+#pragma unroll 4
+  for (int j = 0; j < n_live; ++j) {
+    const float w = w_s[j];
+    const float* p = acc_part + ((base + idx_s[j]) * g + r) * D + lane;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k)
+      if (lane + 32 * k < D) acc[k] = fmaf(w, p[32 * k], acc[k]);
   }
+  T* ob = static_cast<T*>(out) + b * o_sb + (long long)h * o_sh;
+  const float Lc = fmaxf(L, 1e-30f);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (lane + 32 * k < D) ob[lane + 32 * k] = tpudist::from_f32<T>(acc[k] / Lc);
 }
 
 template <typename T, typename KV, int D, int kMode>
@@ -325,12 +371,18 @@ cudaError_t launch(const DecArgs& a, void* out, float* lse, long long o_sb,
   using L = Layout<KV, D>;
   const int g = a.H / a.Hkv;
   const size_t bytes = L::bytes(g);
+  // the merge's weights and split indices
+  const size_t merge_bytes = (size_t)a.n_split * 8;
   static bool configured = false;
-  if (!configured) {
+  if (!configured) {  // once, before any graph capture
     cudaError_t e = cudaFuncSetAttribute(
         decode_partial_kernel<T, KV, D, kMode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)L::bytes(kMaxGroup));
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(decode_merge_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             227 * 1024);
     if (e != cudaSuccess) return e;
     configured = true;
   }
@@ -338,9 +390,9 @@ cudaError_t launch(const DecArgs& a, void* out, float* lse, long long o_sb,
   decode_partial_kernel<T, KV, D, kMode><<<grid, kThreads, bytes, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  decode_merge_kernel<T><<<a.B * a.Hkv, kThreads, 0, stream>>>(
-      a.m_part, a.l_part, a.acc_part, out, lse, a.H, a.Hkv, D, a.n_split,
-      o_sb, o_sh);
+  decode_merge_kernel<T, D><<<a.B * a.H, 32, merge_bytes, stream>>>(
+      a.m_part, a.l_part, a.acc_part, out, lse, a.H, a.Hkv, a.n_split, o_sb,
+      o_sh);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's kernels: asynchronous
 // tile copies (cp.async) into the swizzled shared layouts that wgmma
-// reads, wgmma shared-memory descriptors, and the warpgroup products
-// m64nNk16 in bf16 with f32 accumulators.
+// reads, mbarriers, wgmma shared-memory descriptors, and the warpgroup
+// products m64nNk16 in bf16 with f32 accumulators.
 //
 // Shared tiles.  A [ROWS][D] bf16 tile is stored as D*2 / R column
 // blocks ("atoms") of [ROWS][R bytes], R = min(D*2, 128), each block's
@@ -47,6 +47,49 @@ __device__ __forceinline__ void cp_async_wait() {
 // before later async-proxy reads (wgmma operands); a barrier follows.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// mbarriers in shared memory (addresses from smem_u32).  A phase completes
+// when `count` arrivals have been made; a wait names the parity of the
+// phase it waits for (a fresh barrier counts its phase -1, parity 1, as
+// complete).
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n"
+               ::"r"(bar)
+               : "memory");
+}
+// One arrival on the barrier once every cp.async this thread has issued
+// so far has landed (the arrival counts toward the barrier's count).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+// Hand registers between warpgroups of a warp-specialised CTA.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // wgmma descriptor: start address, leading and stride byte offsets (16-byte

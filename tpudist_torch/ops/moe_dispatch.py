@@ -12,7 +12,12 @@ kept on-chip, and the combine outside is a gather and a sum over choices.
 
 On a CUDA tensor the grouped GEMM is kernel K7 (``csrc/moe_gmm.cu``, the
 Hopper port of the Pallas ``_gmm_kernel``); a shape it cannot serve
-raises.  On a CPU tensor it is the plain PyTorch version
+raises.  K7 has two paths, chosen by dtype and shape (:func:`gmm_variant`):
+``wgmma`` for bf16 at ``block_rows`` a multiple of 64 and ``d`` 256 or
+512, ``mma.sync`` for the rest.  Tiles past the groups' rows (the layout's
+trailing pad blocks) are written as zeros without a product; their count
+travels as a device scalar (:func:`_live_rows`), so no host sync is
+added.  On a CPU tensor the grouped GEMM is the plain PyTorch version
 :func:`_gmm_plain`.  There is no fallback from the first to the second.
 
 The backward has no kernel, as in the JAX package: :class:`_FusedMoE`
@@ -33,13 +38,26 @@ from tpudist_torch.ops import _cuda
 
 MOE_GMM = _cuda.Kernel(
     "moe_gmm", "tpudist_moe_gmm",
-    # dtype; xs gate w_up w_down block_expert ys; np_pad d f e block_rows;
-    # stream
-    [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    # dtype; xs gate w_up w_down block_expert live_rows ys; np_pad d f e
+    # block_rows; stream
+    [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
     + [ctypes.c_void_p])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_D = 512   # K7's f32 accumulator covers 4 warps x 128 columns
+_MAX_D = 512   # both paths' f32 accumulators cover at most 512 columns
+
+
+def gmm_variant(dtype: torch.dtype, d: int, f: int, block_rows: int) -> str:
+    """The path K7 takes on the card for this dtype and shape, as the
+    kernel library decides it: ``"wgmma"`` or ``"mma.sync"`` (needs the
+    built library)."""
+    fn = _cuda.library("moe_gmm").tpudist_moe_gmm_variant
+    fn.argtypes, fn.restype = [ctypes.c_int] * 4, ctypes.c_int
+    code = fn(_DTYPES.get(dtype, -1), d, f, block_rows)
+    if code < 0:
+        raise ValueError(f"K7 takes no path for {dtype}, d={d}, f={f}, "
+                         f"block_rows={block_rows}")
+    return "wgmma" if code == 1 else "mma.sync"
 
 
 def _block_expert(starts: torch.Tensor, nb: int, e: int,
@@ -55,20 +73,28 @@ def _block_expert(starts: torch.Tensor, nb: int, e: int,
     return torch.clamp(torch.cumsum(ids, 0) - 1, 0, e - 1).to(torch.int32)
 
 
+def _live_rows(group_sizes: torch.Tensor, block_rows: int) -> torch.Tensor:
+    """The rows the padded groups cover, ``starts[-1] + padded[-1]``, as a
+    0-D int32 tensor on the groups' device (no host sync): the blocks at
+    or past it are the layout's trailing pad blocks, which hold no slot."""
+    padded = (group_sizes + block_rows - 1) // block_rows * block_rows
+    return padded.sum().to(torch.int32)
+
+
 def _fused_layout(x, top_idx, top_vals, e: int, block_rows: int):
     """The kernel's inputs: ``(pos [N], xs [NP, d], gate [NP, 1] f32,
-    block_expert [NP / block_rows] int32)``.  Pad slots gather row 0 and
-    carry gate 0."""
+    block_expert [NP / block_rows] int32, live_rows)`` (:func:`_live_rows`).
+    Pad slots gather row 0 and carry gate 0."""
     from tpudist_torch.models.moe import _counting_sort
 
     k = top_idx.shape[1]
-    pos, order, _, starts, np_pad = _counting_sort(
+    pos, order, sizes, starts, np_pad = _counting_sort(
         top_idx.reshape(-1), e, block_rows=block_rows)
     xs = x[order // k]                                   # slot -> token row
     gate = torch.zeros((np_pad, 1), dtype=torch.float32, device=x.device)
     gate[pos, 0] = top_vals.reshape(-1).float()
     block_expert = _block_expert(starts, np_pad // block_rows, e, block_rows)
-    return pos, xs, gate, block_expert
+    return pos, xs, gate, block_expert, _live_rows(sizes, block_rows)
 
 
 def _expert_runs(block_expert: torch.Tensor) -> list[tuple[int, int]]:
@@ -98,7 +124,13 @@ def _gmm_plain(block_expert, xs, gate, w_up, w_down, block_rows: int, *,
 
 
 def _check_kernel_shapes(x, w_up, w_down, block_rows: int) -> None:
-    """K7's constraints, raised as ``ValueError`` before any work."""
+    """K7's constraints, raised as ``ValueError`` before any work.  Every
+    call takes float32 or bfloat16, d_model a multiple of 16 up to 512,
+    d_ff a multiple of 16 and block_rows a multiple of 8 (the mma.sync
+    path's tiles: 16 rows, or 8 live rows of 16).  Within those, bfloat16
+    at block_rows a multiple of 64 and d_model 256 or 512 takes the wgmma
+    path (128-row tiles at multiples of 128, else 64; any such d_ff, the
+    last chunk zero-filled)."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"fused_moe_mlp kernel takes float32 or bfloat16, "
                          f"got {x.dtype}")
@@ -118,9 +150,12 @@ def _check_kernel_shapes(x, w_up, w_down, block_rows: int) -> None:
                          f"{tuple(x.shape)}")
 
 
-def _gmm(block_expert, xs, gate, w_up, w_down, block_rows: int):
+def _gmm(block_expert, xs, gate, w_up, w_down, block_rows: int,
+         live_rows: torch.Tensor):
     """The grouped GEMM: kernel K7 on CUDA tensors, :func:`_gmm_plain` on
-    CPU tensors."""
+    CPU tensors.  K7 writes the blocks at or past ``live_rows``
+    (:func:`_live_rows`), the trailing pad blocks, as zeros without a
+    product; the plain version computes them, at gate 0."""
     if xs.device.type == "cpu":
         return _gmm_plain(block_expert, xs, gate, w_up, w_down, block_rows)
     if xs.device.type != "cuda":
@@ -147,11 +182,15 @@ def _gmm(block_expert, xs, gate, w_up, w_down, block_rows: int):
             or not block_expert.is_contiguous()):
         raise ValueError(f"block_expert must be a contiguous [{nb}] int32 "
                          f"tensor on {xs.device}")
+    if (live_rows.dtype != torch.int32 or live_rows.numel() != 1
+            or live_rows.device != xs.device):
+        raise ValueError(f"live_rows must be a one-element int32 tensor on "
+                         f"{xs.device}")
     ys = torch.empty_like(xs)
     MOE_GMM(_DTYPES[xs.dtype], _cuda.ptr(xs), _cuda.ptr(gate),
             _cuda.ptr(w_up), _cuda.ptr(w_down), _cuda.ptr(block_expert),
-            _cuda.ptr(ys), np_pad, d, f, e, block_rows,
-            _cuda.stream_handle(xs.device))
+            _cuda.ptr(live_rows), _cuda.ptr(ys), np_pad, d, f, e,
+            block_rows, _cuda.stream_handle(xs.device))
     return ys
 
 
@@ -160,9 +199,9 @@ def _fused_moe_fwd_only(x, w_up, w_down, top_idx, top_vals,
     t, d = x.shape
     e = w_up.shape[0]
     k = top_idx.shape[1]
-    pos, xs, gate, block_expert = _fused_layout(x, top_idx, top_vals, e,
-                                                block_rows)
-    ys = _gmm(block_expert, xs, gate, w_up, w_down, block_rows)
+    pos, xs, gate, block_expert, live = _fused_layout(x, top_idx, top_vals,
+                                                      e, block_rows)
+    ys = _gmm(block_expert, xs, gate, w_up, w_down, block_rows, live)
     # combine: the gate is folded in already — gather + sum over choices
     return ys[pos].reshape(t, k, d).sum(1).to(x.dtype)
 
