@@ -107,8 +107,12 @@ Phases, each printing one JSON line and each fatal on failure:
    against their plain versions at every distinct GroupNorm site shape of
    ResNet50 at batch 128, 128 px, in each mode the shape takes (relu,
    add_relu, plain), bf16, plus one f32 case and the 224 px stem's
-   12544 x 64 slab; times beside the bound, the plain versions and
-   F.group_norm (+ add, ReLU) with its autograd backward;
+   12544 x 64 slab: each on the path the planner gives it (the cluster
+   path at the site shapes, the two-pass path at the stem and the f32
+   tail), checked to have run it, a second call bitwise equal, and the
+   other path forced, held and timed beside it where it fits; times
+   beside the bound, the plain versions and F.group_norm (+ add, ReLU)
+   with its autograd backward;
 22. resnet_parity — full-width ResNet50 (norm="group", 1000 classes) in
    f32 with TF32 off, batch 4 at 64 px: 3 SGD steps on the card and on
    the CPU from one converted flax-layout tree, the CPU's ReLU masks and
@@ -116,7 +120,7 @@ Phases, each printing one JSON line and each fatal on failure:
    and the weights after each step agree;
 23. gn_sites — the activations of one ResNet50 train step (batch 128, 128
    px, bf16) at its 53 GroupNorm sites through the fused op (K9 = K10 =
-   53 launches) against the closed form, every gradient element held
+   53 launches, all on the cluster path) against the closed form, every gradient element held
    but where K9's statistics flip a ReLU mask, and both paths' summed
    device time beside the bound;
 24. train_resnet — ResNet50 (norm="group", bf16, f32 parameters,
@@ -610,8 +614,11 @@ def _counters() -> dict:
 
 
 def reset_launches():
+    from tpudist_torch.ops import group_norm as gn
+
     for kernel in _counters().values():
         kernel.launches = 0
+    gn.reset_path_launches()
 
 
 def read_launches() -> dict:
@@ -2304,6 +2311,21 @@ def gn_bound(b, hw, c, mode, esize, backward) -> tuple[float, str]:
     return bound(nbytes, 10.0 * b * hw * c)
 
 
+def gn_paths(gn, torch, b, hw, c, mode, dt, backward):
+    """``(planned, other)``: the plan the wrapper takes for K9
+    (``backward=False``) or K10 at this shape, and the other path's plan
+    where the card can run it (None: the cluster path's shared memory
+    does not fit)."""
+    optin = gn._smem_optin(torch.device("cuda", 0))
+    plan = gn._gn_plan(b, hw, c, dt, mode, backward, optin, GN_GROUPS)
+    other = "two_pass" if plan.path == "cluster" else "cluster"
+    try:
+        return plan, gn._gn_plan(b, hw, c, dt, mode, backward, optin,
+                                 GN_GROUPS, other)
+    except ValueError:
+        return plan, None
+
+
 def phase_gn_kernels(torch, dev, seed):
     """K9 (fused GroupNorm forward) and K10 (its backward) against their
     plain versions, group 32, eps 1e-6, at every distinct GroupNorm site
@@ -2312,10 +2334,15 @@ def phase_gn_kernels(torch, dev, seed):
     224 px stem's 12544 x 64 slab (6.4 MB of f32 a sample, over tpudist's
     2 MB switch); in bf16, x has a mean of its own in each channel.  K10
     and its plain version take K9's mean and rstd, as the autograd
-    backward does.  Limits: bf16 y within O_ATOL + O_RTOL *
-    |plain|, dx, dres, dscale, dbias by grad_ratio, mean and rstd within
-    GN_STAT_RTOL of their max; f32 every output within GN_F32_REL of its
-    tensor's max.  Times: the wrappers (K10's includes its sum of the
+    backward does.  Each kernel runs the planner's path (_gn_plan), which
+    must be the cluster path at every site shape in bf16 and the two-pass
+    path at the stem and the f32 tail, and is checked to have run it
+    (LAST_PATH); a second call is bitwise equal to the first.  The
+    other path, forced, is held and timed beside it where the card can
+    run it.  Limits: bf16 y within O_ATOL + O_RTOL * |plain|, dx, dres,
+    dscale, dbias by grad_ratio, mean and rstd within GN_STAT_RTOL of
+    their max; f32 every output within GN_F32_REL of its tensor's max.
+    Times: the wrappers (K10's includes its sum of the per-sample
     partials), the plain versions, and the library yardstick
     F.relu(F.group_norm(x, 32, w, b, 1e-6) [+ res]) on the channels_last
     view (forward; its autograd backward as fwd+bwd minus fwd).  Returns
@@ -2350,19 +2377,29 @@ def phase_gn_kernels(torch, dev, seed):
         scale = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
         bias = 0.1 * torch.randn(C, generator=g, device=dev)
         r = res if mode == "add_relu" else None
+        plans = {k: gn_paths(gn, torch, B, HW, C, mode, dt, bw)
+                 for k, bw in (("K9", False), ("K10", True))}
+        # the stem's and the f32 tail's x exceed 64 KB a CTA of 8
+        want = dict.fromkeys(plans, "two_pass" if case.startswith("224px")
+                             or dt == torch.float32 else "cluster")
+        check(all(plans[k][0].path == want[k] for k in plans),
+              f"kernels_gn {case}: planned paths "
+              f"{ {k: p[0].path for k, p in plans.items()} }, want {want}")
 
         def flat(t):
             return None if t is None else t.reshape(B, HW, C)
 
-        def fwd():
+        def fwd(path=None):
             return gn._fused_call_fwd(x, scale, bias, r, GN_GROUPS, GN_EPS,
-                                      mode)
+                                      mode, path)
 
         y, mean, rstd = fwd()
+        check(gn.LAST_PATH["K9"] == want["K9"],
+              f"kernels_gn {case}: K9 ran {gn.LAST_PATH['K9']}")
 
-        def bwd():
+        def bwd(path=None):
             return gn._fused_call_bwd(x, dy, scale, bias, mean, rstd, r,
-                                      GN_GROUPS, mode)
+                                      GN_GROUPS, mode, path)
 
         def plain_fwd():
             return gn._fused_fwd_plain(flat(x), scale, bias, flat(r),
@@ -2373,28 +2410,51 @@ def phase_gn_kernels(torch, dev, seed):
                                        rstd, flat(r), GN_GROUPS, mode)
 
         dx, dscale, dbias, dres = bwd()
+        check(gn.LAST_PATH["K10"] == want["K10"],
+              f"kernels_gn {case}: K10 ran {gn.LAST_PATH['K10']}")
+        y2, mean2, rstd2 = fwd()
+        again = bwd()
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, e) for a, e in zip(
+            (y2, mean2, rstd2) + tuple(t for t in again if t is not None),
+            (y, mean, rstd) + tuple(t for t in (dx, dscale, dbias, dres)
+                                    if t is not None)))
+        check(bitwise, f"kernels_gn {case}: a second call is not bitwise "
+              f"equal to the first")
+        del y2, mean2, rstd2, again
         py, pmean, prstd = plain_fwd()
         pdx, pds, pdb, pdres = plain_bwd()
         torch.cuda.synchronize()
-        pairs = {"y": (y, py), "dx": (dx, pdx), "dscale": (dscale, pds.sum(0)),
-                 "dbias": (dbias, pdb.sum(0))}
-        if mode == "add_relu":
-            pairs["dres"] = (dres, pdres)
-        errs = {n: (a.float().reshape(-1) - e.float().reshape(-1)).abs()
-                .max().item() for n, (a, e) in pairs.items()}
-        stat_err = max(((a - e).abs().max() / e.abs().max()).item()
-                       for a, e in ((mean, pmean), (rstd, prstd)))
-        if dt == torch.float32:
-            ratios = {n: errs[n] / (GN_F32_REL * e.float().abs().max().item())
-                      for n, (_, e) in pairs.items()}
-        else:
-            ratios = {n: (o_ratio(a.reshape(e.shape), e) if n == "y"
-                          else grad_ratio(a.reshape(e.shape), e))
-                      for n, (a, e) in pairs.items()}
+
+        def held(outs, label):
+            """(errors, ratios, statistics' error) of one path's outputs
+            against the plain versions; fails past the limits."""
+            (y, mean, rstd), (dx, dscale, dbias, dres) = outs
+            pairs = {"y": (y, py), "dx": (dx, pdx),
+                     "dscale": (dscale, pds.sum(0)),
+                     "dbias": (dbias, pdb.sum(0))}
+            if mode == "add_relu":
+                pairs["dres"] = (dres, pdres)
+            errs = {n: (a.float().reshape(-1) - e.float().reshape(-1)).abs()
+                    .max().item() for n, (a, e) in pairs.items()}
+            stat_err = max(((a - e).abs().max() / e.abs().max()).item()
+                           for a, e in ((mean, pmean), (rstd, prstd)))
+            if dt == torch.float32:
+                ratios = {n: errs[n] / (GN_F32_REL
+                                        * e.float().abs().max().item())
+                          for n, (_, e) in pairs.items()}
+            else:
+                ratios = {n: (o_ratio(a.reshape(e.shape), e) if n == "y"
+                              else grad_ratio(a.reshape(e.shape), e))
+                          for n, (a, e) in pairs.items()}
+            check(max(ratios.values()) <= 1.0 and stat_err <= GN_STAT_RTOL,
+                  f"K9/K10 ({label}) disagree with their plain versions "
+                  f"({case}): ratios {ratios}, statistics {stat_err}")
+            return errs, ratios, stat_err
+
+        errs, ratios, stat_err = held(((y, mean, rstd),
+                                       (dx, dscale, dbias, dres)), "planned")
         worst = max(ratios.values())
-        check(worst <= 1.0 and stat_err <= GN_STAT_RTOL,
-              f"K9/K10 disagree with their plain versions ({case}): ratios "
-              f"{ratios}, statistics {stat_err}")
         # the library yardstick on the channels_last (NCHW) view
         xl, rl, dyl = (None if t is None else t.permute(0, 3, 1, 2)
                        for t in (x, r, dy))
@@ -2415,21 +2475,41 @@ def phase_gn_kernels(torch, dev, seed):
 
         lib_f = timed_ms(lib_fwd, 10, flush)
         es = x.element_size()
-        b9, b10 = (gn_bound(B, HW, C, mode, es, bw) for bw in (False, True))
+        bounds = {"K9": gn_bound(B, HW, C, mode, es, False),
+                  "K10": gn_bound(B, HW, C, mode, es, True)}
+        # the other path, forced: held to the same limits and timed
+        other = {k: p[1].path for k, p in plans.items() if p[1] is not None}
+        other_ratio = None
+        if other:
+            f_path, b_path = other.get("K9"), other.get("K10")
+            outs = (fwd(f_path) if f_path else (y, mean, rstd),
+                    bwd(b_path) if b_path else (dx, dscale, dbias, dres))
+            torch.cuda.synchronize()
+            other_ratio = max(held(outs, "other path")[1].values())
+            del outs
+        lib_b = timed_ms(lib_fwd_bwd, 10, flush) - lib_f
         row = {"case": case, "shape": [B, h, h, C], "mode": mode,
                "dtype": str(dt).replace("torch.", ""),
-               "splits": gn._splits(HW, C),
                "max_abs_err": max(errs.values()), "tol_ratio": worst,
+               "other_path_tol_ratio": other_ratio,
                "errors": errs, "ratios": ratios, "stat_rel_err": stat_err,
-               "K9": {"ms": timed_ms(fwd, 10, flush),
-                      "plain_ms": timed_ms(plain_fwd, 3, flush),
-                      "bound_ms": b9[0], "bound_by": b9[1],
-                      "library_ms": lib_f},
-               "K10": {"ms": timed_ms(bwd, 10, flush),
-                       "plain_ms": timed_ms(plain_bwd, 3, flush),
-                       "bound_ms": b10[0], "bound_by": b10[1],
-                       "library_ms": timed_ms(lib_fwd_bwd, 10, flush)
-                       - lib_f}}
+               "bitwise_repeat": bitwise}
+        for k, run, prun, lib in (("K9", fwd, plain_fwd, lib_f),
+                                  ("K10", bwd, plain_bwd, lib_b)):
+            plan, alt = plans[k]
+            ms = timed_ms(run, 10, flush)
+            row[k] = {"ms": ms, "plain_ms": timed_ms(prun, 3, flush),
+                      "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                      "share_of_bound": bounds[k][0] / ms,
+                      "library_ms": lib, "path": plan.path,
+                      "cluster": plan.parts if plan.path == "cluster"
+                      else None,
+                      "parts": plan.parts, "threads": plan.threads,
+                      "smem": plan.smem}
+            if alt is not None:
+                row[k]["other"] = {
+                    "path": alt.path, "parts": alt.parts,
+                    "ms": timed_ms(lambda: run(alt.path), 10, flush)}
         rows.append(row)
         del x, res, dy, y, dx, dres, py, pdx, pdres, xg, rg
     del flush_buf
@@ -2833,8 +2913,11 @@ def gn_site_flips(torch, mode, x, res, scale, bias):
 def gn_sites_check(torch, dev, seed):
     """The correctness half of gn_sites: the 53 sites of one train_resnet
     step, the fused op forward and backward at each with launch counts
-    reset just before and read just after (K9 = K10 = 53), held against
-    the closed form in f32.  Returns ``(sites, launches, checks)``.
+    reset just before and read just after (K9 = K10 = 53, each on the path
+    the planner gives its site: the cluster path at every site), held
+    against the closed form in f32.  Returns ``(sites, launches,
+    checks)``; ``launches["by_path"]`` gives K9's and K10's launches by
+    path.
 
     ``y`` within O_ATOL + O_RTOL·|closed form|; K9's mean and rstd within
     GN_STAT_RTOL of their max.  Every gradient element within
@@ -2853,6 +2936,16 @@ def gn_sites_check(torch, dev, seed):
     check(len(sites) == 53 and counts == {"relu": 33, "add_relu": 16,
                                           "plain": 4},
           f"gn_sites: {len(sites)} sites, modes {counts}")
+    from tpudist_torch.ops import group_norm as gn
+
+    # the paths the planner gives each site's K9 and K10
+    want_paths = {k: dict.fromkeys(gn.PATHS, 0) for k in ("K9", "K10")}
+    for _, mode, x, *_ in sites:
+        b, hh, ww, c = x.shape
+        for k, bw in (("K9", False), ("K10", True)):
+            plan = gn._gn_plan(b, hh * ww, c, torch.bfloat16, mode, bw,
+                               gn._smem_optin(x.device), GN_GROUPS)
+            want_paths[k][plan.path] += 1
     g = torch.Generator(device=dev).manual_seed(seed + 15)
     reset_launches()
     results = []
@@ -2867,8 +2960,14 @@ def gn_sites_check(torch, dev, seed):
         results.append((name, mode, y, grads, y32, want))
     torch.cuda.synchronize()
     launches = read_launches()
+    paths = {k: dict(v) for k, v in gn.PATH_LAUNCHES.items()}
     check(launches["K9"] == launches["K10"] == 53,
           f"gn_sites: launches {launches}, want 53 of K9 and K10")
+    check(paths == want_paths and want_paths["K9"]["cluster"]
+          == want_paths["K10"]["cluster"] == 53,
+          f"gn_sites: launches by path {paths}, planned {want_paths}; "
+          f"every site takes the cluster path")
+    launches["by_path"] = paths
     checks = []
     for (name, mode, y, grads, y32, want), site in zip(results, sites):
         with torch.no_grad():
@@ -3255,6 +3354,7 @@ def main(argv=None) -> int:
                                    "library_ms", "design_bound_ms",
                                    "variant")}})
     main_gn = next(r for r in gn_rows if r["case"] == "1024x256_add_relu")
+    stem_gn = next(r for r in gn_rows if r["case"].startswith("224px"))
     for key, name, line in (("K9", "group_norm_fwd (K9)", 126),
                             ("K10", "group_norm_bwd (K10)", 153)):
         kernels.append({
@@ -3262,10 +3362,16 @@ def main(argv=None) -> int:
             "source": "tpudist_torch/csrc/group_norm.cu",
             "replaces": f"tpudist/ops/group_norm.py:{line}",
             "launches": gn_launches[key],
+            "launches_by_path": gn_launches["by_path"][key],
             "max_abs_err": max(r["max_abs_err"] for r in gn_rows),
             "tol_ratio": max(r["tol_ratio"] for r in gn_rows),
             **{k: main_gn[key][k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")}})
+                                            "bound_by", "library_ms")},
+            "variant": main_gn[key]["path"],
+            "cluster": main_gn[key]["cluster"],
+            "share_of_bound": main_gn[key]["share_of_bound"],
+            "stem_ms": stem_gn[key]["ms"],
+            "stem_variant": stem_gn[key]["path"]})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -12,8 +12,11 @@ the named ``chip_smoke`` phases there (default ``kernels_bwd`` and
 the serve decode rows, ``kernels_paged`` K5 and K6 there,
 ``kernels_moe`` K7 at bench_moe's layer, the training shape, skewed
 routing and block 16, ``kernels_bwd`` and ``kernels_ring`` the backward
-(K3, K8, K4); ``train``, ``train_sp``, ``train_moe`` and ``serve`` give
-the steps and the prefill.  This script's own phases: ``k1_sp`` (K1 at
+(K3, K8, K4), ``kernels_gn`` K9 and K10 (fused GroupNorm) at ResNet50's
+site shapes, the f32 layer1 tail and the 224 px stem, with the path each
+took; ``train``, ``train_sp``, ``train_moe`` and ``serve`` give the steps
+and the prefill, ``gn_sites`` the 53 GroupNorm sites of a ResNet50 step,
+fused and closed form, summed.  This script's own phases: ``k1_sp`` (K1 at
 train_sp's shape, B=1, S=8192, H=8, Hkv=2, D=64, beside SDPA's forward,
 which older trees' phases do not time) and ``prefill`` (one 7,680-token
 prompt admitted in one shot by the serve model's ServeLoop, on the host
@@ -26,8 +29,8 @@ difference between a tree's two runs.  Prints each run's phase lines,
 then one JSON summary: per timed case, each kernel's device ms in every
 run (K1 at the serve offsets, the training shape and train_sp's shape;
 K2, K5, K6 with their split pass and merge apart where the tree times
-them; K3, K8, K4; K7 with the path it took), the bound, the library
-call's time; per step phase, ms per step, the profiled attention ms and
+them; K3, K8, K4; K7 with the path it took; K9 and K10 with theirs),
+the bound, the library call's time; per step phase, ms per step, the profiled attention ms and
 K7's; for serve, prefill and decode tokens/s.  ``--out`` writes the
 summary there as well.
 """
@@ -51,6 +54,8 @@ PHASES = {
     "train": "chip_smoke.phase_train(torch, dev, {seed})",
     "train_sp": "chip_smoke.phase_train_sp(torch, dev, {seed})",
     "serve": "chip_smoke.phase_serve(torch, dev, {seed})",
+    "kernels_gn": "chip_smoke.phase_gn_kernels(torch, dev, {seed})",
+    "gn_sites": "chip_smoke.phase_gn_sites(torch, dev, {seed})",
     "k1_sp": "k1_sp(torch, dev, {seed})",
     "prefill": "prefill(torch, dev, {seed})",
 }
@@ -211,6 +216,18 @@ def kernel_times(lines: dict) -> dict:
                       "K1_sdpa": row["K1"]["library_ms"],
                       "K1_plan": row["K1"]["plan"]})
         out[f"ring/{row['case']}"] = t
+    for row in lines.get("kernels_gn", {}).get("cases", []):
+        t = {}
+        for key in ("K9", "K10"):
+            k = row[key]
+            t.update({key: k["ms"], f"{key}_bound": k["bound_ms"],
+                      f"{key}_library": k["library_ms"]})
+            if "path" in k:   # trees before the cluster path have one
+                t[f"{key}_path"] = k["path"]
+                t[f"{key}_parts"] = k["parts"]
+                if "other" in k:
+                    t[f"{key}_other"] = k["other"]
+        out[f"gn/{row['case']}"] = t
     return out
 
 
@@ -233,6 +250,12 @@ def step_times(lines: dict) -> dict:
     if doc:
         out["prefill"] = {k: doc[k] for k in (
             "wall_ms", "device_ms", "k1_ms", "device_busy_share")}
+    doc = lines.get("gn_sites")
+    if doc:
+        out["gn_sites"] = {k: doc[k] for k in (
+            "fused_fwd_ms", "fused_fwd_bwd_ms", "closed_fwd_ms",
+            "closed_fwd_bwd_ms", "bound_fwd_ms", "bound_fwd_bwd_ms")}
+        out["gn_sites"]["launches"] = doc["launches"]
     doc = lines.get("serve")
     if doc:
         out["serve"] = {k: doc[k] for k in (

@@ -15,8 +15,10 @@ product, K7's mma.sync path with the gate left out of its epilogue,
 K7's wgmma path skipping its last f-chunk, writing the second half of d
 into the first's columns, or dropping the gate on every slot that has
 one, K8 reading the caller's Delta as zero, K9 taking the variance as
-``E[x²]`` (the ``mean²`` dropped), K10 with the ReLU mask left out —
-copies
+``E[x²]`` (the ``mean²`` dropped), K10 with the ReLU mask left out (both
+on the cluster and the two-pass path: one expression serves both), and
+the cluster path's sum over its CTAs (K9 and K10) leaving out the last
+CTA's partials — copies
 ``tpudist_torch/`` into ``DIR/<mutant>/`` (default ``_scratch/mutants``,
 git-ignored) with this tree's built kernel libraries (so only the broken
 source rebuilds), breaks the kernel source there, and runs the
@@ -61,6 +63,7 @@ K7_WG_GATE = "const float g0 = a.gate[row0 + r0], g1 = a.gate[row0 + r0 + 8];"
 K8_DELTA = "Dl[r] = q0 + r < a.Sq ? a.delta[row_base + q0 + r] : 0.f;"
 K9_VAR = "const float var = a2 / n - mean * mean;"
 K10_MASK = "(pre > 0.f ? dy : 0.f)"
+RANK_SUM = "if (r < ranks) a += v[r];"
 # the chip_smoke phase that holds the kernel, and the expression (over its
 # return value `out`) giving {case: {kernel: tol_ratio}}
 FWD_RUN = ("k1, _ = chip_smoke.phase_kernels(torch, dev, {seed})",
@@ -120,6 +123,8 @@ MUTANTS = {
     "K9_variance_without_mean_sq": (GN, GN_RUN, K9_VAR,
                                     "const float var = a2 / n;"),
     "K10_no_relu_mask": (GN, GN_RUN, K10_MASK, "dy"),
+    "cluster_sum_drops_last_rank": (GN, GN_RUN, RANK_SUM,
+                                    "if (r < ranks - 1) a += v[r];"),
 }
 
 RUNNER = r"""

@@ -7,9 +7,13 @@ store under the test's temporary directory (no port to collide on under
 xdist) and return numpy results to the parent, which compares them with
 tpudist's run on the same mesh shape of ``tests/conftest.py``'s virtual
 CPU devices.  JAX is imported only by the parent's reference helpers, so
-the ranks never import it.  Every spawn has its own time limit
-(``RANK_TIMEOUT_S``): a hung rendezvous kills the ranks and fails the
-test instead of stalling the run.
+the ranks never import it.  Every spawn has its own time limits: the
+ranks must have joined the group within ``RANK_START_S`` (spawning a
+process and importing torch, which a loaded host can slow by minutes)
+and then finish within ``RANK_TIMEOUT_S``; past either, the ranks are
+killed and the test fails, with each rank's output, instead of stalling
+the run.  A rank leaves the group only once every rank has its result, so
+none tears down its gloo connections while a peer still uses them.
 
 Tolerances (f32) are ``tests/test_torch_training.py``'s for Adam steps:
 losses atol = rtol = 1e-5; parameters after the steps every element
@@ -28,24 +32,45 @@ import numpy as np
 import pytest
 import torch
 
-RANK_TIMEOUT_S = 120
+RANK_TIMEOUT_S = 120     # a rank's work, once every rank has joined
+RANK_START_S = 600       # spawning, importing torch, joining the group
 LOSS_TOL = dict(atol=1e-5, rtol=1e-5)
 BASE = dict(vocab_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
             embed_dim=64, max_seq_len=64)
 SEQ, LR, STEPS = 64, 1e-3, 2
 
 
+def _done(out_dir, world) -> bool:
+    """Every rank has left its result, or some rank its traceback."""
+    def left(r, ext):
+        return os.path.exists(os.path.join(out_dir, f"rank{r}{ext}"))
+
+    return (any(left(r, ".err") for r in range(world))
+            or all(left(r, ".pkl") for r in range(world)))
+
+
 def _rank_entry(fn, rank, world, init_method, out_dir, args):
-    """A spawned rank: join the gloo group, run ``fn(rank, world, *args)``
-    and leave its result (or its traceback) in ``out_dir``."""
+    """A spawned rank: its output to ``rank<r>.log``; join the gloo group
+    (then ``rank<r>.up``), run ``fn(rank, world, *args)``, leave its
+    result (or its traceback) in ``out_dir``, and wait for every rank's
+    before leaving the group."""
+    log = open(os.path.join(out_dir, f"rank{rank}.log"), "w", buffering=1)
+    os.dup2(log.fileno(), 1)
+    os.dup2(log.fileno(), 2)
     torch.set_num_threads(1)
     from tpudist_torch.runtime import initialize, shutdown
 
     try:
         initialize(init_method, world, rank, device="cpu")
+        open(os.path.join(out_dir, f"rank{rank}.up"), "w").close()
         result = fn(rank, world, *args)
-        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        tmp = os.path.join(out_dir, f"rank{rank}.pkl.tmp")
+        with open(tmp, "wb") as f:
             pickle.dump(result, f)
+        os.replace(tmp, os.path.join(out_dir, f"rank{rank}.pkl"))
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        while not _done(out_dir, world) and time.monotonic() < deadline:
+            time.sleep(0.02)
     except BaseException:
         with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
             f.write(traceback.format_exc())
@@ -56,8 +81,10 @@ def _rank_entry(fn, rank, world, init_method, out_dir, args):
 
 def run_ranks(fn, world, tmp_path, *args, timeout=RANK_TIMEOUT_S):
     """``fn(rank, world, *args)`` in ``world`` spawned gloo processes; the
-    list of their return values, by rank.  Past ``timeout`` seconds the
-    ranks are killed and the test fails."""
+    list of their return values, by rank.  The ranks must join the group
+    within ``RANK_START_S`` seconds and then finish within ``timeout``;
+    past either they are killed and the test fails, showing each rank's
+    output."""
     ctx = torch.multiprocessing.get_context("spawn")
     out_dir = tmp_path / f"ranks-{uuid.uuid4().hex[:8]}"
     out_dir.mkdir()
@@ -67,7 +94,21 @@ def run_ranks(fn, world, tmp_path, *args, timeout=RANK_TIMEOUT_S):
              for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout
+
+    def logs() -> str:
+        return "".join(
+            f"\n--- rank {r} output ---\n"
+            + (out_dir / f"rank{r}.log").read_text()[-4000:]
+            for r in range(world) if (out_dir / f"rank{r}.log").exists())
+
+    start = time.monotonic()
+    while not all((out_dir / f"rank{r}.up").exists() for r in range(world)):
+        if (time.monotonic() - start > RANK_START_S
+                or any(not p.is_alive() for p in procs)):
+            break
+        time.sleep(0.05)
+    started = [r for r in range(world) if (out_dir / f"rank{r}.up").exists()]
+    deadline = time.monotonic() + (timeout if len(started) == world else 0)
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -77,12 +118,17 @@ def run_ranks(fn, world, tmp_path, *args, timeout=RANK_TIMEOUT_S):
             p.join()
     errors = [(out_dir / f"rank{r}.err").read_text()
               for r in range(world) if (out_dir / f"rank{r}.err").exists()]
+    if len(started) < world and not errors:
+        pytest.fail(f"only ranks {started} of {world} joined the group "
+                    f"within {RANK_START_S} s; exit codes "
+                    f"{[p.exitcode for p in procs]}" + logs())
     if hung:
-        pytest.fail(f"ranks {hung} still running after {timeout} s; killed"
-                    + "".join("\n" + e for e in errors))
+        pytest.fail(f"ranks {hung} still running {timeout} s after joining "
+                    f"the group; killed" + "".join("\n" + e for e in errors)
+                    + logs())
     if errors or any(p.exitcode for p in procs):
         pytest.fail("a rank failed:\n" + "\n".join(errors)
-                    + f"\nexit codes {[p.exitcode for p in procs]}")
+                    + f"\nexit codes {[p.exitcode for p in procs]}" + logs())
     results = []
     for r in range(world):
         with open(out_dir / f"rank{r}.pkl", "rb") as f:

@@ -257,16 +257,134 @@ def test_module_param_compat_and_checks(jgn):
     assert out.dtype == torch.bfloat16
 
 
-def test_splits_cover_every_row():
-    """The kernels' CTA split of a sample: whole rows, none empty, about
-    8,192 elements a CTA, at each ResNet50 site shape."""
-    for hw, c in ((4096, 64), (1024, 256), (16, 2048), (16, 512), (1, 64),
-                  (12544, 64), (35, 16)):
-        s = tg._splits(hw, c)
-        rows = -(-hw // s)
-        assert 1 <= s <= hw and (s - 1) * rows < hw <= s * rows
+# ResNet50's GroupNorm site shapes at 128 px, (H·W, C) with their modes
+# (chip_smoke.GN_SITE_SHAPES)
+SITE_SHAPES = (
+    ((4096, 64), ("relu",)), ((1024, 64), ("relu",)),
+    ((1024, 128), ("relu",)), ((1024, 256), ("add_relu", "plain")),
+    ((256, 128), ("relu",)), ((256, 256), ("relu",)),
+    ((256, 512), ("add_relu", "plain")), ((64, 256), ("relu",)),
+    ((64, 512), ("relu",)), ((64, 1024), ("add_relu", "plain")),
+    ((16, 512), ("relu",)), ((16, 2048), ("add_relu", "plain")))
+PLAN_CASES = [(128, hw, c, torch.bfloat16, mode)
+              for (hw, c), modes in SITE_SHAPES for mode in modes] + [
+    (64, 12544, 64, torch.bfloat16, "relu"),      # the 224 px stem
+    (32, 1024, 256, torch.float32, "add_relu"),   # the f32 layer1 tail
+    (2, 1, 64, torch.bfloat16, "relu"), (2, 35, 16, torch.float32, "plain"),
+    (2, 5, 4096, torch.bfloat16, "add_relu")]
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K9", "K10"])
+@pytest.mark.parametrize("b,hw,c,dtype,mode", PLAN_CASES)
+def test_splits_cover_every_row(b, hw, c, dtype, mode, backward):
+    """The planner's CTA split of a sample (``_gn_plan``): balanced whole
+    rows, none empty, covering the slab; a cluster of at most 8 CTAs
+    within the card's shared memory; the two-pass splits about 8,192
+    elements a CTA."""
+    plan = tg._gn_plan(b, hw, c, dtype, mode, backward)
+    es = dtype.itemsize
+    bounds = [p * hw // plan.parts for p in range(plan.parts + 1)]
+    assert bounds[0] == 0 and bounds[-1] == hw
+    assert all(r1 > r0 for r0, r1 in zip(bounds, bounds[1:]))
+    assert max(r1 - r0 for r0, r1 in zip(bounds, bounds[1:])) == plan.rows
+    assert plan.threads % 32 == 0 and plan.threads >= c * es // 16
+    assert plan.smem <= 232_448
+    if plan.path == "cluster":
+        assert 1 <= plan.parts <= 8
+        assert plan.rows * c * es <= tg._HOLD_CAP   # a CTA's rows of x
+        if plan.parts > 1:   # the smallest cluster that holds the slab
+            assert -(-hw // (plan.parts // 2)) * c * es > tg._HOLD_CAP
+    else:
+        assert plan.path == "two_pass"
         if hw * c >= 2 * tg._ELEMS_PER_CTA:
-            assert rows * c <= 2 * tg._ELEMS_PER_CTA
+            assert plan.rows * c <= 2 * tg._ELEMS_PER_CTA
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["K9", "K10"])
+@pytest.mark.parametrize("b,hw,c,dtype,mode", PLAN_CASES[:-3])
+def test_plan_paths_at_resnet_sites(b, hw, c, dtype, mode, backward):
+    """Every ResNet50 site shape at batch 128 in bf16 takes the cluster
+    path in both directions (the largest slabs, 4096 × 64 and 1024 × 256,
+    with a full cluster of 8, the smallest with one CTA a sample); the
+    224 px stem takes the two-pass path in both, the f32 layer1 tail too
+    (1 MB of x a sample: 128 KB a CTA of a full cluster)."""
+    plan = tg._gn_plan(b, hw, c, dtype, mode, backward)
+    if hw == 12544 or dtype == torch.float32:
+        assert plan.path == "two_pass", plan
+    else:
+        assert plan.path == "cluster", plan
+        big = hw * c * 2 == 512 * 1024
+        assert plan.parts == 8 if big else plan.parts <= 4, plan
+        if hw == 16:
+            assert plan.parts == 1, plan
+
+
+def test_plan_forced_paths_and_checks():
+    """``path`` forces a plan; the cluster path raises where a CTA's
+    shared memory would not fit, and an unknown path raises."""
+    stem = (64, 12544, 64, torch.bfloat16, "relu")
+    forced = tg._gn_plan(*stem, True, path="cluster")
+    assert (forced.path, forced.parts, forced.rows) == ("cluster", 8, 1568)
+    with pytest.raises(ValueError, match="shared memory"):
+        tg._gn_plan(64, 12544, 64, torch.float32, "relu", False,
+                    path="cluster")
+    assert tg._gn_plan(128, 1024, 256, torch.bfloat16, "relu", True,
+                       path="two_pass").path == "two_pass"
+    with pytest.raises(ValueError, match="unknown group_norm path"):
+        tg._gn_plan(128, 1024, 256, torch.bfloat16, "relu", True,
+                    path="one_pass")
+    # a card with less shared memory sends the tail's backward two-pass
+    assert tg._gn_plan(128, 1024, 256, torch.bfloat16, "add_relu", True,
+                       60_000).path == "two_pass"
+
+
+def test_cpu_calls_leave_path_counts(jgn):
+    """A CPU tensor takes the plain versions: no launch, no path count."""
+    x, scale, bias, _, dy = _data((2, 4, 4, 64), seed=4)
+    before = {k: dict(v) for k, v in tg.PATH_LAUNCHES.items()}
+    launches = (tg.GN_FWD.launches, tg.GN_BWD.launches)
+    xt = torch.from_numpy(x).requires_grad_()
+    y = tg.group_norm_act(xt, torch.from_numpy(scale),
+                          torch.from_numpy(bias), 32, EPS, "relu")
+    y.backward(torch.from_numpy(dy))
+    assert tg.PATH_LAUNCHES == before
+    assert (tg.GN_FWD.launches, tg.GN_BWD.launches) == launches
+
+
+@pytest.mark.parametrize("mode", ["plain", "relu", "add_relu"])
+def test_bwd_plain_per_sample_partials_match_pallas(jgn, mode):
+    """K10's plain version returns one ``[C]`` row of dγ and dβ partials
+    a sample; each row equals tpudist's Pallas kernel (interpret mode) on
+    that sample alone, whose summed partials are the sample's own."""
+    import jax.numpy as jnp
+
+    shape, groups = (3, 4, 4, 64), 32
+    x, scale, bias, res, dy = _data(shape, seed=6)
+    r = res if mode == "add_relu" else None
+    xt, st, bt = (torch.from_numpy(a) for a in (x, scale, bias))
+    rt = None if r is None else torch.from_numpy(r)
+    _, mean, rstd = tg._fused_call_fwd(xt, st, bt, rt, groups, EPS, mode)
+    b, h, w, c = shape
+
+    def flat(a):
+        return None if a is None else torch.from_numpy(a).reshape(b, h * w, c)
+
+    _, pds, pdb, _ = tg._fused_bwd_plain(flat(x), flat(dy), st, bt, mean,
+                                         rstd, flat(r), groups, mode)
+    assert pds.shape == pdb.shape == (b, c)
+    for i in range(b):
+        sl = slice(i, i + 1)
+        jr = None if r is None else jnp.asarray(r[sl])
+        _, jmean, jrstd = jgn._fused_call_fwd(
+            jnp.asarray(x[sl]), jnp.asarray(scale), jnp.asarray(bias), jr,
+            groups, EPS, mode)
+        _, jds, jdb, _ = jgn._fused_call_bwd(
+            jnp.asarray(x[sl]), jnp.asarray(dy[sl]), jnp.asarray(scale),
+            jnp.asarray(bias), jmean, jrstd, jr, groups, mode)
+        np.testing.assert_allclose(pds[i].numpy(), np.asarray(jds),
+                                   **GRAD_TOL)
+        np.testing.assert_allclose(pdb[i].numpy(), np.asarray(jdb),
+                                   **GRAD_TOL)
 
 
 # ---- on the card: K9 and K10 against their plain versions ------------------
@@ -288,35 +406,52 @@ CARD_SHAPES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["plain", "relu", "add_relu"])
-@pytest.mark.parametrize("case", sorted(CARD_SHAPES))
-def test_kernels_match_plain(cuda_device, case, mode, dtype):
-    """y, mean, rstd, dx, dscale, dbias and dres from K9/K10 against the
-    plain versions on the same card inputs: f32 within 1e-5·|plain| +
-    1e-5·max|plain| (sums in other orders: a dscale element sums B·H·W
-    terms, so its rounding follows the terms' size, not its own); bf16
-    outputs within one bf16 rounding of the f32 value (2^-8 relative)
-    plus 1e-2 of the tensor's max, as dx sums rounded bf16 terms in other
-    orders."""
-    shape, groups = CARD_SHAPES[case]
-    g = torch.Generator(device=cuda_device).manual_seed(0)
+def _card_inputs(shape, dtype, device, seed=0):
+    """``(x, scale, bias, res, dy)`` on the card; x with a mean of its own
+    in each channel."""
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(*s):
-        return torch.randn(*s, generator=g, device=cuda_device)
+        return torch.randn(*s, generator=g, device=device)
 
     res, dy = (rnd(*shape).to(dtype) for _ in range(2))
-    x = (rnd(*shape) + rnd(shape[-1])).to(dtype)   # a mean per channel
-    scale, bias = 1 + 0.1 * rnd(shape[-1]), 0.1 * rnd(shape[-1])
+    x = (rnd(*shape) + rnd(shape[-1])).to(dtype)
+    return x, 1 + 0.1 * rnd(shape[-1]), 0.1 * rnd(shape[-1]), res, dy
+
+
+def _hold_kernels_to_plain(x, scale, bias, res, dy, groups, mode, dtype,
+                           path):
+    """Both kernels on ``path`` against the plain versions on the same
+    inputs, the path each took, and a second call bitwise equal:
+    f32 within 1e-5·|plain| + 1e-5·max|plain| (sums in other orders: a
+    dscale element sums B·H·W terms, so its rounding follows the terms'
+    size, not its own); bf16 outputs within one bf16 rounding of the f32
+    value (2^-8 relative) plus 1e-2 of the tensor's max, as dx sums
+    rounded bf16 terms in other orders."""
     r = res if mode == "add_relu" else None
+    if path == "cluster":
+        b, h, w, c = x.shape
+        try:
+            tg._gn_plan(b, h * w, c, dtype, mode, True,
+                        tg._smem_optin(x.device), groups, "cluster")
+        except ValueError:
+            pytest.skip("the cluster path does not fit this slab's "
+                        "backward in the card's shared memory")
     k9, k10 = tg.GN_FWD.launches, tg.GN_BWD.launches
-    y, mean, rstd = tg._fused_call_fwd(x, scale, bias, r, groups, EPS, mode)
+    y, mean, rstd = tg._fused_call_fwd(x, scale, bias, r, groups, EPS, mode,
+                                       path)
+    assert tg.LAST_PATH["K9"] == path
     got_b = tg._fused_call_bwd(x, dy, scale, bias, mean, rstd, r, groups,
-                               mode)
+                               mode, path)
+    assert tg.LAST_PATH["K10"] == path
+    again = (tg._fused_call_fwd(x, scale, bias, r, groups, EPS, mode, path)
+             + tg._fused_call_bwd(x, dy, scale, bias, mean, rstd, r, groups,
+                                  mode, path))
     torch.cuda.synchronize()
-    assert (tg.GN_FWD.launches, tg.GN_BWD.launches) == (k9 + 1, k10 + 1)
-    b, h, w, c = shape
+    assert (tg.GN_FWD.launches, tg.GN_BWD.launches) == (k9 + 2, k10 + 2)
+    for a, e in zip(again, (y, mean, rstd) + got_b):
+        assert (a is None and e is None) or torch.equal(a, e)
+    b, h, w, c = x.shape
 
     def flat(t):
         return None if t is None else t.reshape(b, h * w, c)
@@ -341,3 +476,85 @@ def test_kernels_match_plain(cuda_device, case, mode, dtype):
         lim = rel * e.abs() + (1e-5 if dtype == torch.float32
                                else 1e-2) * e.abs().max()
         assert ((a - e).abs() <= lim).all(), (name, (a - e).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["cluster", "two_pass"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["plain", "relu", "add_relu"])
+@pytest.mark.parametrize("case", sorted(CARD_SHAPES))
+def test_kernels_match_plain(cuda_device, case, mode, dtype, path):
+    """y, mean, rstd, dx, dscale, dbias and dres from K9/K10 on each path
+    against the plain versions on the same card inputs."""
+    shape, groups = CARD_SHAPES[case]
+    _hold_kernels_to_plain(*_card_inputs(shape, dtype, cuda_device), groups,
+                           mode, dtype, path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["cluster", "two_pass"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hw,c,mode", [
+    (hw, c, mode) for (hw, c), modes in SITE_SHAPES for mode in modes])
+def test_kernels_match_plain_at_sites(cuda_device, hw, c, mode, dtype, path):
+    """Both paths at every ResNet50 site slab (batch 2), mode and dtype
+    (the cluster path is skipped where the planner's own check finds that
+    its backward would not fit the card's shared memory: the f32 slabs of
+    4096 × 64 and 1024 × 256)."""
+    h = int(round(hw ** 0.5))
+    _hold_kernels_to_plain(*_card_inputs((2, h, h, c), dtype, cuda_device,
+                                         seed=hw + c), 32, mode, dtype, path)
+
+
+@pytest.mark.cuda
+def test_planned_paths_on_the_card(cuda_device):
+    """The wrapper takes the planner's path and counts it: the layer1
+    tail at batch 128 on the cluster path, the 224 px stem (batch 2) on
+    the two-pass path, and the library's shared memory is the plan's
+    (``_cluster_fit`` raises otherwise)."""
+    tg.reset_path_launches()
+    for shape, path in (((128, 32, 32, 256), "cluster"),
+                        ((2, 112, 112, 64), "two_pass")):
+        x, scale, bias, res, dy = _card_inputs(shape, torch.bfloat16,
+                                               cuda_device)
+        y, mean, rstd = tg._fused_call_fwd(x, scale, bias, res, 32, EPS,
+                                           "add_relu")
+        tg._fused_call_bwd(x, dy, scale, bias, mean, rstd, res, 32,
+                           "add_relu")
+        assert tg.LAST_PATH == {"K9": path, "K10": path}
+    torch.cuda.synchronize()
+    assert tg.PATH_LAUNCHES == {k: {"two_pass": 1, "cluster": 1}
+                                for k in ("K9", "K10")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [256, 512])
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+@pytest.mark.parametrize("mode", ["relu", "add_relu"])
+def test_every_cluster_size_and_width(cuda_device, mode, parts, threads):
+    """The cluster path forced to each cluster size and CTA width at a 32
+    × 32 × 64 bf16 slab: a CTA's rows then split into commit groups that
+    end inside a batch of loads (2 rows a thread at 512 threads and 8
+    CTAs), which the kernels must neither skip nor repeat."""
+    shape = (2, 32, 32, 64)
+    x, scale, bias, res, dy = _card_inputs(shape, torch.bfloat16,
+                                           cuda_device, seed=parts)
+    rows = -(-1024 // parts)
+    plans = [tg.GnPlan("cluster", parts, rows, threads, tg._cluster_smem(
+        rows, 64, 32, 2, threads // 8, backward)) for backward in (0, 1)]
+    r = res if mode == "add_relu" else None
+    y, mean, rstd = tg._fused_call_fwd(x, scale, bias, r, 32, EPS, mode,
+                                       plans[0])
+    dx, _, _, _ = tg._fused_call_bwd(x, dy, scale, bias, mean, rstd, r, 32,
+                                     mode, plans[1])
+    b, h, w, c = shape
+    flat = (lambda t: None if t is None else t.reshape(b, h * w, c))
+    py, pmean, prstd = tg._fused_fwd_plain(flat(x), scale, bias, flat(r), 32,
+                                           EPS, mode)
+    pdx = tg._fused_bwd_plain(flat(x), flat(dy), scale, bias, mean, rstd,
+                              flat(r), 32, mode)[0]
+    torch.testing.assert_close(mean, pmean, rtol=1e-5, atol=1e-5)
+    for a, e in ((y, py), (dx, pdx)):
+        a, e = a.float().reshape(-1), e.float().reshape(-1)
+        assert ((a - e).abs() <= 2 ** -8 * e.abs()
+                + 1e-2 * e.abs().max()).all()

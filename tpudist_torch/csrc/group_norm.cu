@@ -16,48 +16,73 @@
 //   dx   = rstd·(g − mean_G(g) − x̂·mean_G(g·x̂))
 //   dres = dym                                 (add_relu)
 //
-// and per-(sample, split) partials of Σ dym·x̂ and Σ dym over rows, [C]
-// each, which the wrapper sums into dγ and dβ (tpudist sums its per-sample
-// partials over B outside the kernel).  The pre-activation is
+// and per-sample partials of Σ dym·x̂ and Σ dym over rows, [B, C] each,
+// which the wrapper sums over B into dγ and dβ (tpudist sums its
+// per-sample partials outside the kernel too).  The pre-activation is
 // group_norm.cuh's, shared with the plain versions' expression.
 //
 // What bounds them on an H100: a few FLOPs per element against 2 bytes
 // (bf16) read or written per element and tensor: memory bandwidth.  At
 // ResNet50's GroupNorm sites (batch 128, 128 px) a forward call moves
-// 16-400 MB.
+// 16-200 MB, more than the 50 MB L2 at the large sites.  A design that
+// reads its inputs twice moves 4/3 (K9) to 8/5 (K10) of the bytes bound
+// and can reach at most 75% (62.5%) of it; the first port did, with
+// small CTAs and serial reductions on top.
 //
-// What the Pallas grid did, and what this does instead:
-//  * one grid step per sample with the whole [H·W, C] slab in VMEM (hence
-//    tpudist's 2 MB fallback switch) -> nothing is held on chip across
-//    rows.  Each kernel runs two passes over a grid of (split, sample)
-//    CTAs, each CTA a contiguous range of rows of one sample, enough CTAs
-//    to fill the 132 SMs at batch 128 (about 8,192 elements a CTA):
-//      pass 1: each thread reads 16 bytes of a row (8 bf16 or 4 f32
-//        channels, coalesced along the row), accumulates per-channel sums
-//        in f32 registers over its rows, and the CTA reduces them through
-//        shared memory in a fixed order into per-split partials in global
-//        memory (K9: per group Σx and Σx²; K10: per channel Σ dym·x̂ and
-//        Σ dym);
-//      pass 2: each CTA first folds its sample's partials, in split order,
-//        into the group statistics (K9: mean, rstd, a thread a group; K10:
-//        mean_G(g) and mean_G(g·x̂) from Σ g = γ·Σ dym per channel, a
-//        thread a channel, then a thread a group), then makes its
-//        elementwise pass over its rows;
-//  * the one-hot [C, G] matmuls that Mosaic needed for group sums ->
-//    channel ch belongs to group ch / (C / G); sums run over a group's
-//    channels in order.
-// No atomics: every sum has a fixed order, so results repeat run to run.
-// Each pass reads its inputs once, so a call reads them twice: expect at
-// least twice the bytes bound.  Not yet done (later work): one pass with
-// a grid-wide barrier or a cluster reduction for slabs that fit on chip.
+// The Pallas kernel held one sample's [H·W, C] slab in VMEM per grid step
+// (hence tpudist's 2 MB switch).  Here, two paths, chosen per shape by
+// the wrapper's planner (ops/group_norm.py::_gn_plan):
+//
+//  * cluster (one pass): a thread-block cluster of N <= 8 CTAs serves one
+//    sample; CTA r holds rows [r·HW/N, (r+1)·HW/N) of x in its shared
+//    memory, copied in by cp.async in four commit groups so that it sums
+//    the first rows while the last ones arrive.  Each thread owns one
+//    16-byte column of the rows (8 bf16 or 4 f32 channels) and every
+//    slots-th row, and reads back only what it copied itself, so the
+//    copies need no CTA barrier.  The CTA's per-channel sums go through a
+//    fixed-order tree over its row slots; then the cluster barrier, and
+//    every CTA adds all CTAs' partials from distributed shared memory in
+//    rank order (K9: Σx, Σx² per group; K10: Σ dym·x̂, Σ dym per channel,
+//    which rank 0 also writes out as the sample's [C] partial).  The
+//    elementwise pass runs on the x it holds, so x is read from device
+//    memory once.  K10 streams dy and the residual through registers in
+//    its first phase and writes dres = dym there (the residual is read
+//    once); its second phase reads dym back — dres, or dy masked again
+//    from the held x with the same expression — from the L2, where a CTA's
+//    few tens of KB stay between its two phases.  A CTA leaves only after
+//    every CTA of its cluster has read its partials (split cluster
+//    barrier: arrive after the reads, wait at the end).
+//
+//    Why K10 does not hold dy too: clusters of 8 are placed on one GPC, so
+//    the card keeps few resident (measured on an H100: 45 clusters of 8
+//    CTAs at 74 KB of shared memory, 15 at 141 KB and more, i.e. one CTA
+//    an SM with 12 SMs idle); a CTA that holds x alone (at most 64 KB,
+//    the planner's cap) leaves room for three an SM, whose loads overlap
+//    each other's reductions and barriers.  For the same reason the
+//    planner takes the smallest cluster whose CTAs hold at most 64 KB: a
+//    cluster of one CTA for the small slabs of ResNet's later stages.
+//  * two-pass, for slabs a cluster of 8 cannot hold within that cap (the
+//    224 px stem; f32 at the largest sites): pass 1 over (split, sample)
+//    CTAs writes per-split partials; a fold kernel adds a sample's
+//    partials in split order once (K9: mean, rstd; K10: the sample's [C]
+//    partials and the group means mean_G(g), mean_G(g·x̂)); pass 2 reads
+//    the inputs again.  It reads its inputs twice by construction.
+//
+// Both paths keep each thread's per-channel constants (mean, rstd, γ, β,
+// and K10's group means) in registers, and keep four 16-byte loads a
+// thread in flight where they stream from device memory.  No atomics:
+// every sum has a fixed order, so a second call is bitwise equal.  Both
+// paths compute the statistics through group_stats and the mask through
+// masked_dy, so the two paths share one expression of each.
 //
 // Constraints (the wrapper checks them and raises): x, dy, res contiguous
 // [B, H·W, C] of one dtype, rows of at most 512 16-byte vectors (C ≤ 4096
 // bf16, ≤ 2048 f32) and a multiple of 16 bytes, C a multiple of G,
-// B ≤ 65535.
+// B ≤ 65535; a plan's parts (splits, or the cluster size ≤ 8) ≤ H·W.
 
 #include "common.cuh"
 #include "group_norm.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -65,27 +90,40 @@ using tpudist::from_f32;
 using tpudist::gn_pre;
 using tpudist::gn_xhat;
 using tpudist::to_f32;
+namespace sm90 = tpudist::sm90;
 
 enum Mode { kPlain = 0, kRelu = 1, kAddRelu = 2 };
-constexpr int kMinThreads = 256;
+enum Path { kTwoPass = 0, kCluster = 1 };
 constexpr int kMaxVecsPerRow = 512;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxCluster = 8;
+constexpr int kMaxSmem = 232448;  // a CTA's opt-in shared memory on an H100
+constexpr int kStages = 4;        // cp.async commit groups of a thread's rows
+constexpr int kBatch = 4;         // 16-byte loads a thread keeps in flight
 
 struct Shape {
-  int b, hw, c, groups, splits;
-  int rows;   // rows of one split (the last may have fewer)
-  int vpr;    // 16-byte vectors per row
-  int slots;  // rows a CTA reads at once in pass 1: threads / vpr
+  int b, hw, c, groups;
+  int parts;  // CTAs a sample: the splits (two-pass) or the cluster size
+  int rows;   // rows of the largest part: ceil(hw / parts)
+  int vpr;    // 16-byte vectors a row
+  int slots;  // rows a CTA visits at once: threads / vpr
+  int tree;   // first step of the slot tree: half the power of 2 >= slots
 };
 
 template <typename T>
 constexpr int kVec = 16 / (int)sizeof(T);
 
 template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, float (&v)[kVec<T>]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+__device__ __forceinline__ void unpack(const uint4& raw,
+                                       float (&v)[kVec<T>]) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
   for (int i = 0; i < kVec<T>; ++i) v[i] = to_f32<T>(e[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[kVec<T>]) {
+  unpack<T>(*reinterpret_cast<const uint4*>(p), v);
 }
 
 template <typename T>
@@ -97,422 +135,966 @@ __device__ __forceinline__ void store_vec(T* p, const float (&v)[kVec<T>]) {
   *reinterpret_cast<uint4*>(p) = raw;
 }
 
+// mean and rstd of a group from its sums a = Σx and a2 = Σx² over n
+// elements: tpudist's variance, E[x²] − mean², and eps inside the rsqrt.
+__device__ __forceinline__ void group_stats(float a, float a2, float n,
+                                            float eps, float& mean,
+                                            float& rstd) {
+  mean = a / n;
+  const float var = a2 / n - mean * mean;
+  rstd = 1.f / sqrtf(var + eps);
+}
+
 // dy masked by the pre-activation in the ReLU modes (K10's mask).
 template <int MODE>
 __device__ __forceinline__ float masked_dy(float dy, float pre) {
   return MODE == kPlain ? dy : (pre > 0.f ? dy : 0.f);
 }
 
-// The pre-activation of channel ch of one element (res: the residual's
-// value, read only in add_relu mode).
+// The pre-activation of one element (res: the residual's value, read only
+// in add_relu mode).
 template <int MODE>
-__device__ __forceinline__ float pre_act(float xh, int ch, float res,
-                                         const float* __restrict__ scale,
-                                         const float* __restrict__ bias) {
-  float pre = gn_pre(xh, __ldg(scale + ch), __ldg(bias + ch));
+__device__ __forceinline__ float pre_act(float xh, float gamma, float beta,
+                                         float res) {
+  float pre = gn_pre(xh, gamma, beta);
   if (MODE == kAddRelu) pre = __fadd_rn(pre, res);
   return pre;
 }
 
-// Pass 1's reduction: each thread's per-channel sums acc (and acc2) of
-// its vector column, over the CTA's row slots, into per-channel totals in
-// sm[0 .. c) (and sm[slots·c .. slots·c + c)), slot by slot in order.
-// sm holds 2·slots·c floats.
-template <int V>
-__device__ __forceinline__ void reduce_slots(float* sm, const Shape& s,
-                                             int slot, int col,
-                                             const float (&acc)[V],
-                                             const float (&acc2)[V]) {
-  float* sm2 = sm + s.slots * s.c;
-  if (slot < s.slots) {
-#pragma unroll
-    for (int i = 0; i < V; ++i) {
-      sm[slot * s.c + col * V + i] = acc[i];
-      sm2[slot * s.c + col * V + i] = acc2[i];
-    }
-  }
-  __syncthreads();
-  for (int ch = threadIdx.x; ch < s.c; ch += blockDim.x) {
-    float a = 0.f, a2 = 0.f;
-    for (int k = 0; k < s.slots; ++k) {
-      a += sm[k * s.c + ch];
-      a2 += sm2[k * s.c + ch];
-    }
-    sm[ch] = a;    // column ch is this thread's alone
-    sm2[ch] = a2;
-  }
-  __syncthreads();
+// Rows [part_row(p), part_row(p + 1)) of a sample are part p's: balanced,
+// none empty while parts <= hw.
+__device__ __forceinline__ int part_row(const Shape& s, int p) {
+  return (int)((long long)p * s.hw / s.parts);
 }
 
-// K9 pass 1: per (sample, split, group) partial Σx and Σx² into
-// part[((b·splits + split)·G + g)·2 + {0, 1}].
-template <typename T>
-__global__ void gn_fwd_stats(const T* __restrict__ x, float* __restrict__ part,
-                             Shape s) {
+// A thread's share of a part: its 16-byte column col, its row slot, the
+// count nk of the part's rows it visits (r0 + slot + k·slots), the
+// element offset of its first vector in [B, HW, C] and in the part's
+// held rows, and the elements between its rows (in both).
+struct Lane {
+  int col, slot, nk;
+  long long off;
+  int held, step;
+};
+
+template <int V>
+__device__ __forceinline__ Lane lane_of(const Shape& s, int b, int r0,
+                                        int r1) {
+  Lane l;
+  l.col = threadIdx.x % s.vpr;
+  l.slot = threadIdx.x / s.vpr;
+  const int n = r1 - r0;
+  l.nk = l.slot < s.slots && l.slot < n ? (n - l.slot + s.slots - 1) / s.slots
+                                        : 0;
+  l.off = ((long long)b * s.hw + r0 + l.slot) * s.c + l.col * V;
+  l.held = l.slot * s.c + l.col * V;
+  l.step = s.slots * s.c;
+  return l;
+}
+
+// This thread's per-channel values of a [C] array (γ, β).
+template <int V>
+__device__ __forceinline__ void channel_vals(const float* __restrict__ p,
+                                             int ch0, float (&v)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = __ldg(p + ch0 + j);
+}
+
+// This thread's per-channel values of a [G] group array (mean, rstd, the
+// group means), from shared or device memory.
+template <int V>
+__device__ __forceinline__ void group_vals(const float* p, int ch0, int cpg,
+                                           float (&v)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = p[(ch0 + j) / cpg];
+}
+
+// Sums each thread's V per-channel values over the CTA's row slots into
+// red[0 .. c): every slot stores its values, then slot i adds slot i + h
+// for h halving from s.tree — one fixed order.  red holds slots·c floats;
+// the caller syncs before red is written again.
+template <int V>
+__device__ __forceinline__ void slot_sum(float* red, const Shape& s,
+                                         const Lane& l, const float (&v)[V]) {
+  float4* mine = reinterpret_cast<float4*>(red + l.held);
+  if (l.slot < s.slots) {
+#pragma unroll
+    for (int i = 0; i < V / 4; ++i)
+      mine[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                            v[4 * i + 3]);
+  }
+  __syncthreads();
+  for (int h = s.tree; h > 0; h >>= 1) {
+    if (l.slot < h && l.slot + h < s.slots) {
+      const float4* other = mine + h * s.c / 4;
+#pragma unroll
+      for (int i = 0; i < V / 4; ++i) {
+        const float4 a = mine[i], o = other[i];
+        mine[i] = make_float4(a.x + o.x, a.y + o.y, a.z + o.z, a.w + o.w);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Σ over group g's channels of per-channel sums, in channel order.
+__device__ __forceinline__ float group_total(const float* sums, int g,
+                                             int cpg) {
+  float a = 0.f;
+  for (int k = 0; k < cpg; ++k) a += sums[g * cpg + k];
+  return a;
+}
+
+// Σ over the cluster's ranks CTAs, in rank order, of element i of the
+// shared array p (the same place in each CTA); after cluster_sync.
+__device__ __forceinline__ float rank_sum(const float* p, int i, int ranks) {
+  float v[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    v[r] = r < ranks ? sm90::cluster_ptr(p, r)[i] : 0.f;
+  float a = 0.f;
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r)
+    if (r < ranks) a += v[r];
+  return a;
+}
+
+// The end of commit group q of a thread's nk rows (kStages groups).
+__device__ __forceinline__ int stage_end(int nk, int q) {
+  return nk * (q + 1) / kStages;
+}
+
+// Waits until the copies of commit groups 0 .. q have landed.
+__device__ __forceinline__ void wait_stage(int q) {
+  if (q == 0) {
+    sm90::cp_async_wait<kStages - 1>();
+  } else if (q == 1) {
+    sm90::cp_async_wait<kStages - 2>();
+  } else if (q == 2) {
+    sm90::cp_async_wait<kStages - 3>();
+  } else {
+    sm90::cp_async_wait<0>();
+  }
+}
+
+// Copies this thread's rows of N tensors (src[i] + off + k·step, device)
+// into shared memory (dst[i] + held + k·step) by cp.async, in kStages
+// commit groups.
+template <typename T, int N>
+__device__ __forceinline__ void copy_rows(const T* const (&src)[N],
+                                          T* const (&dst)[N], const Lane& l,
+                                          long long gstep) {
+  int k = 0;
+#pragma unroll
+  for (int q = 0; q < kStages; ++q) {
+    for (const int e = stage_end(l.nk, q); k < e; ++k) {
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        sm90::cp_async16(sm90::smem_u32(dst[i] + l.held + k * l.step),
+                         src[i] + l.off + k * gstep, true);
+    }
+    sm90::cp_async_commit();
+  }
+}
+
+__host__ __device__ int red_floats(const Shape& s) {
+  return (s.slots > 2 ? s.slots : 2) * s.c;
+}
+
+// ---- the cluster path ------------------------------------------------------
+
+// K9, one pass.  Shared memory: x's rows [rows][c], red [max(slots, 2)][c],
+// this CTA's Σx and Σx² by group [2][G], the sample's mean and rstd
+// [2][G].  Grid (N, B), cluster (N, 1, 1).
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kMaxThreads)
+    gn_fwd_cluster(const T* __restrict__ x, const T* __restrict__ res,
+                   const float* __restrict__ scale,
+                   const float* __restrict__ bias, T* __restrict__ y,
+                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                   Shape s, float eps) {
   constexpr int V = kVec<T>;
-  extern __shared__ float sm[];
-  const int b = blockIdx.y, sp = blockIdx.x;
-  const int r0 = sp * s.rows, r1 = min(s.hw, r0 + s.rows);
-  const int col = threadIdx.x % s.vpr, slot = threadIdx.x / s.vpr;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(xs + (size_t)s.rows * s.c);
+  float* part = red + red_floats(s);
+  float* stat = part + 2 * s.groups;
+  const int rank = blockIdx.x, b = blockIdx.y, G = s.groups;
+  const int cpg = s.c / G;
+  const Lane l = lane_of<V>(s, b, part_row(s, rank), part_row(s, rank + 1));
+  const long long gstep = (long long)s.slots * s.c;
+  {
+    const T* src[1] = {x};
+    T* const dst[1] = {xs};
+    copy_rows<T, 1>(src, dst, l, gstep);
+  }
   float acc[V], acc2[V];
 #pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = acc2[i] = 0.f;
-  if (slot < s.slots) {
-    const T* xb = x + (long long)b * s.hw * s.c + col * V;
-    for (int r = r0 + slot; r < r1; r += s.slots) {
-      float v[V];
-      load_vec<T>(xb + (long long)r * s.c, v);
+  for (int j = 0; j < V; ++j) acc[j] = acc2[j] = 0.f;
+  int k = 0;
 #pragma unroll
-      for (int i = 0; i < V; ++i) {
-        acc[i] += v[i];
-        acc2[i] += v[i] * v[i];
+  for (int q = 0; q < kStages; ++q) {
+    wait_stage(q);
+    for (const int e = stage_end(l.nk, q); k < e; ++k) {
+      float v[V];
+      load_vec<T>(xs + l.held + k * l.step, v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        acc[j] += v[j];
+        acc2[j] += v[j] * v[j];
       }
     }
   }
-  reduce_slots<V>(sm, s, slot, col, acc, acc2);
-  const int cpg = s.c / s.groups;
-  const float* sm2 = sm + s.slots * s.c;
-  for (int g = threadIdx.x; g < s.groups; g += blockDim.x) {
-    float a = 0.f, a2 = 0.f;
-    for (int k = 0; k < cpg; ++k) {
-      a += sm[g * cpg + k];
-      a2 += sm2[g * cpg + k];
-    }
-    float* out = part + (((long long)b * s.splits + sp) * s.groups + g) * 2;
-    out[0] = a;
-    out[1] = a2;
-  }
-}
-
-// K9 pass 2: the group statistics from the partials (CTA split 0 also
-// writes them out), then y over the CTA's rows.
-template <typename T, int MODE>
-__global__ void gn_fwd_apply(const T* __restrict__ x, const T* __restrict__ res,
-                             const float* __restrict__ scale,
-                             const float* __restrict__ bias,
-                             const float* __restrict__ part,
-                             T* __restrict__ y, float* __restrict__ mean_out,
-                             float* __restrict__ rstd_out, Shape s, float eps) {
-  constexpr int V = kVec<T>;
-  extern __shared__ float sm[];
-  float* s_mean = sm;
-  float* s_rstd = sm + s.groups;
-  const int b = blockIdx.y, sp = blockIdx.x;
-  const int cpg = s.c / s.groups;
+  slot_sum<V>(red, s, l, acc);
+  for (int g = threadIdx.x; g < G; g += blockDim.x)
+    part[g] = group_total(red, g, cpg);
+  __syncthreads();
+  slot_sum<V>(red, s, l, acc2);
+  for (int g = threadIdx.x; g < G; g += blockDim.x)
+    part[G + g] = group_total(red, g, cpg);
+  sm90::cluster_sync();
   const float n = (float)s.hw * (float)cpg;
-  for (int g = threadIdx.x; g < s.groups; g += blockDim.x) {
-    float a = 0.f, a2 = 0.f;
-    for (int k = 0; k < s.splits; ++k) {
-      const float* p = part + (((long long)b * s.splits + k) * s.groups + g) * 2;
-      a += p[0];
-      a2 += p[1];
-    }
-    const float mean = a / n;
-    const float var = a2 / n - mean * mean;
-    const float rstd = 1.f / sqrtf(var + eps);
-    s_mean[g] = mean;
-    s_rstd[g] = rstd;
-    if (sp == 0) {
-      mean_out[(long long)b * s.groups + g] = mean;
-      rstd_out[(long long)b * s.groups + g] = rstd;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float mean, rstd;
+    group_stats(rank_sum(part, g, s.parts), rank_sum(part, G + g, s.parts),
+                n, eps, mean, rstd);
+    stat[g] = mean;
+    stat[G + g] = rstd;
+    if (rank == 0) {
+      mean_out[(long long)b * G + g] = mean;
+      rstd_out[(long long)b * G + g] = rstd;
     }
   }
   __syncthreads();
-  const int r0 = sp * s.rows, r1 = min(s.hw, r0 + s.rows);
-  const long long base = (long long)b * s.hw * s.c;
-  for (int i = r0 * s.vpr + threadIdx.x; i < r1 * s.vpr; i += blockDim.x) {
-    const int ch0 = (i % s.vpr) * V;
-    const long long off = base + (long long)(i / s.vpr) * s.c + ch0;
-    float v[V], rv[V];
-    load_vec<T>(x + off, v);
-    if (MODE == kAddRelu) load_vec<T>(res + off, rv);
+  sm90::cluster_arrive();  // this CTA has read the others' partials
+  const int ch0 = l.col * V;
+  float mu[V], rs[V], gam[V], bet[V];
+  group_vals<V>(stat, ch0, cpg, mu);
+  group_vals<V>(stat + G, ch0, cpg, rs);
+  channel_vals<V>(scale, ch0, gam);
+  channel_vals<V>(bias, ch0, bet);
+  for (int k0 = 0; k0 < l.nk; k0 += kBatch) {
+    uint4 rraw[kBatch];
+    if (MODE == kAddRelu) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int ch = ch0 + j, g = ch / cpg;
-      float pre = pre_act<MODE>(gn_xhat(v[j], s_mean[g], s_rstd[g]), ch,
-                                MODE == kAddRelu ? rv[j] : 0.f, scale, bias);
-      if (MODE != kPlain) pre = pre < 0.f ? 0.f : pre;
-      v[j] = pre;
+      for (int u = 0; u < kBatch; ++u)
+        if (k0 + u < l.nk)
+          rraw[u] = *reinterpret_cast<const uint4*>(res + l.off +
+                                                    (k0 + u) * gstep);
     }
-    store_vec<T>(y + off, v);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u >= l.nk) break;
+      float v[V], rv[V];
+      load_vec<T>(xs + l.held + (k0 + u) * l.step, v);
+      if (MODE == kAddRelu) unpack<T>(rraw[u], rv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float pre = pre_act<MODE>(gn_xhat(v[j], mu[j], rs[j]), gam[j], bet[j],
+                                  MODE == kAddRelu ? rv[j] : 0.f);
+        if (MODE != kPlain) pre = pre < 0.f ? 0.f : pre;
+        v[j] = pre;
+      }
+      store_vec<T>(y + l.off + (k0 + u) * gstep, v);
+    }
+  }
+  sm90::cluster_wait();
+}
+
+// K10, one pass.  Shared memory: the rows of x [rows][c], red
+// [max(slots, 2)][c], this CTA's Σ dym·x̂ and Σ dym by channel [2][C], the
+// group means mean_G(g), mean_G(g·x̂) [2][G].  dy (and the residual) stream
+// through registers in the first phase, which writes dres = dym; the
+// second reads dym back (dres, or dy masked again from the held x: the
+// same expression), from the L2 where it has stayed since the first.
+// Grid (N, B), cluster (N, 1, 1).
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kMaxThreads)
+    gn_bwd_cluster(const T* __restrict__ x, const T* __restrict__ dy,
+                   const T* __restrict__ res, const float* __restrict__ scale,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ mean,
+                   const float* __restrict__ rstd,
+                   float* __restrict__ part_dscale,
+                   float* __restrict__ part_dbias, T* __restrict__ dx,
+                   T* dres, Shape s) {
+  constexpr int V = kVec<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* xs = reinterpret_cast<T*>(smem);
+  float* red = reinterpret_cast<float*>(xs + (size_t)s.rows * s.c);
+  float* part = red + red_floats(s);
+  float* gm = part + 2 * s.c;
+  const int rank = blockIdx.x, b = blockIdx.y, G = s.groups, C = s.c;
+  const int cpg = C / G;
+  const Lane l = lane_of<V>(s, b, part_row(s, rank), part_row(s, rank + 1));
+  const long long gstep = (long long)s.slots * C;
+  {
+    const T* src[1] = {x};
+    T* const dst[1] = {xs};
+    copy_rows<T, 1>(src, dst, l, gstep);
+  }
+  const int ch0 = l.col * V;
+  float mu[V], rs[V], gam[V], bet[V];
+  group_vals<V>(mean + (long long)b * G, ch0, cpg, mu);
+  group_vals<V>(rstd + (long long)b * G, ch0, cpg, rs);
+  channel_vals<V>(scale, ch0, gam);
+  channel_vals<V>(bias, ch0, bet);
+  float acc_xh[V], acc_dy[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc_xh[j] = acc_dy[j] = 0.f;
+  int k = 0;
+#pragma unroll
+  for (int q = 0; q < kStages; ++q) {
+    wait_stage(q);
+    const int e = stage_end(l.nk, q);
+    for (; k < e; k += kBatch) {
+      uint4 draw[kBatch], rraw[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (k + u < e) {
+          const long long at = l.off + (k + u) * gstep;
+          draw[u] = *reinterpret_cast<const uint4*>(dy + at);
+          if (MODE == kAddRelu)
+            rraw[u] = *reinterpret_cast<const uint4*>(res + at);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (k + u >= e) break;
+        float v[V], d[V], rv[V];
+        load_vec<T>(xs + l.held + (k + u) * l.step, v);
+        unpack<T>(draw[u], d);
+        if (MODE == kAddRelu) unpack<T>(rraw[u], rv);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float xh = gn_xhat(v[j], mu[j], rs[j]);
+          if (MODE != kPlain) {
+            d[j] = masked_dy<MODE>(d[j], pre_act<MODE>(
+                xh, gam[j], bet[j], MODE == kAddRelu ? rv[j] : 0.f));
+          }
+          acc_xh[j] += d[j] * xh;
+          acc_dy[j] += d[j];
+        }
+        if (MODE == kAddRelu)
+          store_vec<T>(dres + l.off + (k + u) * gstep, d);
+      }
+    }
+    k = e;  // the last batch may reach past the group's end
+  }
+  slot_sum<V>(red, s, l, acc_xh);
+  for (int ch = threadIdx.x; ch < C; ch += blockDim.x) part[ch] = red[ch];
+  __syncthreads();
+  slot_sum<V>(red, s, l, acc_dy);
+  for (int ch = threadIdx.x; ch < C; ch += blockDim.x) part[C + ch] = red[ch];
+  sm90::cluster_sync();
+  // Σ g = γ·Σ dym and Σ g·x̂ = γ·Σ dym·x̂ per channel, into red
+  for (int ch = threadIdx.x; ch < C; ch += blockDim.x) {
+    const float sx = rank_sum(part, ch, s.parts);
+    const float sd = rank_sum(part, C + ch, s.parts);
+    if (rank == 0) {
+      part_dscale[(long long)b * C + ch] = sx;
+      part_dbias[(long long)b * C + ch] = sd;
+    }
+    const float gamma = __ldg(scale + ch);
+    red[ch] = gamma * sd;
+    red[C + ch] = gamma * sx;
+  }
+  __syncthreads();
+  const float n = (float)s.hw * (float)cpg;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    gm[g] = group_total(red, g, cpg) / n;
+    gm[G + g] = group_total(red + C, g, cpg) / n;
+  }
+  __syncthreads();
+  sm90::cluster_arrive();  // this CTA has read the others' partials
+  float m1[V], m2[V];
+  group_vals<V>(gm, ch0, cpg, m1);
+  group_vals<V>(gm + G, ch0, cpg, m2);
+  // dym again: dres as written above, or dy masked again
+  const T* dsrc = MODE == kAddRelu ? dres : dy;
+  for (k = 0; k < l.nk; k += kBatch) {
+    uint4 draw[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (k + u < l.nk)
+        draw[u] = *reinterpret_cast<const uint4*>(dsrc + l.off +
+                                                  (k + u) * gstep);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k + u >= l.nk) break;
+      float v[V], d[V];
+      load_vec<T>(xs + l.held + (k + u) * l.step, v);
+      unpack<T>(draw[u], d);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xh = gn_xhat(v[j], mu[j], rs[j]);
+        if (MODE == kRelu)
+          d[j] = masked_dy<MODE>(d[j], pre_act<MODE>(xh, gam[j], bet[j], 0.f));
+        const float gg = d[j] * gam[j];
+        d[j] = rs[j] * (gg - m1[j] - xh * m2[j]);
+      }
+      store_vec<T>(dx + l.off + (k + u) * gstep, d);
+    }
+  }
+  sm90::cluster_wait();
+}
+
+// ---- the two-pass path -----------------------------------------------------
+
+// K9 pass 1: per (sample, split, group) partial Σx and Σx² into
+// part[((b·splits + split)·G + g)·2 + {0, 1}].  Shared memory: red.
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads)
+    gn_fwd_stats(const T* __restrict__ x, float* __restrict__ part, Shape s) {
+  constexpr int V = kVec<T>;
+  extern __shared__ __align__(16) float red[];
+  const int sp = blockIdx.x, b = blockIdx.y, G = s.groups;
+  const Lane l = lane_of<V>(s, b, part_row(s, sp), part_row(s, sp + 1));
+  const long long gstep = (long long)s.slots * s.c;
+  float acc[V], acc2[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = acc2[j] = 0.f;
+  for (int k0 = 0; k0 < l.nk; k0 += kBatch) {
+    uint4 raw[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      if (k0 + u < l.nk)
+        raw[u] = *reinterpret_cast<const uint4*>(x + l.off + (k0 + u) * gstep);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u >= l.nk) break;
+      float v[V];
+      unpack<T>(raw[u], v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        acc[j] += v[j];
+        acc2[j] += v[j] * v[j];
+      }
+    }
+  }
+  const int cpg = s.c / G;
+  float* out = part + ((long long)b * s.parts + sp) * G * 2;
+  slot_sum<V>(red, s, l, acc);
+  for (int g = threadIdx.x; g < G; g += blockDim.x)
+    out[2 * g] = group_total(red, g, cpg);
+  __syncthreads();
+  slot_sum<V>(red, s, l, acc2);
+  for (int g = threadIdx.x; g < G; g += blockDim.x)
+    out[2 * g + 1] = group_total(red, g, cpg);
+}
+
+// K9's fold: a sample's partials in split order -> mean, rstd [B, G].
+// Grid B.
+__global__ void gn_fwd_fold(const float* __restrict__ part,
+                            float* __restrict__ mean_out,
+                            float* __restrict__ rstd_out, Shape s,
+                            float eps) {
+  const int b = blockIdx.x, G = s.groups;
+  const float n = (float)s.hw * (float)(s.c / G);
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    float a = 0.f, a2 = 0.f;
+    for (int sp = 0; sp < s.parts; ++sp) {
+      const float* p = part + (((long long)b * s.parts + sp) * G + g) * 2;
+      a += p[0];
+      a2 += p[1];
+    }
+    group_stats(a, a2, n, eps, mean_out[(long long)b * G + g],
+                rstd_out[(long long)b * G + g]);
   }
 }
 
-// K10 pass 1: per (sample, split, channel) partial Σ dym·x̂ and Σ dym.
+// K9 pass 2: y over the CTA's rows.
 template <typename T, int MODE>
-__global__ void gn_bwd_reduce(const T* __restrict__ x, const T* __restrict__ dy,
-                              const T* __restrict__ res,
-                              const float* __restrict__ scale,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ mean,
-                              const float* __restrict__ rstd,
-                              float* __restrict__ part_dscale,
-                              float* __restrict__ part_dbias, Shape s) {
+__global__ void __launch_bounds__(kMaxThreads)
+    gn_fwd_apply(const T* __restrict__ x, const T* __restrict__ res,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ mean,
+                 const float* __restrict__ rstd, T* __restrict__ y, Shape s) {
   constexpr int V = kVec<T>;
-  extern __shared__ float sm[];
-  const int b = blockIdx.y, sp = blockIdx.x;
-  const int r0 = sp * s.rows, r1 = min(s.hw, r0 + s.rows);
-  const int col = threadIdx.x % s.vpr, slot = threadIdx.x / s.vpr;
-  const int cpg = s.c / s.groups;
+  const int sp = blockIdx.x, b = blockIdx.y, G = s.groups;
+  const Lane l = lane_of<V>(s, b, part_row(s, sp), part_row(s, sp + 1));
+  const long long gstep = (long long)s.slots * s.c;
+  const int ch0 = l.col * V, cpg = s.c / G;
+  float mu[V], rs[V], gam[V], bet[V];
+  group_vals<V>(mean + (long long)b * G, ch0, cpg, mu);
+  group_vals<V>(rstd + (long long)b * G, ch0, cpg, rs);
+  channel_vals<V>(scale, ch0, gam);
+  channel_vals<V>(bias, ch0, bet);
+  for (int k0 = 0; k0 < l.nk; k0 += kBatch) {
+    uint4 xraw[kBatch], rraw[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u < l.nk) {
+        const long long at = l.off + (k0 + u) * gstep;
+        xraw[u] = *reinterpret_cast<const uint4*>(x + at);
+        if (MODE == kAddRelu)
+          rraw[u] = *reinterpret_cast<const uint4*>(res + at);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u >= l.nk) break;
+      float v[V], rv[V];
+      unpack<T>(xraw[u], v);
+      if (MODE == kAddRelu) unpack<T>(rraw[u], rv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        float pre = pre_act<MODE>(gn_xhat(v[j], mu[j], rs[j]), gam[j], bet[j],
+                                  MODE == kAddRelu ? rv[j] : 0.f);
+        if (MODE != kPlain) pre = pre < 0.f ? 0.f : pre;
+        v[j] = pre;
+      }
+      store_vec<T>(y + l.off + (k0 + u) * gstep, v);
+    }
+  }
+}
+
+// K10 pass 1: per (sample, split, channel) partial Σ dym·x̂ and Σ dym into
+// work_dscale, work_dbias [B·splits, C].  Shared memory: red.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kMaxThreads)
+    gn_bwd_reduce(const T* __restrict__ x, const T* __restrict__ dy,
+                  const T* __restrict__ res, const float* __restrict__ scale,
+                  const float* __restrict__ bias,
+                  const float* __restrict__ mean,
+                  const float* __restrict__ rstd,
+                  float* __restrict__ work_dscale,
+                  float* __restrict__ work_dbias, Shape s) {
+  constexpr int V = kVec<T>;
+  extern __shared__ __align__(16) float red[];
+  const int sp = blockIdx.x, b = blockIdx.y, G = s.groups;
+  const Lane l = lane_of<V>(s, b, part_row(s, sp), part_row(s, sp + 1));
+  const long long gstep = (long long)s.slots * s.c;
+  const int ch0 = l.col * V, cpg = s.c / G;
+  float mu[V], rs[V], gam[V], bet[V];
+  group_vals<V>(mean + (long long)b * G, ch0, cpg, mu);
+  group_vals<V>(rstd + (long long)b * G, ch0, cpg, rs);
+  channel_vals<V>(scale, ch0, gam);
+  channel_vals<V>(bias, ch0, bet);
   float acc_xh[V], acc_dy[V];
 #pragma unroll
-  for (int i = 0; i < V; ++i) acc_xh[i] = acc_dy[i] = 0.f;
-  if (slot < s.slots) {
-    float mu[V], rs[V];
+  for (int j = 0; j < V; ++j) acc_xh[j] = acc_dy[j] = 0.f;
+  for (int k0 = 0; k0 < l.nk; k0 += kBatch) {
+    uint4 xraw[kBatch], draw[kBatch], rraw[kBatch];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int g = (col * V + j) / cpg;
-      mu[j] = mean[(long long)b * s.groups + g];
-      rs[j] = rstd[(long long)b * s.groups + g];
+    for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u < l.nk) {
+        const long long at = l.off + (k0 + u) * gstep;
+        xraw[u] = *reinterpret_cast<const uint4*>(x + at);
+        draw[u] = *reinterpret_cast<const uint4*>(dy + at);
+        if (MODE == kAddRelu)
+          rraw[u] = *reinterpret_cast<const uint4*>(res + at);
+      }
     }
-    const long long base = (long long)b * s.hw * s.c + col * V;
-    for (int r = r0 + slot; r < r1; r += s.slots) {
-      const long long off = base + (long long)r * s.c;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u >= l.nk) break;
       float v[V], d[V], rv[V];
-      load_vec<T>(x + off, v);
-      load_vec<T>(dy + off, d);
-      if (MODE == kAddRelu) load_vec<T>(res + off, rv);
+      unpack<T>(xraw[u], v);
+      unpack<T>(draw[u], d);
+      if (MODE == kAddRelu) unpack<T>(rraw[u], rv);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         const float xh = gn_xhat(v[j], mu[j], rs[j]);
         float dm = d[j];
         if (MODE != kPlain) {
           dm = masked_dy<MODE>(d[j], pre_act<MODE>(
-              xh, col * V + j, MODE == kAddRelu ? rv[j] : 0.f, scale, bias));
+              xh, gam[j], bet[j], MODE == kAddRelu ? rv[j] : 0.f));
         }
         acc_xh[j] += dm * xh;
         acc_dy[j] += dm;
       }
     }
   }
-  reduce_slots<V>(sm, s, slot, col, acc_xh, acc_dy);
-  const float* sm2 = sm + s.slots * s.c;
-  const long long row = ((long long)b * s.splits + sp) * s.c;
-  for (int ch = threadIdx.x; ch < s.c; ch += blockDim.x) {
-    part_dscale[row + ch] = sm[ch];
-    part_dbias[row + ch] = sm2[ch];
+  const long long row = ((long long)b * s.parts + sp) * s.c;
+  slot_sum<V>(red, s, l, acc_xh);
+  for (int ch = threadIdx.x; ch < s.c; ch += blockDim.x)
+    work_dscale[row + ch] = red[ch];
+  __syncthreads();
+  slot_sum<V>(red, s, l, acc_dy);
+  for (int ch = threadIdx.x; ch < s.c; ch += blockDim.x)
+    work_dbias[row + ch] = red[ch];
+}
+
+// K10's fold: a sample's partials in split order -> its [C] partials
+// part_dscale, part_dbias, and the group means gm[(b·2 + {0, 1})·G + g]
+// = mean_G(g), mean_G(g·x̂).  Shared memory [2][C].  Grid B.
+__global__ void gn_bwd_fold(const float* __restrict__ work_dscale,
+                            const float* __restrict__ work_dbias,
+                            const float* __restrict__ scale,
+                            float* __restrict__ part_dscale,
+                            float* __restrict__ part_dbias,
+                            float* __restrict__ gm, Shape s) {
+  extern __shared__ __align__(16) float sums[];  // γ·Σ dym, γ·Σ dym·x̂
+  const int b = blockIdx.x, C = s.c, G = s.groups, cpg = C / G;
+  for (int ch = threadIdx.x; ch < C; ch += blockDim.x) {
+    float sx = 0.f, sd = 0.f;
+    for (int sp = 0; sp < s.parts; ++sp) {
+      const long long at = ((long long)b * s.parts + sp) * C + ch;
+      sx += work_dscale[at];
+      sd += work_dbias[at];
+    }
+    part_dscale[(long long)b * C + ch] = sx;
+    part_dbias[(long long)b * C + ch] = sd;
+    const float gamma = __ldg(scale + ch);
+    sums[ch] = gamma * sd;
+    sums[C + ch] = gamma * sx;
+  }
+  __syncthreads();
+  const float n = (float)s.hw * (float)cpg;
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    gm[((long long)b * 2) * G + g] = group_total(sums, g, cpg) / n;
+    gm[((long long)b * 2 + 1) * G + g] = group_total(sums + C, g, cpg) / n;
   }
 }
 
-// K10 pass 2: mean_G(g) and mean_G(g·x̂) of the CTA's sample from the
-// partials (Σ g = γ·Σ dym and Σ g·x̂ = γ·Σ dym·x̂ per channel), then dx and
-// dres over the CTA's rows.
+// K10 pass 2: dx and dres over the CTA's rows.
 template <typename T, int MODE>
-__global__ void gn_bwd_apply(const T* __restrict__ x, const T* __restrict__ dy,
-                             const T* __restrict__ res,
-                             const float* __restrict__ scale,
-                             const float* __restrict__ bias,
-                             const float* __restrict__ mean,
-                             const float* __restrict__ rstd,
-                             const float* __restrict__ part_dscale,
-                             const float* __restrict__ part_dbias,
-                             T* __restrict__ dx, T* __restrict__ dres,
-                             Shape s) {
+__global__ void __launch_bounds__(kMaxThreads)
+    gn_bwd_apply(const T* __restrict__ x, const T* __restrict__ dy,
+                 const T* __restrict__ res, const float* __restrict__ scale,
+                 const float* __restrict__ bias,
+                 const float* __restrict__ mean,
+                 const float* __restrict__ rstd,
+                 const float* __restrict__ gm, T* __restrict__ dx,
+                 T* __restrict__ dres, Shape s) {
   constexpr int V = kVec<T>;
-  extern __shared__ float sm[];
-  float* s_m1 = sm;         // [C]: γ·Σ dym per channel, then mean_G(g)
-  float* s_m2 = sm + s.c;   // [C]: γ·Σ dym·x̂, then mean_G(g·x̂)
-  const int b = blockIdx.y, sp = blockIdx.x;
-  const int cpg = s.c / s.groups;
-  const float n = (float)s.hw * (float)cpg;
-  for (int ch = threadIdx.x; ch < s.c; ch += blockDim.x) {
-    float sd = 0.f, sx = 0.f;
-    for (int t = 0; t < s.splits; ++t) {
-      const long long at = ((long long)b * s.splits + t) * s.c + ch;
-      sd += part_dbias[at];
-      sx += part_dscale[at];
-    }
-    const float gam = __ldg(scale + ch);
-    s_m1[ch] = gam * sd;
-    s_m2[ch] = gam * sx;
-  }
-  __syncthreads();
-  // each group's sums land in its first channel's slot, which only this
-  // group's thread reads or writes
-  for (int g = threadIdx.x; g < s.groups; g += blockDim.x) {
-    float m1 = 0.f, m2 = 0.f;
-    for (int k = 0; k < cpg; ++k) {
-      m1 += s_m1[g * cpg + k];
-      m2 += s_m2[g * cpg + k];
-    }
-    s_m1[g * cpg] = m1 / n;
-    s_m2[g * cpg] = m2 / n;
-  }
-  __syncthreads();
-  const int r0 = sp * s.rows, r1 = min(s.hw, r0 + s.rows);
-  const long long base = (long long)b * s.hw * s.c;
-  for (int i = r0 * s.vpr + threadIdx.x; i < r1 * s.vpr; i += blockDim.x) {
-    const int ch0 = (i % s.vpr) * V;
-    const long long off = base + (long long)(i / s.vpr) * s.c + ch0;
-    float v[V], d[V], rv[V];
-    load_vec<T>(x + off, v);
-    load_vec<T>(dy + off, d);
-    if (MODE == kAddRelu) load_vec<T>(res + off, rv);
+  const int sp = blockIdx.x, b = blockIdx.y, G = s.groups;
+  const Lane l = lane_of<V>(s, b, part_row(s, sp), part_row(s, sp + 1));
+  const long long gstep = (long long)s.slots * s.c;
+  const int ch0 = l.col * V, cpg = s.c / G;
+  float mu[V], rs[V], gam[V], bet[V], m1[V], m2[V];
+  group_vals<V>(mean + (long long)b * G, ch0, cpg, mu);
+  group_vals<V>(rstd + (long long)b * G, ch0, cpg, rs);
+  group_vals<V>(gm + (long long)b * 2 * G, ch0, cpg, m1);
+  group_vals<V>(gm + ((long long)b * 2 + 1) * G, ch0, cpg, m2);
+  channel_vals<V>(scale, ch0, gam);
+  channel_vals<V>(bias, ch0, bet);
+  for (int k0 = 0; k0 < l.nk; k0 += kBatch) {
+    uint4 xraw[kBatch], draw[kBatch], rraw[kBatch];
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const int ch = ch0 + j, g = ch / cpg;
-      const float rs = rstd[(long long)b * s.groups + g];
-      const float xh = gn_xhat(v[j], mean[(long long)b * s.groups + g], rs);
-      float dm = d[j];
-      if (MODE != kPlain) {
-        dm = masked_dy<MODE>(d[j], pre_act<MODE>(
-            xh, ch, MODE == kAddRelu ? rv[j] : 0.f, scale, bias));
+    for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u < l.nk) {
+        const long long at = l.off + (k0 + u) * gstep;
+        xraw[u] = *reinterpret_cast<const uint4*>(x + at);
+        draw[u] = *reinterpret_cast<const uint4*>(dy + at);
+        if (MODE == kAddRelu)
+          rraw[u] = *reinterpret_cast<const uint4*>(res + at);
       }
-      const float gg = dm * __ldg(scale + ch);
-      d[j] = rs * (gg - s_m1[g * cpg] - xh * s_m2[g * cpg]);
-      rv[j] = dm;
     }
-    store_vec<T>(dx + off, d);
-    if (MODE == kAddRelu) store_vec<T>(dres + off, rv);
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u >= l.nk) break;
+      float v[V], d[V], rv[V];
+      unpack<T>(xraw[u], v);
+      unpack<T>(draw[u], d);
+      if (MODE == kAddRelu) unpack<T>(rraw[u], rv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float xh = gn_xhat(v[j], mu[j], rs[j]);
+        float dm = d[j];
+        if (MODE != kPlain) {
+          dm = masked_dy<MODE>(d[j], pre_act<MODE>(
+              xh, gam[j], bet[j], MODE == kAddRelu ? rv[j] : 0.f));
+        }
+        const float gg = dm * gam[j];
+        d[j] = rs[j] * (gg - m1[j] - xh * m2[j]);
+        rv[j] = dm;
+      }
+      const long long at = l.off + (k0 + u) * gstep;
+      store_vec<T>(dx + at, d);
+      if (MODE == kAddRelu) store_vec<T>(dres + at, rv);
+    }
   }
 }
+
+// ---- host side -------------------------------------------------------------
 
 bool make_shape(int dtype, int mode, int b, int hw, int c, int groups,
-                int splits, Shape* s, int* threads) {
+                int path, int parts, int threads, Shape* s) {
   const int esize = dtype == 1 ? 2 : 4;
   if ((dtype != 0 && dtype != 1) || mode < kPlain || mode > kAddRelu ||
       b <= 0 || b > 65535 || hw <= 0 || c <= 0 || groups <= 0 ||
-      c % groups || (c * esize) % 16 || splits <= 0 || splits > hw) {
+      c % groups || (c * esize) % 16 || (path != kTwoPass && path != kCluster) ||
+      parts <= 0 || parts > hw || (path == kCluster && parts > kMaxCluster)) {
     return false;
   }
   const int vpr = c * esize / 16;
-  if (vpr > kMaxVecsPerRow) return false;
-  const int rows = (hw + splits - 1) / splits;
-  if ((long long)(splits - 1) * rows >= hw) return false;  // an empty split
-  const int t = vpr <= kMinThreads ? kMinThreads : (vpr + 31) / 32 * 32;
-  *threads = t;
-  *s = Shape{b, hw, c, groups, splits, rows, vpr, t / vpr};
+  if (vpr > kMaxVecsPerRow || threads % 32 || threads < vpr ||
+      threads > kMaxThreads) {
+    return false;
+  }
+  const int slots = threads / vpr;
+  int top = 1;
+  while (top < slots) top *= 2;
+  *s = Shape{b, hw, c, groups, parts, (hw + parts - 1) / parts, vpr, slots,
+             top / 2};
   return true;
 }
 
+// Dynamic shared memory of the cluster path's kernel (K9 or K10).
+size_t cluster_smem(const Shape& s, int esize, int backward) {
+  const size_t tail = backward ? 2 * (size_t)s.c + 2 * s.groups
+                               : 4 * (size_t)s.groups;
+  return (size_t)s.rows * s.c * esize +
+         sizeof(float) * ((size_t)red_floats(s) + tail);
+}
+
+int fold_threads(int n) {
+  const int t = (n + 31) / 32 * 32;
+  return t < 256 ? t : 256;
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kMaxSmem);
+}
+
+cudaLaunchConfig_t cluster_config(const Shape& s, int threads, size_t smem,
+                                  cudaStream_t st,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(s.parts, s.b, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = s.parts;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// One call's operands (a direction leaves the other's null).
+struct Call {
+  const void *x, *dy, *res;
+  const float *scale, *bias;
+  float *mean, *rstd;  // K9 writes them, K10 reads them
+  float *work, *part_dscale, *part_dbias;
+  void *out, *dres;    // y or dx; dres
+  float eps;
+  cudaStream_t st;
+};
+
 template <typename T, int MODE>
-int launch_fwd(const void* x, const void* res, const float* scale,
-               const float* bias, float* part, void* y, float* mean,
-               float* rstd, const Shape& s, int threads, float eps,
-               cudaStream_t st) {
-  const dim3 grid(s.splits, s.b);
-  const size_t sm1 = 2 * (size_t)s.slots * s.c * sizeof(float);
-  const size_t sm2 = 2 * (size_t)s.groups * sizeof(float);
-  gn_fwd_stats<T><<<grid, threads, sm1, st>>>(static_cast<const T*>(x), part,
-                                              s);
-  gn_fwd_apply<T, MODE><<<grid, threads, sm2, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), scale, bias, part,
-      static_cast<T*>(y), mean, rstd, s, eps);
+int launch_fwd(const Shape& s, int path, int threads, const Call& a) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = allow_smem(gn_fwd_cluster<T, MODE>);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  auto x = static_cast<const T*>(a.x);
+  auto res = static_cast<const T*>(a.res);
+  auto y = static_cast<T*>(a.out);
+  if (path == kCluster) {
+    const size_t smem = cluster_smem(s, sizeof(T), 0);
+    if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(s, threads, smem, a.st,
+                                                  &attr);
+    const cudaError_t e =
+        cudaLaunchKernelEx(&cfg, gn_fwd_cluster<T, MODE>, x, res, a.scale,
+                           a.bias, y, a.mean, a.rstd, s, a.eps);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  const dim3 grid(s.parts, s.b);
+  gn_fwd_stats<T><<<grid, threads, sizeof(float) * red_floats(s), a.st>>>(
+      x, a.work, s);
+  gn_fwd_fold<<<s.b, fold_threads(s.groups), 0, a.st>>>(a.work, a.mean,
+                                                        a.rstd, s, a.eps);
+  gn_fwd_apply<T, MODE><<<grid, threads, 0, a.st>>>(
+      x, res, a.scale, a.bias, a.mean, a.rstd, y, s);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int MODE>
-int launch_bwd(const void* x, const void* dy, const void* res,
-               const float* scale, const float* bias, const float* mean,
-               const float* rstd, float* part_dscale, float* part_dbias,
-               void* dx, void* dres, const Shape& s, int threads,
-               cudaStream_t st) {
-  const dim3 grid(s.splits, s.b);
-  const size_t sm1 = 2 * (size_t)s.slots * s.c * sizeof(float);
-  const size_t sm2 = 2 * (size_t)s.c * sizeof(float);
-  gn_bwd_reduce<T, MODE><<<grid, threads, sm1, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<const T*>(res), scale, bias, mean, rstd, part_dscale,
-      part_dbias, s);
-  gn_bwd_apply<T, MODE><<<grid, threads, sm2, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy),
-      static_cast<const T*>(res), scale, bias, mean, rstd, part_dscale,
-      part_dbias, static_cast<T*>(dx), static_cast<T*>(dres), s);
+int launch_bwd(const Shape& s, int path, int threads, const Call& a) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = allow_smem(gn_bwd_cluster<T, MODE>);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  auto x = static_cast<const T*>(a.x);
+  auto dy = static_cast<const T*>(a.dy);
+  auto res = static_cast<const T*>(a.res);
+  auto dx = static_cast<T*>(a.out);
+  auto dres = static_cast<T*>(a.dres);
+  if (path == kCluster) {
+    const size_t smem = cluster_smem(s, sizeof(T), 1);
+    if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(s, threads, smem, a.st,
+                                                  &attr);
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, gn_bwd_cluster<T, MODE>, x, dy, res, a.scale, a.bias,
+        (const float*)a.mean, (const float*)a.rstd, a.part_dscale,
+        a.part_dbias, dx, dres, s);
+    if (e != cudaSuccess) return (int)e;
+    return (int)cudaGetLastError();
+  }
+  // work: [B·splits, C] twice, then the group means [B, 2, G]
+  float* work_ds = a.work;
+  float* work_db = work_ds + (size_t)s.b * s.parts * s.c;
+  float* gm = work_db + (size_t)s.b * s.parts * s.c;
+  const dim3 grid(s.parts, s.b);
+  gn_bwd_reduce<T, MODE><<<grid, threads, sizeof(float) * red_floats(s),
+                           a.st>>>(x, dy, res, a.scale, a.bias, a.mean,
+                                   a.rstd, work_ds, work_db, s);
+  gn_bwd_fold<<<s.b, fold_threads(s.c), 2 * sizeof(float) * s.c, a.st>>>(
+      work_ds, work_db, a.scale, a.part_dscale, a.part_dbias, gm, s);
+  gn_bwd_apply<T, MODE><<<grid, threads, 0, a.st>>>(
+      x, dy, res, a.scale, a.bias, a.mean, a.rstd, gm, dx, dres, s);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int fwd_mode(int mode, const void* x, const void* res, const float* scale,
-             const float* bias, float* part, void* y, float* mean,
-             float* rstd, const Shape& s, int threads, float eps,
-             cudaStream_t st) {
+// The most clusters of the cluster path's kernel that fit on the card at
+// once (0: the configuration cannot launch).
+template <typename T, int MODE>
+int fit_clusters(const Shape& s, int backward, int threads, int* clusters) {
+  const size_t smem = cluster_smem(s, sizeof(T), backward);
+  *clusters = 0;
+  if (smem > (size_t)kMaxSmem) return 0;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(s, threads, smem, nullptr,
+                                                &attr);
+  cudaError_t e;
+  if (backward) {
+    e = allow_smem(gn_bwd_cluster<T, MODE>);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(clusters, gn_bwd_cluster<T, MODE>,
+                                         &cfg);
+  } else {
+    e = allow_smem(gn_fwd_cluster<T, MODE>);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(clusters, gn_fwd_cluster<T, MODE>,
+                                         &cfg);
+  }
+  return (int)e;
+}
+
+// Runs op.run<T, MODE>() for the call's dtype and mode.
+template <typename Op>
+int dispatch(int dtype, int mode, Op op) {
+  if (dtype == 1) {
+    switch (mode) {
+      case kPlain: return op.template run<__nv_bfloat16, kPlain>();
+      case kRelu: return op.template run<__nv_bfloat16, kRelu>();
+      default: return op.template run<__nv_bfloat16, kAddRelu>();
+    }
+  }
   switch (mode) {
-    case kPlain:
-      return launch_fwd<T, kPlain>(x, res, scale, bias, part, y, mean, rstd,
-                                   s, threads, eps, st);
-    case kRelu:
-      return launch_fwd<T, kRelu>(x, res, scale, bias, part, y, mean, rstd,
-                                  s, threads, eps, st);
-    default:
-      return launch_fwd<T, kAddRelu>(x, res, scale, bias, part, y, mean,
-                                     rstd, s, threads, eps, st);
+    case kPlain: return op.template run<float, kPlain>();
+    case kRelu: return op.template run<float, kRelu>();
+    default: return op.template run<float, kAddRelu>();
   }
 }
 
-template <typename T>
-int bwd_mode(int mode, const void* x, const void* dy, const void* res,
-             const float* scale, const float* bias, const float* mean,
-             const float* rstd, float* pds, float* pdb, void* dx, void* dres,
-             const Shape& s, int threads, cudaStream_t st) {
-  switch (mode) {
-    case kPlain:
-      return launch_bwd<T, kPlain>(x, dy, res, scale, bias, mean, rstd, pds,
-                                   pdb, dx, dres, s, threads, st);
-    case kRelu:
-      return launch_bwd<T, kRelu>(x, dy, res, scale, bias, mean, rstd, pds,
-                                  pdb, dx, dres, s, threads, st);
-    default:
-      return launch_bwd<T, kAddRelu>(x, dy, res, scale, bias, mean, rstd,
-                                     pds, pdb, dx, dres, s, threads, st);
+struct FwdOp {
+  const Shape& s;
+  int path, threads;
+  const Call& a;
+  template <typename T, int MODE>
+  int run() const { return launch_fwd<T, MODE>(s, path, threads, a); }
+};
+struct BwdOp {
+  const Shape& s;
+  int path, threads;
+  const Call& a;
+  template <typename T, int MODE>
+  int run() const { return launch_bwd<T, MODE>(s, path, threads, a); }
+};
+struct FitOp {
+  const Shape& s;
+  int backward, threads;
+  int* clusters;
+  template <typename T, int MODE>
+  int run() const {
+    return fit_clusters<T, MODE>(s, backward, threads, clusters);
   }
-}
+};
 
 }  // namespace
 
 // K9.  dtype 0 = f32, 1 = bf16; mode 0 plain, 1 relu, 2 add_relu (res
-// given).  part: workspace of B·splits·G·2 floats.  y like x; mean, rstd
+// given); path 0 two-pass (parts = splits; work: B·splits·G·2 floats), 1
+// cluster (parts = the cluster size; work unused).  y like x; mean, rstd
 // [B, G] f32.
 extern "C" int tpudist_group_norm_fwd(int dtype, int mode, const void* x,
                                       const void* res, const void* scale,
-                                      const void* bias, void* part, void* y,
+                                      const void* bias, void* work, void* y,
                                       void* mean, void* rstd, int b, int hw,
-                                      int c, int groups, int splits,
-                                      float eps, void* stream) {
+                                      int c, int groups, int path, int parts,
+                                      int threads, float eps, void* stream) {
   Shape s;
-  int threads;
-  if (!make_shape(dtype, mode, b, hw, c, groups, splits, &s, &threads) ||
-      (mode == kAddRelu && res == nullptr)) {
+  if (!make_shape(dtype, mode, b, hw, c, groups, path, parts, threads, &s) ||
+      (mode == kAddRelu && res == nullptr) ||
+      (path == kTwoPass && work == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto st = static_cast<cudaStream_t>(stream);
-  auto sc = static_cast<const float*>(scale);
-  auto bi = static_cast<const float*>(bias);
-  auto pa = static_cast<float*>(part);
-  auto mu = static_cast<float*>(mean);
-  auto rs = static_cast<float*>(rstd);
-  return dtype == 1
-             ? fwd_mode<__nv_bfloat16>(mode, x, res, sc, bi, pa, y, mu, rs, s,
-                                       threads, eps, st)
-             : fwd_mode<float>(mode, x, res, sc, bi, pa, y, mu, rs, s,
-                               threads, eps, st);
+  const Call a{x, nullptr, res, static_cast<const float*>(scale),
+               static_cast<const float*>(bias), static_cast<float*>(mean),
+               static_cast<float*>(rstd), static_cast<float*>(work), nullptr,
+               nullptr, y, nullptr, eps, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, mode, FwdOp{s, path, threads, a});
 }
 
-// K10.  part_dscale, part_dbias: [B·splits, C] f32 partials; dx like x;
-// dres like x in add_relu mode (res given), else unused.
+// K10.  part_dscale, part_dbias: the per-sample partials, [B, C] f32; dx
+// like x; dres like x in add_relu mode (res given), else unused; work
+// (two-pass only): 2·B·splits·C + 2·B·G floats.
 extern "C" int tpudist_group_norm_bwd(int dtype, int mode, const void* x,
                                       const void* dy, const void* res,
                                       const void* scale, const void* bias,
                                       const void* mean, const void* rstd,
-                                      void* part_dscale, void* part_dbias,
-                                      void* dx, void* dres, int b, int hw,
-                                      int c, int groups, int splits,
+                                      void* work, void* part_dscale,
+                                      void* part_dbias, void* dx, void* dres,
+                                      int b, int hw, int c, int groups,
+                                      int path, int parts, int threads,
                                       void* stream) {
   Shape s;
-  int threads;
-  if (!make_shape(dtype, mode, b, hw, c, groups, splits, &s, &threads) ||
-      (mode == kAddRelu && (res == nullptr || dres == nullptr))) {
+  if (!make_shape(dtype, mode, b, hw, c, groups, path, parts, threads, &s) ||
+      (mode == kAddRelu && (res == nullptr || dres == nullptr)) ||
+      (path == kTwoPass && work == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  auto st = static_cast<cudaStream_t>(stream);
-  auto sc = static_cast<const float*>(scale);
-  auto bi = static_cast<const float*>(bias);
-  auto mu = static_cast<const float*>(mean);
-  auto rs = static_cast<const float*>(rstd);
-  auto pds = static_cast<float*>(part_dscale);
-  auto pdb = static_cast<float*>(part_dbias);
-  return dtype == 1
-             ? bwd_mode<__nv_bfloat16>(mode, x, dy, res, sc, bi, mu, rs, pds,
-                                       pdb, dx, dres, s, threads, st)
-             : bwd_mode<float>(mode, x, dy, res, sc, bi, mu, rs, pds, pdb, dx,
-                               dres, s, threads, st);
+  const Call a{x,
+               dy,
+               res,
+               static_cast<const float*>(scale),
+               static_cast<const float*>(bias),
+               const_cast<float*>(static_cast<const float*>(mean)),
+               const_cast<float*>(static_cast<const float*>(rstd)),
+               static_cast<float*>(work),
+               static_cast<float*>(part_dscale),
+               static_cast<float*>(part_dbias),
+               dx,
+               dres,
+               0.f,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, mode, BwdOp{s, path, threads, a});
+}
+
+// The cluster path's plan check: *smem the dynamic shared memory its
+// kernel takes (K9, or K10 with backward = 1) for a cluster of `parts`
+// CTAs of `threads`, *clusters how many such clusters fit on the card at
+// once (0: it cannot launch).
+extern "C" int tpudist_group_norm_cluster_fit(int dtype, int mode,
+                                              int backward, int hw, int c,
+                                              int groups, int parts,
+                                              int threads, int* smem,
+                                              int* clusters) {
+  Shape s;
+  if (!make_shape(dtype, mode, 1, hw, c, groups, kCluster, parts, threads,
+                  &s)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *smem = (int)cluster_smem(s, dtype == 1 ? 2 : 4, backward);
+  return dispatch(dtype, mode, FitOp{s, backward, threads, clusters});
 }

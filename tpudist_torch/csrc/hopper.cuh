@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's kernels: asynchronous
 // tile copies (cp.async) into the swizzled shared layouts that wgmma
-// reads, mbarriers, wgmma shared-memory descriptors, and the warpgroup
-// products m64nNk16 in bf16 with f32 accumulators.
+// reads, mbarriers, the cluster barrier and distributed shared memory,
+// wgmma shared-memory descriptors, and the warpgroup products m64nNk16 in
+// bf16 with f32 accumulators.
 //
 // Shared tiles.  A [ROWS][D] bf16 tile is stored as D*2 / R column
 // blocks ("atoms") of [ROWS][R bytes], R = min(D*2, 128), each block's
@@ -90,6 +91,34 @@ __device__ __forceinline__ void regs_dec() {
 template <int N>
 __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Thread-block clusters.  A cluster's CTAs run at once on neighbouring SMs
+// and read each other's shared memory (distributed shared memory).  The
+// cluster barrier is split: arrive (release: this thread's earlier shared
+// writes and remote reads are ordered before it) and wait (acquire: every
+// thread of the cluster has arrived).  All threads of every CTA take part.
+// A CTA whose shared memory other CTAs read must not exit before they have
+// arrived after their reads: end such a kernel with cluster_wait().
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// The generic address of the same shared location in CTA `rank` of the
+// cluster (mapa): plain loads through it read that CTA's shared memory.
+template <typename T>
+__device__ __forceinline__ const T* cluster_ptr(const T* p, int rank) {
+  uint64_t out;
+  asm("mapa.u64 %0, %1, %2;\n"
+      : "=l"(out)
+      : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(out);
 }
 
 // wgmma descriptor: start address, leading and stride byte offsets (16-byte

@@ -26,9 +26,15 @@ Two paths, as in the JAX package, over NHWC ``[B, H, W, C]``:
 
 The kernels read memory as ``[B, H·W, C]``: their wrappers take
 contiguous NHWC tensors and raise on any other layout (they never copy).
-tpudist's 2 MB switch (``_slab_fits``: larger slabs take the closed form)
-is a VMEM limit; K9 and K10 hold no slab on chip, so the fused modes take
-them at any size.
+Each call takes one of two paths, chosen from the shape before launch by
+:func:`_gn_plan`: ``"cluster"`` (one pass: a thread-block cluster of up
+to 8 CTAs holds a sample's x in shared memory, so x is read from device
+memory once; K10 streams dy and the residual) where the slab fits,
+``"two_pass"`` (statistics, a fold per sample, then the elementwise
+pass) elsewhere, as at the 224 px stem.  There is no fallback: a launch the card refuses raises.  tpudist's
+2 MB switch (``_slab_fits``: larger slabs take the closed form) is a VMEM
+limit; the two-pass path serves any slab, so the fused modes take every
+size.
 
 :class:`GroupNorm` is the module: ``scale``/``bias`` of ``[C]``, eps 1e-6
 (tpudist's, not torch's 1e-5), ``fused="none"|"relu"|"add_relu"``.
@@ -37,6 +43,8 @@ them at any size.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -46,21 +54,35 @@ from tpudist_torch.utils.device import resolve_device
 
 GN_FWD = _cuda.Kernel(
     "group_norm", "tpudist_group_norm_fwd",
-    # dtype mode; x res scale bias part y mean rstd; b hw c groups splits;
-    # eps; stream
-    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    # dtype mode; x res scale bias work y mean rstd; b hw c groups path
+    # parts threads; eps; stream
+    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_void_p])
 GN_BWD = _cuda.Kernel(
     "group_norm", "tpudist_group_norm_bwd",
-    # dtype mode; x dy res scale bias mean rstd part_dscale part_dbias dx
-    # dres; b hw c groups splits; stream
-    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+    # dtype mode; x dy res scale bias mean rstd work part_dscale part_dbias
+    # dx dres; b hw c groups path parts threads; stream
+    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
     + [ctypes.c_void_p])
 
 MODES = {"plain": 0, "relu": 1, "add_relu": 2}
+PATHS = {"two_pass": 0, "cluster": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_ROW_VECTORS = 512      # 16-byte vectors in a row of C channels
-_ELEMS_PER_CTA = 8192       # the kernels' target work per CTA
+_ELEMS_PER_CTA = 8192       # the two-pass kernels' target work per CTA
+_MAX_CLUSTER = 8            # CTAs a cluster: the portable limit
+# A cluster CTA holds at most this much of the slab (its rows of x), so
+# that three CTAs and their scratch share an SM: the planner takes the
+# smallest cluster within it, and a slab that needs more than 8 such CTAs
+# takes the two-pass path (measured: scripts/gn_sweep.py, PERF.md).
+_HOLD_CAP = 64 * 1024
+_SMEM_OPTIN = 232_448       # an H100 CTA's shared memory (opt-in)
+_THREADS = 256
+
+# The path each kernel's last CUDA call took, and CUDA calls per path
+# (beside each kernel's ``launches``); reset_path_launches() zeroes them.
+LAST_PATH = {"K9": None, "K10": None}
+PATH_LAUNCHES = {k: dict.fromkeys(PATHS, 0) for k in ("K9", "K10")}
 
 
 # ---- the closed form -------------------------------------------------------
@@ -191,12 +213,121 @@ def _fused_bwd_plain(x3, dy3, scale, bias, mean, rstd, res3, groups: int,
 
 # ---- the kernel wrappers ---------------------------------------------------
 
-def _splits(hw: int, c: int) -> int:
-    """CTAs per sample: about ``_ELEMS_PER_CTA`` elements each, whole
-    rows, none empty."""
-    want = max(1, min(hw, -(-hw * c // _ELEMS_PER_CTA)))
-    rows = -(-hw // want)
-    return -(-hw // rows)
+class GnPlan(NamedTuple):
+    """How one K9 or K10 call runs: ``path`` ("cluster" or "two_pass"),
+    ``parts`` (CTAs a sample: the cluster size, or the splits), ``rows``
+    (rows of a sample's largest part), ``threads`` a CTA and ``smem``
+    (dynamic shared memory of the path's main kernel, bytes)."""
+
+    path: str
+    parts: int
+    rows: int
+    threads: int
+    smem: int
+
+
+def _two_pass_splits(hw: int, c: int) -> int:
+    """The two-pass path's CTAs a sample: about ``_ELEMS_PER_CTA``
+    elements each, at most one a row."""
+    return max(1, min(hw, -(-hw * c // _ELEMS_PER_CTA)))
+
+
+def _cluster_smem(rows: int, c: int, groups: int, esize: int, slots: int,
+                  backward: bool) -> int:
+    """The cluster kernel's shared memory (``cluster_smem`` in
+    ``csrc/group_norm.cu``): the held rows of x, the slot tree's scratch
+    ``max(slots, 2)·C`` floats, and K9's ``[4, G]`` or K10's ``[2, C]`` +
+    ``[2, G]`` floats."""
+    tail = 2 * c + 2 * groups if backward else 4 * groups
+    return rows * c * esize + 4 * (max(slots, 2) * c + tail)
+
+
+@functools.lru_cache(maxsize=None)
+def _gn_plan(b: int, hw: int, c: int, dtype: torch.dtype, mode: str,
+             backward: bool, smem_optin: int = _SMEM_OPTIN,
+             groups: int = 32, path: str | None = None) -> GnPlan:
+    """The plan of K9 (``backward=False``) or K10 for ``b`` samples of
+    ``[hw, c]`` in ``dtype``: the cluster path with the smallest
+    power-of-2 cluster (at most 8 CTAs, at most one a row) whose CTAs hold
+    at most ``_HOLD_CAP`` of x each, else the two-pass path.  ``path``
+    forces one (the cluster path then takes the largest cluster, and
+    raises where its shared memory exceeds ``smem_optin``).  Pure
+    arithmetic on the shape; the wrapper checks on the card that a
+    cluster plan can launch."""
+    if path not in (None, "cluster", "two_pass"):
+        raise ValueError(f"unknown group_norm path {path!r}")
+    esize = dtype.itemsize
+    vpr = c * esize // 16
+    threads = _THREADS if vpr <= _THREADS else -(-vpr // 32) * 32
+    slots = threads // vpr
+    parts = 1
+    while parts < min(_MAX_CLUSTER, hw) and (
+            path == "cluster" or -(-hw // parts) * c * esize > _HOLD_CAP):
+        parts = min(2 * parts, _MAX_CLUSTER, hw)
+    rows = -(-hw // parts)
+    smem = _cluster_smem(rows, c, groups, esize, slots, backward)
+    if path == "cluster" and smem > smem_optin:
+        raise ValueError(f"the cluster path needs {smem} bytes of shared "
+                         f"memory a CTA for [{hw}, {c}] {dtype}, over "
+                         f"{smem_optin}")
+    if path == "cluster" or (path is None and rows * c * esize <= _HOLD_CAP
+                             and smem <= smem_optin):
+        return GnPlan("cluster", parts, rows, threads, smem)
+    splits = _two_pass_splits(hw, c)
+    red = 4 * max(slots, 2) * c
+    return GnPlan("two_pass", splits, -(-hw // splits), threads, red)
+
+
+def _smem_optin(device) -> int:
+    props = torch.cuda.get_device_properties(device)
+    return getattr(props, "shared_memory_per_block_optin", _SMEM_OPTIN)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_fit(dtype: torch.dtype, mode: str, backward: bool, hw: int,
+                 c: int, groups: int, plan: GnPlan) -> int:
+    """Clusters of ``plan`` that fit on the card at once, as
+    ``cudaOccupancyMaxActiveClusters`` gives them; raises where none does
+    or the library's shared memory disagrees with the plan's."""
+    fn = _cuda.library("group_norm").tpudist_group_norm_cluster_fit
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    rc = fn(_DTYPES[dtype], MODES[mode], int(backward), hw, c, groups,
+            plan.parts, plan.threads, ctypes.byref(smem),
+            ctypes.byref(clusters))
+    if rc != 0 or smem.value != plan.smem or clusters.value <= 0:
+        raise RuntimeError(
+            f"group_norm cluster plan {plan} for [{hw}, {c}] {dtype} "
+            f"{mode} ({'K10' if backward else 'K9'}) cannot launch: CUDA "
+            f"error {rc}, kernel shared memory {smem.value}, "
+            f"{clusters.value} clusters fit")
+    return clusters.value
+
+
+def _plan_for(x, mode: str, backward: bool, groups: int,
+              path: str | GnPlan | None = None) -> GnPlan:
+    """The plan a CUDA call on ``x`` (``[B, H, W, C]``) takes (``path``
+    forces a path, or is the plan itself), checked launchable on its
+    card."""
+    b, h, w, c = x.shape
+    plan = path if isinstance(path, GnPlan) else _gn_plan(
+        b, h * w, c, x.dtype, mode, backward, _smem_optin(x.device), groups,
+        path)
+    if plan.path == "cluster":
+        _cluster_fit(x.dtype, mode, backward, h * w, c, groups, plan)
+    return plan
+
+
+def _record(kernel: str, plan: GnPlan) -> None:
+    LAST_PATH[kernel] = plan.path
+    PATH_LAUNCHES[kernel][plan.path] += 1
+
+
+def reset_path_launches() -> None:
+    for counts in PATH_LAUNCHES.values():
+        for path in counts:
+            counts[path] = 0
 
 
 def _check_layout(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
@@ -246,9 +377,11 @@ def _affine(t: torch.Tensor, c: int, device) -> torch.Tensor:
 
 
 def _fused_call_fwd(x, scale, bias, residual, groups: int, eps: float,
-                    mode: str):
+                    mode: str, path: "str | GnPlan | None" = None):
     """``(y, mean, rstd)`` of the fused forward over NHWC ``x``: kernel K9
-    on CUDA tensors, :func:`_fused_fwd_plain` on CPU tensors."""
+    on CUDA tensors (``path``, a name or a :class:`GnPlan`, takes the
+    place of the planner's choice: the card tests and ``chip_smoke.py``
+    run both paths), :func:`_fused_fwd_plain` on CPU tensors."""
     if (residual is not None) != (mode == "add_relu"):
         raise ValueError("residual must be given exactly in add_relu mode")
     b, h, w, c = x.shape
@@ -262,26 +395,29 @@ def _fused_call_fwd(x, scale, bias, residual, groups: int, eps: float,
     _check_layout("x", x, x)
     if residual is not None:
         _check_layout("residual", residual, x)
-    splits = _splits(h * w, c)
-    part = torch.empty(b * splits * groups * 2, dtype=torch.float32,
-                       device=x.device)
+    plan = _plan_for(x, mode, False, groups, path)
+    work = None if plan.path == "cluster" else torch.empty(
+        b * plan.parts * groups * 2, dtype=torch.float32, device=x.device)
     y = torch.empty_like(x)
     mean = torch.empty((b, groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     GN_FWD(_DTYPES[x.dtype], MODES[mode], _cuda.ptr(x), _cuda.ptr(residual),
            _cuda.ptr(_affine(scale, c, x.device)),
-           _cuda.ptr(_affine(bias, c, x.device)), _cuda.ptr(part),
+           _cuda.ptr(_affine(bias, c, x.device)), _cuda.ptr(work),
            _cuda.ptr(y), _cuda.ptr(mean), _cuda.ptr(rstd), b, h * w, c,
-           groups, splits, float(eps), _cuda.stream_handle(x.device))
+           groups, PATHS[plan.path], plan.parts, plan.threads, float(eps),
+           _cuda.stream_handle(x.device))
+    _record("K9", plan)
     return y, mean, rstd
 
 
 def _fused_call_bwd(x, dy, scale, bias, mean, rstd, residual, groups: int,
-                    mode: str):
+                    mode: str, path: "str | GnPlan | None" = None):
     """``(dx, dscale, dbias, dres)`` of the fused backward: kernel K10 on
-    CUDA tensors, :func:`_fused_bwd_plain` on CPU tensors; the partials
-    of ``dscale``/``dbias`` are summed here (``dres`` is ``None`` outside
-    add_relu)."""
+    CUDA tensors (``path`` as in :func:`_fused_call_fwd`),
+    :func:`_fused_bwd_plain` on CPU tensors; the per-sample ``[B, C]``
+    partials of ``dscale``/``dbias`` are summed over B here (``dres`` is
+    ``None`` outside add_relu)."""
     if (residual is not None) != (mode == "add_relu"):
         raise ValueError("residual must be given exactly in add_relu mode")
     b, h, w, c = x.shape
@@ -305,19 +441,25 @@ def _fused_call_bwd(x, dy, scale, bias, mean, rstd, residual, groups: int,
                     or not t.is_contiguous() or t.device != x.device:
                 raise ValueError(f"{name} must be contiguous [{b}, {groups}] "
                                  f"f32 on {x.device}")
-        splits = _splits(h * w, c)
-        pds = torch.empty((b * splits, c), dtype=torch.float32,
-                          device=x.device)
-        pdb = torch.empty_like(pds)
+        plan = _plan_for(x, mode, True, groups, path)
+        work = None if plan.path == "cluster" else torch.empty(
+            2 * b * (plan.parts * c + groups), dtype=torch.float32,
+            device=x.device)
+        # the per-sample partials of dscale and dbias, summed in one op
+        parts = torch.empty((2, b, c), dtype=torch.float32, device=x.device)
+        pds, pdb = parts
         dx = torch.empty_like(x)
         dres = torch.empty_like(x) if mode == "add_relu" else None
         GN_BWD(_DTYPES[x.dtype], MODES[mode], _cuda.ptr(x), _cuda.ptr(dy),
                _cuda.ptr(residual), _cuda.ptr(_affine(scale, c, x.device)),
                _cuda.ptr(_affine(bias, c, x.device)), _cuda.ptr(mean),
-               _cuda.ptr(rstd), _cuda.ptr(pds), _cuda.ptr(pdb), _cuda.ptr(dx),
-               _cuda.ptr(dres), b, h * w, c, groups, splits,
+               _cuda.ptr(rstd), _cuda.ptr(work), _cuda.ptr(pds),
+               _cuda.ptr(pdb), _cuda.ptr(dx), _cuda.ptr(dres), b, h * w, c,
+               groups, PATHS[plan.path], plan.parts, plan.threads,
                _cuda.stream_handle(x.device))
-        dx = dx.reshape(x.shape)
+        _record("K10", plan)
+        parts = parts.sum(dim=1)
+        return dx, parts[0].to(scale.dtype), parts[1].to(bias.dtype), dres
     return (dx, pds.sum(dim=0).to(scale.dtype),
             pdb.sum(dim=0).to(bias.dtype), dres)
 
