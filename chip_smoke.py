@@ -126,7 +126,25 @@ Phases, each printing one JSON line and each fatal on failure:
 24. train_resnet — ResNet50 (norm="group", bf16, f32 parameters,
    sgd(0.05)) at batch 128, 128 px through make_dp_train_step: 20 steps,
    the loss falling, ms per step, images/s, model FLOPs share, peak
-   memory, one profiled step by kernel family with no layout copies.
+   memory, one profiled step by kernel family with no layout copies;
+25. mnist_parity — MLP(hidden 2, features 1024) and the ConvNet (dropout
+   off), f32, from one converted flax-layout tree each: 20 Adam steps on
+   the same loader batches (the card's bit for bit the CPU's) on the card
+   (TF32 off), on the CPU and in f64, the card and f64 replaying the
+   CPU's ReLU masks and max-pool argmax: each step's loss, the final
+   parameters, the share of the card's own choices that differ;
+26. train_mnist — the DDP recipe at full width through Trainer.train():
+   MLP(5, 1024), Adam 1e-3, batch 128, synthetic_mnist 60,000/10,000,
+   2 epochs snapshotted every epoch, a second Trainer resuming from the
+   snapshot for epoch 3, bit for bit equal to an uninterrupted 3-epoch
+   run (losses, parameters, Adam's state); test accuracy >= 0.9; the
+   native gather pool used; no port kernel launched; ms per step,
+   images/s, the snapshot saves' blocking seconds, peak memory, 20
+   profiled steps' device busy share;
+27. train_convnet — the ConvNet with dropout through Trainer.train() on
+   data/real_digits.npz (batch 128, Adam 1e-3, 15 epochs): held-out
+   accuracy >= 0.90; then the mnist_horovod shape (batch 1024, SGD
+   0.01): ms per step, images/s, 20 profiled steps' device busy share.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -3203,6 +3221,504 @@ def phase_train_resnet(torch, dev, seed):
     torch.cuda.empty_cache()
     return launches
 
+# mnist_parity: the card (TF32 off) against the CPU, f32, 20 Adam steps of
+# the MLP and the ConvNet from one converted tree on the same batches,
+# the CPU's discrete choices (each ReLU's mask, each max-pool's argmax)
+# replayed on the card and in f64 (ReplayBranches): one pre-activation
+# within rounding of 0 on the other side of the ReLU moves a whole row of
+# its layer's gradients by whole terms (``first_step_unreplayed`` reports
+# the first step without the replay).  Each step's
+# loss within MNIST_PARITY_RTOL of the CPU's plus one f32 ulp of the
+# logits' scale (2^-23 times the mean over rows of max |logit|): a row's
+# loss is lse − z_y, two f32 numbers of the logits' size, so once the
+# MLP is sure of its rows (losses of 1e-6 against logits of ~10) the loss
+# is resolved to that ulp and no finer.  The final parameters, each
+# tensor's largest difference from the CPU's over the tensor's largest
+# magnitude, within MNIST_PARITY_RTOL or MNIST_NOISE_FACTOR times the CPU
+# f32's own distance from f64 under the same choices, whichever is
+# larger: Adam's step m/(sqrt(v) + eps) is of size lr for every element
+# whose gradient is well above eps = 1e-8 and g/eps·lr near it, so an
+# element whose gradient is a few eps carries its f32 rounding into its
+# step as a share of lr (``param_noise_max_rel``, the CPU's f32 against
+# f64, is far above 1e-4 for the MLP).  The card's own choices may
+# differ from the CPU's in at most MNIST_FLIP_SHARE of them.
+MNIST_PARITY_RTOL = 1e-4
+MNIST_NOISE_FACTOR = 10.0
+MNIST_FLIP_SHARE = 1e-4
+MNIST_PARITY_STEPS = 20
+MNIST_BATCH = 128
+MNIST_EPOCHS = 3
+MNIST_ACCURACY = 0.9
+CONVNET_EPOCHS = 15
+CONVNET_ACCURACY = 0.90
+HOROVOD_BATCH, HOROVOD_STEPS = 1024, 20
+
+
+def flax_mlp_tree(np, rng, hidden: int, features: int) -> dict:
+    """An MLP parameter tree as flax lays it out (``Dense_i`` with an
+    ``[in, out]`` kernel of std 1/sqrt(fan_in) and a small bias): the
+    input of ``from_flax_mlp_params``."""
+    widths = [784] + [features] * (hidden + 1) + [10]
+    return {f"Dense_{i}": {
+        "kernel": (rng.standard_normal((a, b)) / np.sqrt(a)).astype(
+            np.float32),
+        "bias": (0.01 * rng.standard_normal(b)).astype(np.float32)}
+        for i, (a, b) in enumerate(zip(widths[:-1], widths[1:]))}
+
+
+def flax_convnet_tree(np, rng) -> dict:
+    """A ConvNet tree as flax lays it out (HWIO conv kernels, ``[in,
+    out]`` Dense kernels): the input of ``from_flax_convnet_params``."""
+    def leaf(shape, fan_in):
+        return {"kernel": (rng.standard_normal(shape) / np.sqrt(fan_in)
+                           ).astype(np.float32),
+                "bias": (0.01 * rng.standard_normal(shape[-1])).astype(
+                    np.float32)}
+
+    return {"Conv_0": leaf((5, 5, 1, 10), 25), "Conv_1": leaf((5, 5, 10, 20),
+                                                              250),
+            "Dense_0": leaf((320, 50), 320), "Dense_1": leaf((50, 10), 50)}
+
+
+def mnist_loss_fn(train_kwargs=None, logit_scale: bool = False):
+    """Cross-entropy of the model's logits; ``logit_scale`` adds the mean
+    over rows of max |logit| as an aux metric (mnist_parity's loss
+    floor)."""
+    from tpudist_torch.ops.losses import cross_entropy
+
+    kwargs = train_kwargs or {}
+
+    def loss_fn(model, batch, generator):
+        images, labels = batch
+        logits = model(images, generator=generator, **kwargs)
+        aux = ({"logit_scale": logits.detach().abs().amax(-1).mean()}
+               if logit_scale else {})
+        return cross_entropy(logits, labels), aux
+
+    return loss_fn
+
+
+def profiled_steps(torch, run, steps: int) -> dict:
+    """``run(steps)`` under torch.profiler, host clock around it ending in
+    a synchronise: the wall ms, the device ms (every kernel and copy) and
+    the device's busy share, with the kernels that take its time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    check(device_ms > 0, "the profiler saw no device time")
+    return {"steps": steps, "wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "top": [{"kernel": k[:80], "ms": t, "count": n}
+                    for k, t, n in rows[:8]]}
+
+
+def max_rel(got: dict, want: dict) -> dict:
+    """Each tensor's largest |got − want| over its largest |want|."""
+    return {k: float((got[k].double() - want[k].double()).abs().max()
+                     / want[k].double().abs().max().clamp_min(1e-300))
+            for k in want}
+
+
+def mnist_first_gradients(torch, branches, cpu_model, card_model,
+                          cpu_batch, card_batch) -> dict:
+    """The first step's gradients on the card with its own choices and
+    with the CPU's replayed, each tensor's largest difference from the
+    CPU's over its largest CPU gradient, and how many of the card's own
+    choices differ from the CPU's: what the replay is for.  Leaves no
+    gradient behind."""
+    from tpudist_torch.ops.losses import cross_entropy
+
+    def grads(model, batch):
+        x, y = batch
+        cross_entropy(model(x), y).backward()
+        out = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    branches.record()
+    cpu = grads(cpu_model, cpu_batch)
+    cpu_tape = branches.tape
+    branches.record()
+    own = grads(card_model, card_batch)
+    differ = sum(int((a.to(b.dtype) != b).sum())
+                 for a, b in zip(branches.tape, cpu_tape))
+    branches.tape = cpu_tape
+    branches.replay()
+    replayed = grads(card_model, card_batch)
+    return {"own_choices_differing": differ,
+            "choices": sum(t.numel() for t in cpu_tape),
+            "grad_max_rel_own": max(max_rel(own, cpu).values()),
+            "grad_max_rel_replayed": max(max_rel(replayed, cpu).values())}
+
+
+def phase_mnist_parity(torch, dev, seed):
+    """MLP(hidden 2, features 1024) and the ConvNet (dropout off), from
+    one converted flax-layout tree each: 20 Adam steps (lr 1e-3) on the
+    same 20 loader batches of synthetic_mnist (the card's batches checked
+    bit for bit against the CPU's) on the CPU in f32, on the card in f32
+    (TF32 off in cuBLAS and cuDNN, restored after) and on the CPU in f64,
+    the card and f64 replaying the CPU's choices of each step (see
+    MNIST_PARITY_RTOL): each step's loss, the final parameters, the share
+    of the card's own choices that differ."""
+    import numpy as np
+
+    from tpudist_torch.data import ShardedLoader
+    from tpudist_torch.data.mnist import synthetic_mnist
+    from tpudist_torch.models import (
+        MLP,
+        ConvNet,
+        convnet,
+        from_flax_convnet_params,
+        from_flax_mlp_params,
+        mlp,
+    )
+    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.train import TrainState, adam
+
+    rng = np.random.default_rng(seed)
+    ds = synthetic_mnist("train", n=MNIST_PARITY_STEPS * MNIST_BATCH,
+                         seed=seed)
+    cpu = torch.device("cpu")
+    models = {
+        "mlp": (lambda d, dt: MLP(2, 1024, compute_dtype=dt, device=d),
+                from_flax_mlp_params(flax_mlp_tree(np, rng, 2, 1024))),
+        "convnet": (lambda d, dt: ConvNet(compute_dtype=dt, device=d),
+                    from_flax_convnet_params(flax_convnet_tree(np, rng)))}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    branches, functional = ReplayBranches(torch), mlp.F
+    mlp.F = convnet.F = branches
+    rows, failures = {}, []
+    try:
+        card_batches, cpu_batches = (list(ShardedLoader(
+            [ds.images, ds.labels], MNIST_BATCH, shuffle=True, seed=seed,
+            device=where).epoch(0)) for where in (dev, cpu))
+        same_batches = all(
+            torch.equal(a.cpu(), b) and torch.equal(la.cpu(), lb)
+            for (a, la), (b, lb) in zip(card_batches, cpu_batches))
+        for name, (make, sd) in models.items():
+            runs = {}
+            for key, where, dt in (("cpu", cpu, torch.float32),
+                                   ("card", dev, torch.float32),
+                                   ("f64", cpu, torch.float64)):
+                model = make(where, dt).to(dt)
+                model.load_state_dict(sd)
+                runs[key] = (model, TrainState.create(model, adam(1e-3),
+                                                      seed=seed), [])
+            unreplayed = mnist_first_gradients(
+                torch, branches, runs["cpu"][0], runs["card"][0],
+                cpu_batches[0], card_batches[0])
+            step = make_dp_train_step(mnist_loss_fn(logit_scale=True))
+            flips = choices = 0
+            floor = []
+            for t in range(MNIST_PARITY_STEPS):
+                for key in ("cpu", "card", "f64"):
+                    model, state, losses = runs[key]
+                    if key == "cpu":
+                        branches.record()
+                    else:
+                        branches.replay()
+                    x, y = (card_batches if key == "card"
+                            else cpu_batches)[t]
+                    state, m = step(state, x.to(
+                        next(model.parameters()).dtype), y)
+                    losses.append(float(m["loss"]))
+                    if key == "cpu":
+                        floor.append(2.0 ** -23 * float(m["logit_scale"]))
+                    if key == "card":
+                        flips += branches.flips
+                        choices += branches.choices
+            final = {key: {k: v.detach().cpu() for k, v in
+                           runs[key][0].state_dict().items()}
+                     for key in runs}
+            card_l, cpu_l = runs["card"][2], runs["cpu"][2]
+            loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_l,
+                                                               cpu_l))
+            loss_ratio = max(abs(a - b) / (MNIST_PARITY_RTOL * abs(b) + f)
+                             for a, b, f in zip(card_l, cpu_l, floor))
+            got = max_rel(final["card"], final["cpu"])
+            noise = max_rel(final["cpu"], final["f64"])
+            ratio = {k: got[k] / max(MNIST_PARITY_RTOL,
+                                     MNIST_NOISE_FACTOR * noise[k])
+                     for k in got}
+            rows[name] = {
+                "losses_card": card_l, "losses_cpu": cpu_l,
+                "loss_max_rel": loss_rel, "loss_ratio_to_limit": loss_ratio,
+                "loss_floor": floor,
+                "param_max_rel": max(got.values()),
+                "param_noise_max_rel": max(noise.values()),
+                "param_ratio_to_limit": max(ratio.values()),
+                "worst_tensor": max(ratio, key=ratio.get),
+                "card_choice_flips": flips, "choices": choices,
+                "first_step_unreplayed": unreplayed}
+            if not card_l[-1] < card_l[0]:
+                failures.append(f"{name}: the loss did not fall {card_l}")
+            if loss_ratio > 1.0:
+                failures.append(f"{name}: a loss off, {loss_ratio} of its "
+                                "limit")
+            if max(ratio.values()) > 1.0:
+                failures.append(f"{name}: parameters off, {ratio}")
+            if flips > MNIST_FLIP_SHARE * choices:
+                failures.append(f"{name}: {flips} of {choices} choices "
+                                "differ")
+    finally:
+        mlp.F = convnet.F = functional
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    emit({"phase": "mnist_parity", "steps": MNIST_PARITY_STEPS,
+          "batch": MNIST_BATCH, "batches_bitwise": same_batches, **rows,
+          "tolerance": {"rtol": MNIST_PARITY_RTOL,
+                        "noise_factor": MNIST_NOISE_FACTOR,
+                        "flip_share": MNIST_FLIP_SHARE}})
+    check(same_batches, "mnist_parity: the card's batches differ from the "
+                        "CPU's")
+    check(not failures, "mnist_parity: " + "; ".join(failures))
+
+
+def mnist_trainer(torch, dev, seed, snapshot, epochs, train, test):
+    """The DDP recipe: MLP(5, 1024) f32, Adam 1e-3, batch 128, a snapshot
+    every epoch, the native gather pool feeding the loader; per-step
+    losses recorded (device scalars) in ``trainer.step_losses``."""
+    from tpudist_torch.data import ShardedLoader
+    from tpudist_torch.models import MLP
+    from tpudist_torch.train import Trainer, TrainerConfig, adam
+
+    model = MLP(5, 1024, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    cfg = TrainerConfig(total_epochs=epochs, save_every=1,
+                        batch_size=MNIST_BATCH, snapshot_path=snapshot,
+                        log_every=10_000)
+    trainer = Trainer(
+        cfg, model, adam(1e-3), None,
+        ShardedLoader([train.images, train.labels], MNIST_BATCH,
+                      shuffle=True, seed=seed, prefetch=2, device=dev),
+        ShardedLoader([test.images, test.labels], MNIST_BATCH,
+                      drop_last=False, device=dev), seed=seed)
+    trainer.step_losses = []
+    step = trainer.train_step
+
+    def recorded(state, *batch):
+        state, m = step(state, *batch)
+        trainer.step_losses.append(m["loss"])
+        return state, m
+
+    trainer.train_step = recorded
+    return trainer
+
+
+def phase_train_mnist(torch, dev, seed):
+    """The DDP recipe at full width through Trainer.train(): MLP(5, 1024),
+    f32, Adam 1e-3, batch 128 on synthetic_mnist (60,000 train, 10,000
+    test), 2 epochs with a snapshot every epoch; a second Trainer on that
+    snapshot restores epochs_run and step and trains epoch 3, whose
+    per-step losses, final parameters and optimizer state equal one
+    uninterrupted 3-epoch run's bit for bit (the synthetic task's f32 loss
+    reaches exactly 0 in the second epoch, so the parameters and Adam's
+    moments carry the check there); test accuracy >= MNIST_ACCURACY; the
+    native gather pool fed every epoch; no port kernel launched (K1-K10 =
+    0).  Then ms per step of 100 steps after a synchronise, images/s, the
+    seconds each snapshot save blocked, peak memory, and 20 steps under
+    torch.profiler."""
+    import itertools
+    import tempfile
+
+    from tpudist_torch.data.mnist import synthetic_mnist
+
+    train = synthetic_mnist("train", seed=seed)
+    test = synthetic_mnist("test", seed=seed)
+    steps_per_epoch = len(train) // MNIST_BATCH
+    out = {"phase": "train_mnist", "batch": MNIST_BATCH,
+           "train_n": len(train), "test_n": len(test),
+           "steps_per_epoch": steps_per_epoch}
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        first = mnist_trainer(torch, dev, seed, f"{tmp}/a.npz", 2, train,
+                              test)
+        t0 = time.perf_counter()
+        s_first = first.train()
+        out["first_2_epochs_s"] = time.perf_counter() - t0
+        resumed = mnist_trainer(torch, dev, seed, f"{tmp}/a.npz",
+                                MNIST_EPOCHS, train, test)
+        check(resumed.epochs_run == 2
+              and resumed.state.step == 2 * steps_per_epoch,
+              f"train_mnist: resumed at epoch {resumed.epochs_run}, step "
+              f"{resumed.state.step}")
+        s_resumed = resumed.train()
+        out["allocated_before_whole_bytes"] = torch.cuda.memory_allocated(
+            dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        whole = mnist_trainer(torch, dev, seed, f"{tmp}/w.npz",
+                              MNIST_EPOCHS, train, test)
+        t0 = time.perf_counter()
+        by_epoch, blocked = [], []
+        for e in range(1, MNIST_EPOCHS + 1):
+            by_epoch.append(whole.train(max_epochs=e))
+            blocked.append(whole._ckpt.last_blocked_s)
+        s_whole = by_epoch[-1]
+        out["whole_3_epochs_s"] = time.perf_counter() - t0
+        out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated(
+            dev)
+        launches = read_launches()
+        tail = torch.stack(whole.step_losses[-steps_per_epoch:]).cpu()
+        got = torch.stack(resumed.step_losses).cpu()
+        check(len(resumed.step_losses) == steps_per_epoch,
+              f"train_mnist: the resumed run took "
+              f"{len(resumed.step_losses)} steps")
+        same_losses = torch.equal(got, tail)
+        same_params = all(
+            torch.equal(v, resumed.state.model.state_dict()[k])
+            for k, v in whole.state.model.state_dict().items())
+        opt_w, opt_r = (t.state.optimizer.state_dict()["state"]
+                        for t in (whole, resumed))
+        same_opt = opt_w.keys() == opt_r.keys() and all(
+            torch.equal(opt_w[i][k], opt_r[i][k])
+            for i in opt_w for k in opt_w[i])
+        out.update({
+            "resumed_at": {"epochs_run": 2, "step": 2 * steps_per_epoch},
+            "resume_losses_bitwise": same_losses,
+            "resume_params_bitwise": same_params,
+            "resume_optimizer_bitwise": same_opt,
+            "loss_by_epoch": [e["loss"] for e in by_epoch],
+            "resumed_epoch_loss": s_resumed["loss"],
+            "first_run_last_epoch_loss": s_first["loss"],
+            "test_accuracy": s_whole["test_accuracy"],
+            "resumed_test_accuracy": s_resumed["test_accuracy"],
+            "trainer_images_per_s": s_whole["images_per_sec"],
+            "snapshot_blocked_s": blocked,
+            "gather_pool_jobs": whole.train_loader.pool.jobs
+            if whole.train_loader.pool is not None else 0,
+            "launches": launches})
+        check(same_losses, "train_mnist: the resumed epoch's losses differ "
+                           f"from the uninterrupted run's: max "
+                           f"{float((got - tail).abs().max())}")
+        check(same_params and same_opt,
+              "train_mnist: the resumed parameters or optimizer state "
+              "differ")
+        check(s_whole["test_accuracy"] >= MNIST_ACCURACY
+              and s_resumed["test_accuracy"] >= MNIST_ACCURACY,
+              f"train_mnist: accuracy {s_whole['test_accuracy']}")
+        check(out["gather_pool_jobs"] >= MNIST_EPOCHS * steps_per_epoch,
+              f"train_mnist: the native gather pool ran "
+              f"{out['gather_pool_jobs']} jobs")
+        check(not any(launches.values()),
+              f"train_mnist: a port kernel launched: {launches}")
+        # steady state: 100 steps on batches already on the card
+        feed = whole.train_loader.epoch(5)
+        batches = list(itertools.islice(feed, 20))
+        feed.close()
+        step = whole.train_step
+
+        def run(n):
+            for i in range(n):
+                whole.state, _ = step(whole.state,
+                                      *batches[i % len(batches)])
+
+        run(5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(100)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 100 * 1e3
+        out.update({"ms_per_step": ms,
+                    "images_per_s": MNIST_BATCH / (ms / 1e3),
+                    "profile": profiled_steps(torch, run, 20)})
+    emit(out)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_convnet(torch, dev, seed):
+    """tpudist's real-digit recipe (tests/test_real_mnist.py): the ConvNet
+    with dropout on data/real_digits.npz, batch 128, Adam 1e-3, 15 epochs
+    through Trainer.train(), held-out accuracy >= CONVNET_ACCURACY; then
+    the mnist_horovod shape (batch 1024, SGD 0.01, dropout on): ms per
+    step of 20 steps after a synchronise, images/s, and 20 steps under
+    torch.profiler."""
+    import math
+    import tempfile
+
+    from tpudist_torch.data import ShardedLoader
+    from tpudist_torch.data.mnist import load_real_digits, synthetic_mnist
+    from tpudist_torch.models import ConvNet
+    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.train import (
+        TrainState,
+        Trainer,
+        TrainerConfig,
+        adam,
+        sgd,
+    )
+
+    train, test = load_real_digits("train"), load_real_digits("test")
+    model = ConvNet(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(
+            TrainerConfig(total_epochs=CONVNET_EPOCHS, save_every=100,
+                          batch_size=128, snapshot_path=f"{tmp}/rd.npz",
+                          log_every=10_000, eval_every_epoch=False),
+            model, adam(1e-3), None,
+            ShardedLoader([train.images, train.labels], 128, shuffle=True,
+                          seed=seed, prefetch=2, device=dev),
+            ShardedLoader([test.images, test.labels], 128, drop_last=False,
+                          device=dev),
+            train_kwargs={"train": True}, seed=seed)
+        t0 = time.perf_counter()
+        summary = trainer.train()
+        wall = time.perf_counter() - t0
+    accuracy = trainer.test()
+    out = {"phase": "train_convnet", "train_n": len(train),
+           "test_n": len(test), "epochs": CONVNET_EPOCHS,
+           "loss_last_epoch": summary["loss"], "test_accuracy": accuracy,
+           "train_s": wall, "trainer_images_per_s": summary["images_per_sec"]}
+    check(accuracy >= CONVNET_ACCURACY,
+          f"train_convnet: real-digit accuracy {accuracy}")
+    # the mnist_horovod shape
+    ds = synthetic_mnist("train", n=HOROVOD_BATCH * 4, seed=seed)
+    loader = ShardedLoader([ds.images, ds.labels], HOROVOD_BATCH,
+                           device=dev)
+    batches = list(loader.epoch(0))
+    model = ConvNet(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    state = TrainState.create(model, sgd(0.01), seed=seed)
+    step = make_dp_train_step(mnist_loss_fn({"train": True}))
+    losses = []
+
+    def run(n):
+        nonlocal state
+        for i in range(n):
+            state, m = step(state, *batches[i % len(batches)])
+            losses.append(m["loss"])
+
+    run(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(HOROVOD_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / HOROVOD_STEPS * 1e3
+    losses = [float(v) for v in losses]
+    check(all(math.isfinite(v) for v in losses),
+          f"train_convnet: non-finite loss {losses}")
+    out["horovod_shape"] = {"batch": HOROVOD_BATCH, "lr": 0.01,
+                            "ms_per_step": ms,
+                            "images_per_s": HOROVOD_BATCH / (ms / 1e3),
+                            "loss_first": losses[0], "loss_last": losses[-1],
+                            "profile": profiled_steps(torch, run,
+                                                      HOROVOD_STEPS)}
+    emit(out)
+    torch.cuda.empty_cache()
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3259,6 +3775,9 @@ def main(argv=None) -> int:
     phase_resnet_parity(torch, dev, args.seed)
     gn_launches, _ = phase_gn_sites(torch, dev, args.seed)
     phase_train_resnet(torch, dev, args.seed)
+    phase_mnist_parity(torch, dev, args.seed)
+    phase_train_mnist(torch, dev, args.seed)
+    phase_train_convnet(torch, dev, args.seed)
 
     main_k1 = next(r for r in k1 if r["q_offset"] == 7168)
     main_k2 = next(r for r in k2 if r["case"] == "per_row_side")

@@ -418,3 +418,139 @@ def test_fold_in_mixes_every_argument():
              for shard in (0, 1) for step in (0, 1, 2) for micro in (0, 1)}
     assert len(seeds) == 24 and all(0 <= s < 2 ** 64 for s in seeds)
     assert fold_in(3, 1, 2) == fold_in(3, 1, 2) != fold_in(3, 2, 1)
+
+
+def test_loop_and_eval_steps_take_tpudists_signatures():
+    """``make_dp_train_loop``, ``make_dp_eval_step`` and
+    ``make_dp_masked_eval_step`` take tpudist's parameters in tpudist's
+    order."""
+    import inspect
+
+    from tpudist.parallel import data_parallel as jdp
+    from tpudist_torch.parallel import data_parallel as tdp
+
+    for name in ("make_dp_train_loop", "make_dp_eval_step",
+                 "make_dp_masked_eval_step"):
+        assert list(inspect.signature(getattr(tdp, name)).parameters) == \
+            list(inspect.signature(getattr(jdp, name)).parameters), name
+
+
+# ---- the Trainer and the eval steps across ranks ----------------------------
+
+MNIST_N, MNIST_TEST_N, MNIST_BATCH, MNIST_LR = 128, 90, 32, 0.05
+
+
+def _convnet_trainer(snapshot, images, labels, test_images, test_labels):
+    """A ConvNet (dropout off) Trainer, SGD 0.05, batch 32, on this
+    process's shard; the same weights on every rank."""
+    from tpudist_torch.data import ShardedLoader
+    from tpudist_torch.models import ConvNet
+    from tpudist_torch.train import Trainer, TrainerConfig, sgd
+
+    model = ConvNet(device="cpu").init_weights(
+        torch.Generator().manual_seed(3))
+    cfg = TrainerConfig(total_epochs=1, batch_size=MNIST_BATCH,
+                        snapshot_path=snapshot, log_every=1000)
+    train = ShardedLoader([images, labels], MNIST_BATCH, shuffle=True,
+                          device="cpu")
+    test = ShardedLoader([test_images, test_labels], MNIST_BATCH,
+                         drop_last=False, device="cpu")
+    return Trainer(cfg, model, sgd(MNIST_LR), None, train, test)
+
+
+def _trainer_rank(rank, world, snapshot, *arrays):
+    trainer = _convnet_trainer(snapshot, *arrays)
+    loader = trainer.train_loader
+    summary = trainer.train()
+    return ((loader.num_shards, loader.shard, loader.local_batch), summary,
+            {k: v.numpy().copy()
+             for k, v in trainer.state.model.state_dict().items()})
+
+
+def _mnist_arrays():
+    from tpudist_torch.data.mnist import synthetic_mnist
+
+    train = synthetic_mnist("train", n=MNIST_N, seed=1)
+    test = synthetic_mnist("test", n=MNIST_TEST_N, seed=1)
+    return train.images, train.labels, test.images, test.labels
+
+
+def test_trainer_epoch_on_two_ranks_equals_one_process(tmp_path):
+    """One Trainer epoch of ConvNet (dropout off) over 2 gloo ranks, each
+    on its 16 rows of every batch of 32, against one process on the whole
+    batch: the epoch's mean loss and the parameters after its 4 SGD steps
+    within atol = rtol = 1e-6 (two half-batch gradients averaged sum in
+    another order than one whole-batch gradient), the exact test accuracy
+    over the 90 test rows (45 a rank) equal, and the snapshot written by
+    rank 0."""
+    arrays = _mnist_arrays()
+    want_summary, want = None, None
+    one = _convnet_trainer(str(tmp_path / "one.npz"), *arrays)
+    want_summary = one.train()
+    want = {k: v.numpy() for k, v in one.state.model.state_dict().items()}
+    snap = str(tmp_path / "two.npz")
+    for rank, (layout, summary, sd) in enumerate(
+            run_ranks(_trainer_rank, 2, tmp_path, snap, *arrays)):
+        assert layout == (2, rank, MNIST_BATCH // 2)
+        np.testing.assert_allclose(summary["loss"], want_summary["loss"],
+                                   atol=1e-6, rtol=1e-6)
+        assert summary["test_accuracy"] == want_summary["test_accuracy"]
+        for k in want:
+            np.testing.assert_allclose(sd[k], want[k], atol=1e-6, rtol=1e-6)
+    assert os.path.exists(snap)
+
+
+def _eval_rank(rank, world, state_dict, test_images, test_labels):
+    from tpudist_torch.data import ShardedLoader
+    from tpudist_torch.models import ConvNet
+    from tpudist_torch.parallel import (
+        make_dp_eval_step,
+        make_dp_masked_eval_step,
+    )
+
+    model = ConvNet(device="cpu")
+    model.load_state_dict(state_dict)
+    loader = ShardedLoader([test_images, test_labels], MNIST_BATCH,
+                           drop_last=False, device="cpu")
+
+    def predict(m, inputs):
+        return m(*inputs)
+
+    masked = make_dp_masked_eval_step(predict)
+    plain = make_dp_eval_step(predict)
+    out = []
+    for step, (x, y) in enumerate(loader.epoch(0)):
+        c, t = masked(model, x, y, loader.valid_mask(step))
+        out.append((int(c), int(t), int(plain(model, x, y))))
+    return out
+
+
+def test_masked_eval_counts_on_two_ranks_equal_one_process(tmp_path):
+    """``make_dp_masked_eval_step`` over 2 ranks of a drop_last=False
+    loader (90 rows: 45 a rank, the last batch of 16 a rank partial)
+    gives, at every step, the counts one process computes over both
+    ranks' rows; the unmasked ``make_dp_eval_step`` counts every row fed.
+    Exact integers."""
+    from tpudist_torch.data import ShardedLoader
+    from tpudist_torch.models import ConvNet
+
+    _, _, images, labels = _mnist_arrays()
+    model = ConvNet(device="cpu").init_weights(
+        torch.Generator().manual_seed(4))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    shards = [ShardedLoader([images, labels], MNIST_BATCH, drop_last=False,
+                            num_shards=2, shard=r, device="cpu")
+              for r in range(2)]
+    want = []
+    with torch.no_grad():
+        for step, batches in enumerate(zip(*(s.epoch(0) for s in shards))):
+            x = torch.cat([b[0] for b in batches])
+            y = torch.cat([b[1] for b in batches])
+            mask = torch.from_numpy(np.concatenate(
+                [s.valid_mask(step) for s in shards]))
+            hit = model(x).argmax(-1) == y
+            want.append((int((hit & mask).sum()), int(mask.sum()),
+                         int(hit.sum())))
+    assert sum(w[1] for w in want) == MNIST_TEST_N
+    for got in run_ranks(_eval_rank, 2, tmp_path, sd, images, labels):
+        assert got == want

@@ -79,3 +79,21 @@ def test_mismatched_shapes_raise():
         tl.cross_entropy_per_token(logits, torch.zeros(2, dtype=torch.long))
     with pytest.raises(ValueError, match="trailing class axis"):
         tl.cross_entropy(logits, torch.zeros(3, 2, dtype=torch.long))
+
+
+@pytest.mark.parametrize("axis", [0, -1])
+def test_log_softmax_axis_keyword_matches_jax(jl, axis):
+    """tpudist's keyword is ``axis``: called by keyword, the port gives
+    tpudist's values (at axis 0, row 0 reads [-0.818, -1.649])."""
+    import jax.numpy as jnp
+
+    x = np.random.default_rng(0).standard_normal((2, 5)).astype(np.float32)
+    want = np.asarray(jl.log_softmax(jnp.asarray(x), axis=axis))
+    got = tl.log_softmax(torch.from_numpy(x), axis=axis).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    np.testing.assert_allclose(
+        tl.log_softmax(torch.from_numpy(x), dim=axis).numpy(), want, **TOL)
+    if axis == 0:
+        np.testing.assert_allclose(got[0, :2], [-0.818, -1.649], atol=5e-4)
+    with pytest.raises(TypeError, match="not both"):
+        tl.log_softmax(torch.from_numpy(x), axis=axis, dim=axis)

@@ -32,7 +32,7 @@ CFG = TransformerConfig(vocab_size=32, num_layers=1, num_heads=2,
 def _port_files():
     files = sorted((ROOT / "tpudist_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py",
-                    ROOT / "examples" / "long_context_lm_gpu.py"]
+                    *sorted((ROOT / "examples").glob("*_gpu.py"))]
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -97,6 +97,45 @@ def test_imports_and_runs_with_jax_blocked():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_trainer_stack_runs_with_jax_blocked(tmp_path):
+    """With jax, flax and tpudist made unimportable, the MNIST training
+    stack imports and a one-epoch CPU Trainer run snapshots, resumes and
+    evaluates."""
+    code = "\n".join([
+        "import sys",
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'tpudist'):",
+        "    sys.modules[m] = None",
+        "import torch",
+        "from tpudist_torch import Trainer, TrainerConfig",
+        "from tpudist_torch.data import ShardedLoader, load_mnist",
+        "from tpudist_torch.data.mnist import load_real_digits",
+        "from tpudist_torch.models import ConvNet, EmbeddingBagClassifier",
+        "from tpudist_torch.models import MLP",
+        "from tpudist_torch.elastic import Checkpointer",
+        "from tpudist_torch.parallel import make_dp_masked_eval_step",
+        "from tpudist_torch.train import adam",
+        "import tpudist_torch.data.native, tpudist_torch.utils.metrics",
+        "ds = load_real_digits('test')",
+        f"snap = {str(tmp_path / 's.npz')!r}",
+        "for epochs in (1, 2):",
+        "    m = MLP(1, 32, device='cpu')",
+        "    m.init_weights(torch.Generator().manual_seed(0))",
+        "    ld = ShardedLoader([ds.images, ds.labels], 32, device='cpu')",
+        "    cfg = TrainerConfig(total_epochs=epochs, batch_size=32,",
+        "                        snapshot_path=snap)",
+        "    t = Trainer(cfg, m, adam(1e-3), None, ld, ld)",
+        "    assert t.epochs_run == epochs - 1",
+        "    out = t.train()",
+        "assert 0 <= out['test_accuracy'] <= 1, out",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(tmp_path))
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
 

@@ -18,6 +18,7 @@ from tpudist_torch.models.generate import greedy_generate
 from tpudist_torch.models.serving import Completion, Request, ServeLoop
 from tpudist_torch.models.transformer import TransformerConfig, TransformerLM
 from tpudist_torch.runtime import data_mesh, make_mesh
+from tpudist_torch.train.trainer import Trainer, TrainerConfig
 
 __version__ = "0.1.0"
 
@@ -25,6 +26,8 @@ __all__ = [
     "Completion",
     "Request",
     "ServeLoop",
+    "Trainer",
+    "TrainerConfig",
     "TransformerConfig",
     "TransformerLM",
     "data_mesh",

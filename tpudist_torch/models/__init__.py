@@ -1,14 +1,21 @@
 """The port's models (counterpart of :mod:`tpudist.models`): the
 TransformerLM forward, its generation loop, the continuous-batching
-ServeLoop, the Mixture-of-Experts LM, and ResNet50 with its pipeline
-stages."""
+ServeLoop, the Mixture-of-Experts LM, ResNet50 with its pipeline
+stages, and the MNIST models (MLP, ConvNet) and the embedding-bag
+classifier."""
 
 from tpudist_torch.models.convert import (
+    from_flax_convnet_params,
+    from_flax_embedding_params,
+    from_flax_mlp_params,
     from_flax_moe_params,
     from_flax_params,
     from_flax_resnet_params,
 )
+from tpudist_torch.models.convnet import ConvNet
+from tpudist_torch.models.embedding import EmbeddingBagClassifier
 from tpudist_torch.models.generate import greedy_generate
+from tpudist_torch.models.mlp import MLP
 from tpudist_torch.models.moe import MoEConfig, MoEMLP, MoETransformerLM
 from tpudist_torch.models.resnet import ResNet50, resnet50_stages
 from tpudist_torch.models.serving import Completion, Request, ServeLoop
@@ -21,6 +28,9 @@ from tpudist_torch.models.transformer import (
 
 __all__ = [
     "Completion",
+    "ConvNet",
+    "EmbeddingBagClassifier",
+    "MLP",
     "MoEConfig",
     "MoEMLP",
     "MoETransformerLM",
@@ -30,6 +40,9 @@ __all__ = [
     "TransformerConfig",
     "TransformerLM",
     "blank_cache",
+    "from_flax_convnet_params",
+    "from_flax_embedding_params",
+    "from_flax_mlp_params",
     "from_flax_moe_params",
     "from_flax_params",
     "from_flax_resnet_params",

@@ -4,8 +4,11 @@
 nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``) and
 returns the port's ``state_dict``; :func:`from_flax_moe_params` does the
 same for a ``MoETransformerLM`` and :func:`from_flax_resnet_params` for a
-ResNet50 or one of its pipeline segments.  It imports nothing of the JAX
-package: the tree is plain numpy.
+ResNet50 or one of its pipeline segments, and
+:func:`from_flax_mlp_params`, :func:`from_flax_convnet_params` and
+:func:`from_flax_embedding_params` for the MNIST models and the embedding
+classifier.  It imports nothing of the JAX package: the tree is plain
+numpy.
 """
 
 from __future__ import annotations
@@ -175,3 +178,65 @@ def from_flax_resnet_params(
                 w = w.contiguous()
             sd[name] = w
     return sd
+
+
+def _mnist_name(path: tuple, layers: Mapping[str, str]) -> str:
+    """A flax leaf path of the MNIST models (``("Dense_2", "kernel")``) as
+    the port's name (``dense.2.weight`` for the MLP)."""
+    if len(path) != 2 or path[1] not in ("kernel", "bias"):
+        raise ValueError(f"unexpected leaf {'/'.join(path)}")
+    layer, j = path[0].rsplit("_", 1)
+    if layer not in layers:
+        raise ValueError(f"unexpected leaf {'/'.join(path)}")
+    return (layers[layer].format(int(j))
+            + (".weight" if path[1] == "kernel" else ".bias"))
+
+
+def _from_flax(params: Mapping[str, Any], name) -> dict[str, torch.Tensor]:
+    """Every leaf of a flax tree under its port name: Dense kernels
+    ``[in, out]`` to ``[out, in]``, Conv kernels HWIO to OIHW; an unknown
+    leaf, or two leaves on one name, raises."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    sd: dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params).items():
+        key = name(path)
+        if key in sd:
+            raise ValueError(f"two flax leaves map to {key}")
+        w = _t(leaf)
+        if path[-1] == "kernel":
+            w = (w.permute(3, 2, 0, 1) if w.dim() == 4 else w.T).contiguous()
+        sd[key] = w
+    return sd
+
+
+def from_flax_mlp_params(params: Mapping[str, Any]
+                         ) -> dict[str, torch.Tensor]:
+    """The :class:`~tpudist_torch.models.mlp.MLP` ``state_dict`` from a
+    flax ``MLP`` tree (``Dense_i`` → ``dense.i``)."""
+    return _from_flax(params, lambda p: _mnist_name(p, {"Dense": "dense.{}"}))
+
+
+def from_flax_convnet_params(params: Mapping[str, Any]
+                             ) -> dict[str, torch.Tensor]:
+    """The :class:`~tpudist_torch.models.convnet.ConvNet` ``state_dict``
+    from a flax ``ConvNet`` tree (``Conv_j`` → ``conv{j}``, ``Dense_j`` →
+    ``dense{j}``)."""
+    return _from_flax(params, lambda p: _mnist_name(
+        p, {"Conv": "conv{}", "Dense": "dense{}"}))
+
+
+def from_flax_embedding_params(params: Mapping[str, Any]
+                               ) -> dict[str, torch.Tensor]:
+    """The :class:`~tpudist_torch.models.embedding.EmbeddingBagClassifier`
+    ``state_dict`` from a flax ``EmbeddingBagClassifier`` tree (the
+    ``embedding`` table as it is, ``fc`` transposed)."""
+    def name(path: tuple) -> str:
+        if path == ("embedding",):
+            return "embedding"
+        if len(path) == 2 and path[0] == "fc" and path[1] in ("kernel",
+                                                              "bias"):
+            return "fc." + ("weight" if path[1] == "kernel" else "bias")
+        raise ValueError(f"unexpected leaf {'/'.join(path)}")
+
+    return _from_flax(params, name)

@@ -27,7 +27,6 @@ tree leaf for leaf.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, Sequence
 
 import torch
@@ -37,13 +36,11 @@ from torch import nn
 from tpudist_torch.ops.batch_norm import BatchNorm
 from tpudist_torch.ops.group_norm import GroupNorm
 from tpudist_torch.utils.device import resolve_device
+from tpudist_torch.utils.init import lecun_normal_
 
 STAGE_SIZES = (3, 4, 6, 3)  # ResNet50 Bottleneck counts per layer group
 STAGE_WIDTHS = (64, 128, 256, 512)
 STEM_WIDTH = 64
-# flax's lecun_normal: a normal of std sqrt(1 / fan_in) truncated at two
-# standard deviations, divided by the truncated normal's own std
-_TRUNC_STD = 0.87962566103423978
 
 
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -294,12 +291,7 @@ class ResNetSegment(nn.Module):
             elif name.endswith("bias"):
                 p.zero_()
             else:
-                fan_in = p[0].numel()
-                std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
-                w = torch.empty(p.shape, device=p.device)
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
-                p.copy_(w)
+                lecun_normal_(p, generator)
         return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

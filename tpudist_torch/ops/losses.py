@@ -9,8 +9,16 @@ from __future__ import annotations
 import torch
 
 
-def log_softmax(logits: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    return logits - torch.logsumexp(logits, dim=dim, keepdim=True)
+def log_softmax(logits: torch.Tensor, axis: int | None = None, *,
+                dim: int | None = None) -> torch.Tensor:
+    """Log-softmax over ``axis`` (tpudist's name, default -1); ``dim`` is
+    torch's name for the same argument, and passing both raises."""
+    if dim is not None:
+        if axis is not None:
+            raise TypeError("log_softmax takes axis or dim, not both")
+        axis = dim
+    axis = -1 if axis is None else axis
+    return logits - torch.logsumexp(logits, dim=axis, keepdim=True)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -4,6 +4,9 @@ flash and Ulysses attention, the DP×SP train step)."""
 
 from tpudist_torch.parallel.data_parallel import (
     broadcast_params,
+    make_dp_eval_step,
+    make_dp_masked_eval_step,
+    make_dp_train_loop,
     make_dp_train_step,
 )
 from tpudist_torch.parallel.ring_attention import (
@@ -16,6 +19,9 @@ from tpudist_torch.parallel.ring_attention import (
 
 __all__ = [
     "broadcast_params",
+    "make_dp_eval_step",
+    "make_dp_masked_eval_step",
+    "make_dp_train_loop",
     "make_dp_train_step",
     "make_sp_train_step",
     "ring_attention_fn",

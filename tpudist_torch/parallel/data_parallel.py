@@ -5,7 +5,8 @@ Each process holds the whole model and its own shard of the batch: it
 computes its gradients, averages them with every other process of the
 data axis (one all-reduce per dtype of gradient, all parameters in one
 flat buffer — tpudist's ``lax.pmean``), and applies the optimizer step
-redundantly but identically.  :func:`broadcast_params` is the
+redundantly but identically.  The eval steps count correct predictions
+and sum the counts over the axis.  :func:`broadcast_params` is the
 ``hvd.broadcast_parameters(root_rank=0)`` twin that makes the replicas
 equal to begin with.  A world of one process is the plain step: no
 collective is issued.
@@ -13,6 +14,7 @@ collective is issued.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Iterable
 
 import torch
@@ -145,3 +147,86 @@ def make_dp_train_step(loss_fn: LossFn, mesh=None, axis: str = "data",
         return state.apply_gradients(), {"loss": loss_sum, **aux_sum}
 
     return train_step
+
+
+def make_dp_train_loop(loss_fn: LossFn, mesh=None, axis: str = "data",
+                       donate: bool = True):
+    """Build ``train_loop(state, *batches) -> (state, metrics)``;
+    tpudist's signature.  Each batch tensor is ``[n_steps, local_batch,
+    ...]`` (:meth:`ShardedLoader.epoch_stacked`); the loop runs the
+    ``n_steps`` steps of :func:`make_dp_train_step` in order, so its
+    numerics are those of ``n_steps`` calls of the step, and returns each
+    metric stacked as ``[n_steps]``.  tpudist compiles the steps into one
+    program to cut dispatches; an eager step dispatches each kernel
+    anyway, so here the loop is the steps one after another."""
+    step = make_dp_train_step(loss_fn, mesh, axis, donate)
+
+    def train_loop(state: TrainState, *batches: torch.Tensor):
+        n = batches[0].shape[0]
+        if any(b.shape[0] != n for b in batches):
+            raise ValueError("stacked batches disagree on the step count: "
+                             f"{[b.shape[0] for b in batches]}")
+        history = []
+        for i in range(n):
+            state, metrics = step(state, *(b[i] for b in batches))
+            history.append(metrics)
+        return state, {k: torch.stack([m[k] for m in history])
+                       for k in history[0]}
+
+    return train_loop
+
+
+@contextlib.contextmanager
+def _eval_mode(model: nn.Module):
+    """``model`` in eval mode for the duration, in its own mode after."""
+    was = model.training
+    model.eval()
+    try:
+        yield
+    finally:
+        model.train(was)
+
+
+def make_dp_eval_step(predict_fn: Callable[[nn.Module, tuple],
+                                           torch.Tensor],
+                      mesh=None, axis: str = "data"):
+    """Build ``eval_step(model, *inputs, labels) -> correct``: this
+    process's count of ``argmax(predict_fn(model, inputs)) == labels``,
+    summed over the data axis (an int64 tensor on the model's device;
+    reading it syncs the host).  Runs under ``torch.no_grad()`` with the
+    model in eval mode.  Counts, not fractions, so the caller divides by
+    what it fed; for padding-exact accuracy use
+    :func:`make_dp_masked_eval_step`."""
+
+    def eval_step(model: nn.Module, *batch: torch.Tensor) -> torch.Tensor:
+        *inputs, labels = batch
+        with torch.no_grad(), _eval_mode(model):
+            logits = predict_fn(model, tuple(inputs))
+        correct = (logits.argmax(-1) == labels).sum(dtype=torch.int64)
+        all_reduce_sum([correct], axis_groups(mesh, [axis]))
+        return correct
+
+    return eval_step
+
+
+def make_dp_masked_eval_step(predict_fn: Callable[[nn.Module, tuple],
+                                                  torch.Tensor],
+                             mesh=None, axis: str = "data"):
+    """Exact counts: ``eval_step(model, *inputs, labels, mask) ->
+    (correct, total)``, int64 tensors summed over the data axis.
+    ``mask`` (bool, one per row; a numpy array or a tensor) marks real
+    samples: the wrap-around padding of a ``drop_last=False`` loader
+    (:meth:`ShardedLoader.valid_mask`) counts in neither, so accuracy is
+    exact over the true dataset."""
+
+    def eval_step(model: nn.Module, *batch):
+        *inputs, labels, mask = batch
+        with torch.no_grad(), _eval_mode(model):
+            logits = predict_fn(model, tuple(inputs))
+        mask = torch.as_tensor(mask, device=logits.device, dtype=torch.bool)
+        hit = (logits.argmax(-1) == labels) & mask
+        counts = [hit.sum(dtype=torch.int64), mask.sum(dtype=torch.int64)]
+        all_reduce_sum(counts, axis_groups(mesh, [axis]))
+        return counts[0], counts[1]
+
+    return eval_step

@@ -1,5 +1,8 @@
-"""The port's training state (counterpart of :mod:`tpudist.train`)."""
+"""The port's training state and trainer (counterpart of
+:mod:`tpudist.train`)."""
 
 from tpudist_torch.train.state import TrainState, adam, fold_in, sgd
+from tpudist_torch.train.trainer import Trainer, TrainerConfig
 
-__all__ = ["TrainState", "adam", "fold_in", "sgd"]
+__all__ = ["TrainState", "Trainer", "TrainerConfig", "adam", "fold_in",
+           "sgd"]

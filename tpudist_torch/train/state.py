@@ -47,10 +47,13 @@ def fold_in(seed: int, *data: int) -> int:
     return h
 
 
-def sgd(lr: float) -> OptimizerFactory:
-    """The twin of ``optax.sgd(lr)``: plain SGD, no momentum, no weight
-    decay (``p -= lr * g``)."""
-    return functools.partial(torch.optim.SGD, lr=lr, momentum=0.0)
+def sgd(lr: float, momentum: float | None = None) -> OptimizerFactory:
+    """The twin of ``optax.sgd(lr, momentum)``: SGD without weight decay
+    (``p -= lr * g``); with ``momentum`` m, the trace ``t = g + m·t``
+    (zero at first) and ``p -= lr * t``, which is ``torch.optim.SGD``'s
+    update without dampening."""
+    return functools.partial(torch.optim.SGD, lr=lr,
+                             momentum=momentum or 0.0)
 
 
 def adam(lr: float) -> OptimizerFactory:
