@@ -144,7 +144,30 @@ Phases, each printing one JSON line and each fatal on failure:
 27. train_convnet — the ConvNet with dropout through Trainer.train() on
    data/real_digits.npz (batch 128, Adam 1e-3, 15 epochs): held-out
    accuracy >= 0.90; then the mnist_horovod shape (batch 1024, SGD
-   0.01): ms per step, images/s, 20 profiled steps' device busy share.
+   0.01): ms per step, images/s, 20 profiled steps' device busy share;
+28. elastic_kill9 — the TTL elastic gang of tests/test_torch_elastic_ttl.py
+   (tests/workers/torch_ttl_elastic_worker.py: MLP(1, 32), SGD 0.1, 30
+   steps, a commit every 5) started by the port's launcher, 3 workers on
+   one card, spawn 2 SIGKILLing itself after step 13, on an f32 wire:
+   survivors re-form at world 2, resume at batch 10, rescale the lr once
+   to 0.1·2/3 and end bitwise equal; the same gang on the CPU ends within
+   1e-4 of the card (parameters, loss); detection and recovery seconds
+   from the workers' event times, ms per step at world 3 and 2, every
+   worker's K1-K10 launches (0);
+29. elastic_horovod — ``python -m tpudist_torch.runtime.launch -n 3
+   --min-nprocs 2 --elastic-inprocess -- examples/horovod_mnist_elastic_gpu.py
+   --elastic ttl --epochs 2`` (the reference recipe cut to 2 of its 15
+   epochs), one worker SIGKILLed from outside after its round's second
+   commit: rc 0, both survivors print ``reset: world 3 -> 2, lr ->
+   0.00707`` and reach accuracy >= 0.9; images/s before and after the
+   kill, the wall seconds; the cost of a commit and a rollback (host
+   copies) of the ConvNet with AdamW and of the DDP MLP with Adam;
+30. host_collectives — HostCollectives over the store on CUDA gradients
+   (the ConvNet's 87 KB, the DDP MLP's 24.25 MB), one process a rank on
+   one card: flat and ring at world 3, hier at world 4 (2 hosts), each
+   with none and bf16 on the wire: ms per op, bytes posted and fetched
+   per rank, the device-to-host and host-to-device staging ms apart; the
+   ranks' results bitwise equal and near the f64 sum.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -3720,6 +3743,541 @@ def phase_train_convnet(torch, dev, seed):
     torch.cuda.empty_cache()
 
 
+# ---- elastic training (ROADMAP Queue A 8) ---------------------------------
+
+# elastic_kill9: the twin gang of tests/test_torch_elastic_ttl.py on the
+# card and on the CPU, the same gang on both.  The wire is f32
+# (TPUDIST_COLL_COMPRESS=none): the default bf16 wire turns the two
+# devices' f32 rounding differences (~1e-7) into whole bf16 steps (2^-8)
+# that compound over 30 steps.  The card's final parameters within
+# ELASTIC_CPU_RTOL of each tensor's largest CPU magnitude, its loss within
+# ELASTIC_CPU_RTOL relative.
+ELASTIC_CPU_RTOL = 1e-4
+ELASTIC_GANG_TIMEOUT_S = 300
+ELASTIC_WORKER = "tests/workers/torch_ttl_elastic_worker.py"
+# elastic_horovod: the reference recipe (horovod_mnist_elastic.py) cut only
+# in epochs; one worker SIGKILLed from outside after the round's second
+# commit at world 3 (mid-epoch 0)
+HVD_EPOCHS, HVD_REF_EPOCHS, HVD_ACCURACY = 2, 15, 0.9
+HVD_KILL_AFTER_COMMITS, HVD_KILL_SPAWN_ID = 2, "2"
+HVD_TIMEOUT_S = 600
+# host_collectives: ms per op of REPS ops after WARMUP, at world 3 (flat,
+# ring) and 4 (hier over 2 hosts: at 3 it would fall back to the ring);
+# the results of every rank bitwise equal, and within COLL_RTOL[compress]
+# of the f64 sum's largest magnitude (bf16: each of a value's at most
+# 2·world encodes rounds by 2^-9)
+COLL_WARMUP, COLL_REPS = 2, {"convnet": 20, "mlp": 5}
+COLL_RTOL = {"none": 1e-5, "bf16": 2e-2}
+COLL_TIMEOUT_S = 600
+
+
+def _repo_root() -> str:
+    import os
+
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _jsonl(path) -> list:
+    import os
+
+    if not os.path.exists(path):
+        return []
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def _last_params(np, ckpt_dir, sid) -> dict:
+    from tpudist_torch.elastic.checkpoint import latest_step
+
+    d = f"{ckpt_dir}/w{sid}"
+    with np.load(f"{d}/step_{latest_step(d)}/state.npz") as z:
+        return {k[len("params/"):]: z[k] for k in z.files
+                if k.startswith("params/")}
+
+
+def elastic_gang(device: str, tmp: str) -> dict:
+    """One run of the kill-9 gang on ``device`` under ``tmp``: its events,
+    loop records and final parameters, checked against the test's
+    outcome."""
+    import os
+
+    import numpy as np
+
+    from tpudist_torch.runtime.launch import launch
+
+    out, ckpt = f"{tmp}/events", f"{tmp}/ckpt"
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    rc = launch([sys.executable, f"{_repo_root()}/{ELASTIC_WORKER}"],
+                nprocs=3, min_nprocs=2, elastic_inprocess=True,
+                device=device, timeout_s=ELASTIC_GANG_TIMEOUT_S,
+                env={"WORKER_OUT_DIR": out, "WORKER_CKPT_DIR": ckpt,
+                     "WORKER_KILL_SPAWN_ID": "2", "WORKER_KILL_AT_STEP": "13",
+                     "TPUDIST_COLL_COMPRESS": "none", "OMP_NUM_THREADS": "1"})
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"elastic_kill9[{device}]: the gang exited {rc}")
+    ev = {sid: _jsonl(f"{out}/events_{sid}.jsonl") for sid in (0, 1, 2)}
+    loops = {sid: _jsonl(f"{out}/loop_{sid}.jsonl") for sid in (0, 1, 2)}
+    suicide = [e for e in ev[2] if e["event"] == "suicide"]
+    check(len(suicide) == 1 and suicide[0]["step"] == 13,
+          f"elastic_kill9[{device}]: spawn 2 did not die at step 13")
+    t_kill = suicide[0]["t"]
+    done, detect, recover = {}, {}, {}
+    for sid in (0, 1):
+        rounds = [e for e in ev[sid] if e["event"] == "round"]
+        resets = [(e["old_world"], e["new_world"], e["lr"])
+                  for e in ev[sid] if e["event"] == "reset"]
+        done[sid] = [e for e in ev[sid] if e["event"] == "done"][-1]
+        check([r["world"] for r in rounds] == [3, 2]
+              and rounds[-1]["resume_batch"] == 10,
+              f"elastic_kill9[{device}]: rounds {rounds}")
+        check(len(resets) == 1 and resets[0][:2] == (3, 2)
+              and abs(resets[0][2] - 0.1 * 2 / 3) < 1e-12,
+              f"elastic_kill9[{device}]: resets {resets}")
+        check(done[sid]["steps"] == 30 and done[sid]["world"] == 2,
+              f"elastic_kill9[{device}]: done {done[sid]}")
+        lost = [r for r in loops[sid]
+                if r["event"] in ("world_changed", "peer_lost")]
+        first = [e for e in ev[sid] if e["event"] == "first_step"
+                 and e["round"] == rounds[-1]["round"]]
+        check(lost and first, f"elastic_kill9[{device}]: no detection or "
+                              f"recovery events for spawn {sid}")
+        detect[sid] = {"seconds": lost[0]["t"] - t_kill,
+                       "by": lost[0]["event"]}
+        recover[sid] = first[0]["t"] - t_kill
+    p0, p1 = (_last_params(np, ckpt, sid) for sid in (0, 1))
+    check(all(np.array_equal(p0[k], p1[k]) for k in p0)
+          and done[0]["checksum"] == done[1]["checksum"]
+          and done[0]["loss"] == done[1]["loss"],
+          f"elastic_kill9[{device}]: survivors differ")
+
+    def ms_per_step(sid, lo, hi):
+        t = {e["step"]: e["t"] for e in ev[sid] if e["event"] == "commit"}
+        return (t[hi] - t[lo]) / (hi - lo) * 1e3
+
+    launches = {sid: {k: v for k, v in r.items() if k != "event"}
+                for sid in (0, 1, 2) for r in loops[sid]
+                if r["event"] == "kernel_launches"}
+    return {"wall_s": wall, "params": p0, "loss": done[0]["loss"],
+            "detection_s": detect, "recovery_s": recover,
+            "ms_per_step": {"world3": ms_per_step(0, 5, 10),
+                            "world2": ms_per_step(0, 15, 30)},
+            "kernel_launches": launches}
+
+
+def phase_elastic_kill9(torch, dev, seed):
+    """The kill-9 gang on the card (3 workers on cuda:0, spawn 2 SIGKILLs
+    itself after step 13) and the same gang on the CPU: survivors re-form
+    at world 2, resume at batch 10, rescale the lr once to 0.1·2/3 and end
+    bitwise equal; the card within ELASTIC_CPU_RTOL of the CPU; detection
+    and recovery seconds from the workers' event times; each worker's
+    K1-K10 launches (0: the MLP runs on cuBLAS)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        card = elastic_gang(dev.type, f"{tmp}/card")
+        cpu = elastic_gang("cpu", f"{tmp}/cpu")
+    rel = {k: float(abs(card["params"][k] - cpu["params"][k]).max()
+                    / abs(cpu["params"][k]).max()) for k in cpu["params"]}
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check(max(rel.values()) <= ELASTIC_CPU_RTOL
+          and loss_rel <= ELASTIC_CPU_RTOL,
+          f"elastic_kill9: card against CPU {rel}, loss {loss_rel}")
+    check(len(card["kernel_launches"]) == 3
+          and all(n == 0 for r in card["kernel_launches"].values()
+                  for n in r.values()),
+          f"elastic_kill9: kernel launches {card['kernel_launches']}")
+    emit({"phase": "elastic_kill9", "workers": 3, "device": str(dev),
+          "wire": "f32 (TPUDIST_COLL_COMPRESS=none)",
+          "survivors_world": 2, "resume_batch": 10, "lr": 0.1 * 2 / 3,
+          "survivors_bitwise_equal": True,
+          "card_vs_cpu_param_max_rel": max(rel.values()),
+          "card_vs_cpu_loss_rel": loss_rel,
+          **{f"{k}_{d}": v[k] for d, v in (("card", card), ("cpu", cpu))
+             for k in ("detection_s", "recovery_s", "ms_per_step",
+                       "wall_s")},
+          "kernel_launches_by_spawn": card["kernel_launches"]})
+
+
+def _children_with_env(pid: int, key: str, value: str) -> list:
+    """Processes whose parent is ``pid`` and whose environment holds
+    ``key=value`` (read from /proc)."""
+    import os
+
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                ppid = int(fh.read().rsplit(")", 1)[1].split()[1])
+            if ppid != pid:
+                continue
+            with open(f"/proc/{entry}/environ", "rb") as fh:
+                env = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if f"{key}={value}".encode() in env:
+            found.append(int(entry))
+    return found
+
+
+def _commit_rate(lines, world: int, batch: int) -> float | None:
+    """Images/s between consecutive '[rank 0/W] epoch e batch b committed'
+    lines of one epoch at world ``world`` (arrival times)."""
+    import re
+
+    pat = re.compile(rf"^\[rank 0/{world}\] epoch (\d+) batch (\d+) committed")
+    pts = [(t, int(m.group(1)), int(m.group(2))) for t, line in lines
+           if (m := pat.match(line))]
+    images = seconds = 0.0
+    for (t0, e0, b0), (t1, e1, b1) in zip(pts, pts[1:]):
+        if e1 == e0 and b1 > b0:
+            images += (b1 - b0) * batch * world
+            seconds += t1 - t0
+    return images / seconds if seconds else None
+
+
+def phase_elastic_horovod(torch, dev, seed):
+    """``python -m tpudist_torch.runtime.launch -n 3 --min-nprocs 2
+    --elastic-inprocess -- examples/horovod_mnist_elastic_gpu.py --elastic
+    ttl`` on the card: the reference recipe at full width (ConvNet,
+    per-replica batch 128, AdamW 0.01/sqrt(N), a commit every 30 batches,
+    synthetic_mnist 60,000/10,000) cut to HVD_EPOCHS of its 15 epochs.
+    The worker of spawn HVD_KILL_SPAWN_ID is SIGKILLed from outside after
+    the round's second commit at world 3; rc 0, both survivors print the
+    reset to world 2 and lr 0.00707 and reach HVD_ACCURACY.  Then the
+    commit and rollback cost of this state and of the DDP MLP's on the
+    card (the host-copy choice)."""
+    import os
+    import re
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-m", "tpudist_torch.runtime.launch", "-n", "3",
+           "--min-nprocs", "2", "--elastic-inprocess", "--device", dev.type,
+           "--",
+           "examples/horovod_mnist_elastic_gpu.py", "--elastic", "ttl",
+           "--epochs", str(HVD_EPOCHS)]
+    lines: list = []
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=_repo_root(), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+
+    def read():
+        for line in proc.stdout:
+            lines.append((time.monotonic(), line.rstrip("\n")))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    killed = None
+    try:
+        while proc.poll() is None and time.monotonic() - t0 < HVD_TIMEOUT_S:
+            commits = [line for _, line in lines
+                       if re.match(r"^\[rank 0/3\] epoch 0 batch \d+ "
+                                   r"committed", line)]
+            if killed is None and len(commits) >= HVD_KILL_AFTER_COMMITS:
+                pids = _children_with_env(proc.pid, "TPUDIST_SPAWN_ID",
+                                          HVD_KILL_SPAWN_ID)
+                check(len(pids) == 1, f"elastic_horovod: spawn "
+                                      f"{HVD_KILL_SPAWN_ID} pids {pids}")
+                os.kill(pids[0], signal.SIGKILL)
+                killed = (time.monotonic(), commits[-1])
+            time.sleep(0.01)
+        rc = proc.wait(timeout=max(1.0, HVD_TIMEOUT_S
+                                   - (time.monotonic() - t0)))
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    reader.join(timeout=10)
+    wall = time.monotonic() - t0
+    text = [line for _, line in lines]
+    check(killed is not None, "elastic_horovod: no worker was killed")
+    check(rc == 0, f"elastic_horovod: rc {rc}; last lines {text[-20:]}")
+    resets = [line for line in text if line.startswith("reset: ")]
+    check(resets == ["reset: world 3 -> 2, lr -> 0.00707"] * 2,
+          f"elastic_horovod: resets {resets}")
+    accuracies = [float(line.split()[1].rstrip("%")) / 100
+                  for line in text if line.startswith("accuracy: ")]
+    check(len(accuracies) == 2 and min(accuracies) >= HVD_ACCURACY,
+          f"elastic_horovod: accuracies {accuracies}")
+    out = {"phase": "elastic_horovod", "cmd": " ".join(cmd[1:]),
+           "epochs": HVD_EPOCHS, "reference_epochs": HVD_REF_EPOCHS,
+           "cut": "epochs only (2 of the reference's 15)",
+           "killed_spawn": HVD_KILL_SPAWN_ID,
+           "killed_after": killed[1], "rc": rc, "resets": resets,
+           "accuracies": accuracies, "wall_s": wall,
+           "images_per_s_before_kill": _commit_rate(
+               [x for x in lines if x[0] <= killed[0]], 3, 128),
+           "images_per_s_after_kill": _commit_rate(lines, 2, 128),
+           "commit_cost": commit_cost(torch, dev, seed),
+           "step_parts": step_parts(torch, dev, seed)}
+    emit(out)
+
+
+def step_parts(torch, dev, seed) -> dict:
+    """The ttl step's parts in one process on the card, each over 50
+    steps ending in a synchronise: the batch (the sampler's rows gathered
+    on the host and copied over), the compute (forward, backward, AdamW),
+    and the gradient tree's staging through pinned memory and back (what
+    the store collective adds besides its wire); then 20 steps of batch
+    and compute under torch.profiler (the device's busy share)."""
+    import numpy as np
+
+    from tpudist_torch.data.mnist import synthetic_mnist
+    from tpudist_torch.data.sampler import ShardedSampler
+    from tpudist_torch.models import ConvNet
+    from tpudist_torch.ops.losses import nll_loss
+    from tpudist_torch.runtime import collectives as coll
+    from tpudist_torch.train import TrainState, adamw
+
+    ds = synthetic_mnist("train", seed=seed)
+    idx = ShardedSampler(len(ds), 3, 0, shuffle=True).indices(0)
+    model = ConvNet(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    state = TrainState.create(model, adamw(0.01))
+    params = dict(model.named_parameters())
+    n, bs = 50, 128
+
+    def batch(b):
+        sel = idx[b * bs:(b + 1) * bs]
+        return (torch.from_numpy(ds.images[sel]).to(dev),
+                torch.from_numpy(ds.labels[sel]).to(dev))
+
+    def compute(x, y):
+        model.zero_grad(set_to_none=True)
+        loss = nll_loss(model(x, train=True, generator=state.generator(0)), y)
+        loss.backward()
+        state.apply_gradients()
+        return loss
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(n):
+            fn(b)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    batches = [batch(b) for b in range(n)]
+    compute(*batches[0])
+    out = {"batch_ms": timed(batch),
+           "compute_ms": timed(lambda b: compute(*batches[b]))}
+    grads = {k: p.grad for k, p in params.items()}
+
+    def stage_roundtrip(b):
+        staged = coll._stage(grads)
+        staged.wait()
+        coll._unstage(staged, [np.array(h) for h in staged.host])
+
+    out["stage_roundtrip_ms"] = timed(stage_roundtrip)
+    out["profile"] = profiled_steps(
+        torch, lambda k: [compute(*batch(b)) for b in range(k)], 20)
+    return out
+
+
+def commit_cost(torch, dev, seed) -> dict:
+    """ElasticState.commit (a host copy) and rollback on the card: the
+    ConvNet with AdamW (the example's state) and the DDP MLP
+    (784 -> 1024 x 5 -> 10) with Adam, ms each over 10 calls."""
+    from tpudist_torch.elastic import ElasticState
+    from tpudist_torch.models import MLP, ConvNet
+    from tpudist_torch.train import TrainState, adam, adamw
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {}
+    for name, model, opt in (
+            ("convnet_adamw", ConvNet(device=dev), adamw(0.01)),
+            ("mlp5x1024_adam", MLP(5, 1024, device=dev), adam(1e-3))):
+        model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+        es = ElasticState(TrainState.create(model, opt))
+        nbytes = sum(v.nbytes for group in es._committed_state["opt_state"]
+                     .values() for v in group.values())
+        nbytes += sum(v.nbytes for v in es._committed_state["params"]
+                      .values())
+        times = {}
+        for what, fn in (("commit", es.commit), ("rollback", es.rollback)):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            sync()
+            times[f"{what}_ms"] = (time.perf_counter() - t0) / 10 * 1e3
+        out[name] = {"state_bytes": nbytes, **times}
+    return out
+
+
+def coll_trees(torch, dev, seed, rank):
+    """The two gradient trees at their models' shapes, on ``dev``, drawn
+    for ``rank``: the ConvNet's (21,840 f32) and the DDP MLP's
+    (``MLP(5, 1024)``, 784 -> 1024 -> 5 x (1024 -> 1024) -> 10: 6,062,090
+    f32)."""
+    from tpudist_torch.models import MLP, ConvNet
+
+    g = torch.Generator(device=dev).manual_seed(seed * 1000 + rank)
+    trees = {}
+    for name, model in (("convnet", ConvNet(device=dev)),
+                        ("mlp", MLP(5, 1024, device=dev))):
+        trees[name] = {n: torch.randn(p.shape, generator=g, device=dev)
+                       for n, p in model.named_parameters()}
+    return trees
+
+
+def coll_rank_main(argv) -> int:
+    """One rank of host_collectives (run by chip_smoke in a process of
+    its own): every (tree, algorithm, compression) in order, timed, its
+    result's digest and its error against the f64 sum written as JSON."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from tpudist_torch.runtime.collectives import (
+        CollectiveConfig,
+        HostCollectives,
+    )
+    from tpudist_torch.runtime.coord import CoordClient
+
+    rank, world, port, seed = (int(v) for v in argv[:4])
+    algos, out_path, dev = argv[4].split(","), argv[5], torch.device(argv[6])
+    mine = coll_trees(torch, dev, seed, rank)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    rows = []
+    with CoordClient("127.0.0.1", port) as client:
+        rid = 0
+        for tree_name in ("convnet", "mlp"):
+            tree = mine[tree_name]
+            want = None
+            for algo in algos:
+                for compress in ("none", "bf16"):
+                    rid += 1
+                    coll = HostCollectives(
+                        client, rank, world, round_id=rid, timeout_s=120,
+                        config=CollectiveConfig(algorithm=algo,
+                                                compress=compress, hosts=2))
+                    for _ in range(COLL_WARMUP):
+                        coll.allreduce_sum(tree)
+                    sync()
+                    base = (coll.bytes_posted, coll.bytes_fetched,
+                            coll.stage_d2h_s, coll.stage_h2d_s)
+                    reps = COLL_REPS[tree_name]
+                    ms = []
+                    for _ in range(reps):
+                        t0 = time.perf_counter()
+                        got = coll.allreduce_sum(tree)
+                        sync()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    coll.barrier()
+                    calls = dict(coll.calls)
+                    coll.close()
+                    if want is None:  # the f64 sum of every rank's tree
+                        every = [coll_trees(torch, dev, seed, r)[tree_name]
+                                 for r in range(world)]
+                        want = {n: sum(t[n].double() for t in every)
+                                for n in tree}
+                        del every
+                    err = max(float((got[n].double() - want[n]).abs().max()
+                                    / want[n].abs().max()) for n in tree)
+                    digest = hashlib.sha256(b"".join(
+                        got[n].cpu().numpy().tobytes()
+                        for n in sorted(got))).hexdigest()
+                    rows.append({
+                        "tree": tree_name,
+                        "f32": sum(v.numel() for v in tree.values()),
+                        "algo": algo, "compress": compress,
+                        "world": world, "ms": ms,
+                        "posted_bytes": (coll.bytes_posted - base[0]) / reps,
+                        "fetched_bytes": (coll.bytes_fetched - base[1])
+                        / reps,
+                        "d2h_ms": (coll.stage_d2h_s - base[2]) / reps * 1e3,
+                        "h2d_ms": (coll.stage_h2d_s - base[3]) / reps * 1e3,
+                        "calls": calls, "max_rel_err": err,
+                        "digest": digest})
+    with open(out_path, "w") as fh:
+        json.dump(rows, fh)
+    return 0
+
+
+def coll_gang(world: int, algos: str, seed: int, tmp: str, dev) -> list:
+    """Run coll_rank_main in ``world`` processes on one store; every
+    process is bounded by COLL_TIMEOUT_S and stopped on the way out."""
+    import os
+    import signal
+
+    from tpudist_torch.runtime.coord import CoordServer
+
+    server = CoordServer(0)
+    procs = []
+    try:
+        for rank in range(world):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "import sys, chip_smoke; "
+                 "sys.exit(chip_smoke.coll_rank_main(sys.argv[1:]))",
+                 str(rank), str(world), str(server.port), str(seed), algos,
+                 f"{tmp}/coll_{world}_{rank}.json", str(dev)],
+                cwd=_repo_root(), start_new_session=True))
+        deadline = time.monotonic() + COLL_TIMEOUT_S
+        for p in procs:
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            check(rc == 0, f"host_collectives: a rank exited {rc}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        server.stop()
+    per_rank = [json.load(open(f"{tmp}/coll_{world}_{r}.json"))
+                for r in range(world)]
+    return per_rank
+
+
+def phase_host_collectives(torch, dev, seed):
+    """HostCollectives on CUDA gradients, three processes on one card:
+    the ConvNet's and the DDP MLP's gradient through flat and ring at
+    world 3 and hier at world 4 (2 hosts), each with none and bf16 on the
+    wire: ms per op (median of the ranks' medians), bytes posted and
+    fetched per rank per op, the device-to-host and host-to-device staging
+    ms apart; every rank's result bitwise equal, and within COLL_RTOL of
+    the f64 sum.  The baseline a process-group plane (ROADMAP A 8b) is
+    held against."""
+    import statistics
+    import tempfile
+
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for world, algos in ((3, "flat,ring"), (4, "hier")):
+            per_rank = coll_gang(world, algos, seed, tmp, dev)
+            for i, row in enumerate(per_rank[0]):
+                ranks = [pr[i] for pr in per_rank]
+                check(len({r["digest"] for r in ranks}) == 1,
+                      f"host_collectives: replicas differ {row['tree']} "
+                      f"{row['algo']} {row['compress']}")
+                err = max(r["max_rel_err"] for r in ranks)
+                check(err <= COLL_RTOL[row["compress"]],
+                      f"host_collectives: {row['tree']} {row['algo']} "
+                      f"{row['compress']} off by {err}")
+                rows.append({
+                    "tree": row["tree"], "f32": row["f32"],
+                    "bytes": 4 * row["f32"], "algo": row["algo"],
+                    "compress": row["compress"], "world": world,
+                    "ms_per_op": statistics.median(
+                        statistics.median(r["ms"]) for r in ranks),
+                    "ms_min": min(min(r["ms"]) for r in ranks),
+                    "posted_bytes_per_rank": statistics.mean(
+                        r["posted_bytes"] for r in ranks),
+                    "fetched_bytes_per_rank": statistics.mean(
+                        r["fetched_bytes"] for r in ranks),
+                    "d2h_ms": statistics.mean(r["d2h_ms"] for r in ranks),
+                    "h2d_ms": statistics.mean(r["h2d_ms"] for r in ranks),
+                    "algo_ran": sorted(k for k in row["calls"]
+                                       if k.startswith("allreduce~")),
+                    "max_rel_err": err})
+    emit({"phase": "host_collectives", "rows": rows})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3778,6 +4336,9 @@ def main(argv=None) -> int:
     phase_mnist_parity(torch, dev, args.seed)
     phase_train_mnist(torch, dev, args.seed)
     phase_train_convnet(torch, dev, args.seed)
+    phase_elastic_kill9(torch, dev, args.seed)
+    phase_elastic_horovod(torch, dev, args.seed)
+    phase_host_collectives(torch, dev, args.seed)
 
     main_k1 = next(r for r in k1 if r["q_offset"] == 7168)
     main_k2 = next(r for r in k2 if r["case"] == "per_row_side")

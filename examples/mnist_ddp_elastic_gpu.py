@@ -9,8 +9,10 @@ the wall clock printed at exit (``mnist_ddp_elastic.py:192-213``).  Here
 ``tpudist_torch``'s ``Trainer``: each process drives one device and
 all-reduces its gradients over the world.  Restart = rerun this script:
 the snapshot restores the parameters, the optimizer, the seed and the
-step.  The elastic part (a world that changes size) comes with ROADMAP
-Queue A 8.
+step.  A world that changes size while it trains (TTL rendezvous,
+commit/rollback, the lr rescale) is ``tpudist_torch.elastic``'s worker
+and ``tpudist_torch.runtime.launch``; ``horovod_mnist_elastic_gpu.py``
+drives them.
 
 Run (one card):   python3 examples/mnist_ddp_elastic_gpu.py 5 1
 Run (N cards):    torchrun --nproc-per-node N \\

@@ -69,6 +69,11 @@ def test_imports_and_runs_with_jax_blocked():
         "import tpudist_torch.models.moe, tpudist_torch.ops.moe_dispatch",
         "import tpudist_torch.ops.group_norm, tpudist_torch.ops.batch_norm",
         "import tpudist_torch.models.resnet, tpudist_torch.models.convert",
+        "import tpudist_torch.runtime.coord, tpudist_torch.runtime.faults",
+        "import tpudist_torch.runtime.collectives",
+        "import tpudist_torch.runtime.launch, tpudist_torch.elastic.worker",
+        "from tpudist_torch.elastic import ElasticState, elastic_run",
+        "from tpudist_torch.train import adamw, init_optimizer_state",
         "from tpudist_torch.data import synthetic_images",
         "from tpudist_torch.models import ResNet50, resnet50_stages",
         "from tpudist_torch.ops import GroupNorm, BatchNorm",
@@ -92,6 +97,62 @@ def test_imports_and_runs_with_jax_blocked():
         "ring_flash_attention_fn()(q, q, q).sum().backward()",
         "x = torch.randn(2, 4, 4, 64, requires_grad=True)",
         "GroupNorm(64, fused='add_relu', device='cpu')(x, x).sum().backward()",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_scan_covers_the_elastic_slice():
+    """The import scan reaches every module of the elastic slice, its
+    example and chip_smoke.py."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"chip_smoke.py", "examples/horovod_mnist_elastic_gpu.py",
+            "tpudist_torch/runtime/coord.py",
+            "tpudist_torch/runtime/collectives.py",
+            "tpudist_torch/runtime/faults.py",
+            "tpudist_torch/runtime/launch.py",
+            "tpudist_torch/elastic/state.py",
+            "tpudist_torch/elastic/loop.py",
+            "tpudist_torch/elastic/worker.py"} <= scanned
+
+
+def test_store_collectives_run_with_jax_blocked():
+    """With jax, flax and tpudist made unimportable, the coordination
+    store, a two-rank host allreduce (bf16 on the wire) and an elastic
+    state's commit and rollback run."""
+    code = "\n".join([
+        "import sys, threading",
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'tpudist',",
+        "          'ml_dtypes'):",
+        "    sys.modules[m] = None",
+        "import numpy as np, torch",
+        "from tpudist_torch.runtime.coord import CoordServer, CoordClient",
+        "from tpudist_torch.runtime.collectives import HostCollectives",
+        "from tpudist_torch.elastic import ElasticState",
+        "from tpudist_torch.models import MLP",
+        "from tpudist_torch.train import TrainState, adamw",
+        "srv = CoordServer(0)",
+        "out = [None, None]",
+        "def rank(r):",
+        "    with CoordClient(port=srv.port) as c:",
+        "        coll = HostCollectives(c, r, 2)",
+        "        out[r] = coll.allreduce_mean({'g': torch.ones(5) * r})",
+        "        coll.close()",
+        "ts = [threading.Thread(target=rank, args=(r,)) for r in (0, 1)]",
+        "[t.start() for t in ts]; [t.join(60) for t in ts]",
+        "assert torch.equal(out[0]['g'], torch.full((5,), 0.5)), out",
+        "srv.stop()",
+        "m = MLP(1, 8, device='cpu')",
+        "es = ElasticState(TrainState.create(m, adamw(1e-3)))",
+        "w = m.dense[0].weight.detach().clone()",
+        "m(torch.ones(2, 784)).sum().backward()",
+        "es.state.apply_gradients()",
+        "es.rollback()",
+        "assert torch.equal(m.dense[0].weight, w)",
         "print('ok')",
     ])
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -1,5 +1,10 @@
-"""The port's checkpointing (counterpart of :mod:`tpudist.elastic`); the
-elastic loop and workers come with ROADMAP Queue A 8."""
+"""Elastic training (counterpart of :mod:`tpudist.elastic`): checkpoints,
+commit/rollback (:class:`ElasticState`), the restart loop
+(:func:`elastic_run`) and the TTL-driven elastic worker
+(:func:`run_elastic_worker`) over the coordination store.
+``examples/horovod_mnist_elastic_gpu.py`` drives them.  tpudist's orbax
+checkpointer becomes ``torch.distributed.checkpoint`` with ROADMAP Queue
+A 8b."""
 
 from tpudist_torch.elastic.checkpoint import (
     Checkpointer,
@@ -7,5 +12,20 @@ from tpudist_torch.elastic.checkpoint import (
     restore_pytree,
     save_pytree,
 )
+from tpudist_torch.elastic.loop import WorkerFailure, WorldChanged, elastic_run
+from tpudist_torch.elastic.state import ElasticState, HostDataState
+from tpudist_torch.elastic.worker import ElasticContext, run_elastic_worker
 
-__all__ = ["Checkpointer", "latest_step", "restore_pytree", "save_pytree"]
+__all__ = [
+    "Checkpointer",
+    "ElasticContext",
+    "ElasticState",
+    "HostDataState",
+    "WorkerFailure",
+    "WorldChanged",
+    "elastic_run",
+    "latest_step",
+    "restore_pytree",
+    "run_elastic_worker",
+    "save_pytree",
+]

@@ -1,5 +1,8 @@
-"""The port's runtime (counterpart of :mod:`tpudist.runtime`): so far the
-process-group bootstrap and the process mesh."""
+"""The port's runtime (counterpart of :mod:`tpudist.runtime`): the
+process-group bootstrap and the process mesh, exported here; the
+coordination store (``coord``), its host collectives (``collectives``),
+fault injection (``faults``) and the launcher (``launch``), imported from
+their modules, as tpudist's package leaves them."""
 
 from tpudist_torch.runtime.distributed import (
     DistributedContext,

@@ -66,6 +66,55 @@ def adam(lr: float) -> OptimizerFactory:
                              eps=1e-8)
 
 
+def adamw(lr: float, weight_decay: float = 1e-4) -> OptimizerFactory:
+    """The twin of ``optax.adamw(lr, weight_decay=...)`` at optax's
+    defaults (betas 0.9/0.999, eps 1e-8, weight decay 1e-4 — torch's
+    ``AdamW`` defaults to 1e-2).  optax adds ``wd·p`` to Adam's update
+    before scaling by ``-lr``: ``p - lr·(m̂/(√v̂ + eps) + wd·p)``;
+    ``torch.optim.AdamW`` decays first, ``p·(1 - lr·wd)``, then takes
+    Adam's step: the same quantity."""
+    return functools.partial(torch.optim.AdamW, lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=weight_decay)
+
+
+def init_optimizer_state(optimizer: torch.optim.Optimizer
+                         ) -> torch.optim.Optimizer:
+    """Make the per-parameter state a torch optimizer creates only at its
+    first step, as optax's ``init`` does: zero moments and a step count of
+    0 (Adam, AdamW), a zero momentum trace (SGD with momentum; plain SGD
+    keeps none).  These are the values that first step would create, so
+    its update is unchanged, and no parameter moves (a zero-gradient step
+    would apply AdamW's decay and count a step).  Parameters that already
+    have state are left as they are; another optimizer class raises."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if optimizer.state.get(p):
+                continue
+            if isinstance(optimizer, torch.optim.Adam):
+                state = optimizer.state[p]
+                # torch keeps the count on the host unless the update runs
+                # on the device (``capturable``/``fused``)
+                on_device = group["capturable"] or group["fused"]
+                state["step"] = torch.zeros(
+                    (), dtype=(torch.float64 if torch.get_default_dtype()
+                               == torch.float64 and not group["fused"]
+                               else torch.float32),
+                    device=p.device if on_device else "cpu")
+                for key in ("exp_avg", "exp_avg_sq") + (
+                        ("max_exp_avg_sq",) if group["amsgrad"] else ()):
+                    state[key] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            elif isinstance(optimizer, torch.optim.SGD):
+                if group["momentum"] != 0:
+                    optimizer.state[p]["momentum_buffer"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            else:
+                raise NotImplementedError(
+                    f"init_optimizer_state knows Adam, AdamW and SGD, not "
+                    f"{type(optimizer).__name__}")
+    return optimizer
+
+
 @dataclasses.dataclass
 class TrainState:
     step: int

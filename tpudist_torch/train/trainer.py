@@ -40,7 +40,11 @@ from tpudist_torch.parallel.data_parallel import (
     make_dp_train_step,
 )
 from tpudist_torch.runtime.distributed import process_index
-from tpudist_torch.train.state import OptimizerFactory, TrainState
+from tpudist_torch.train.state import (
+    OptimizerFactory,
+    TrainState,
+    init_optimizer_state,
+)
 from tpudist_torch.utils.config import config_field
 from tpudist_torch.utils.logging import get_logger
 from tpudist_torch.utils.metrics import (
@@ -91,19 +95,6 @@ class TrainerConfig:
         "composed-mesh axis sizes, e.g. 'dp=2,fsdp=2' (not ported yet: "
         "ROADMAP Queue A 7); empty trains data-parallel over the given "
         "mesh")
-
-
-def _zero_grad_step(optimizer: torch.optim.Optimizer) -> None:
-    """One optimizer step on zero gradients: torch's optimizers make
-    their per-parameter state at the first step, and a restore needs it
-    as the template it fills (every value is then overwritten)."""
-    params = [p for g in optimizer.param_groups for p in g["params"]
-              if p.requires_grad]
-    for p in params:
-        p.grad = torch.zeros_like(p)
-    optimizer.step()
-    for p in params:
-        p.grad = None
 
 
 class Trainer:
@@ -174,9 +165,7 @@ class Trainer:
     def _maybe_load_snapshot(self) -> None:
         if not os.path.exists(self.config.snapshot_path):
             return
-        opt = self.state.optimizer
-        if not opt.state:
-            _zero_grad_step(opt)
+        opt = init_optimizer_state(self.state.optimizer)
         tree, meta = restore_pytree(self.config.snapshot_path,
                                     self._snapshot_tree())
         self.state.model.load_state_dict(tree["params"])
