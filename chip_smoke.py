@@ -167,7 +167,25 @@ Phases, each printing one JSON line and each fatal on failure:
    one card: flat and ring at world 3, hier at world 4 (2 hosts), each
    with none and bf16 on the wire: ms per op, bytes posted and fetched
    per rank, the device-to-host and host-to-device staging ms apart; the
-   ranks' results bitwise equal and near the f64 sum.
+   ranks' results bitwise equal and near the f64 sum;
+31. pipeline_resnet — the reference's model_parallel_ResNet50 recipe:
+   resnet50_stages(2) on 2 stages run in this process (one card holds one
+   NCCL rank), batch 32 at 128 px, SGD 0.05, MSE on one-hot labels; one
+   GPipe step (splits 4 and 8) and one packed step held in f32 against
+   the unpipelined ResNet50 step (each gradient within a multiple of its
+   own f32-to-f64 distance), then GPipe and packed at splits 4 and 8 in
+   bf16: ms per batch beside the unpipelined step's, peak memory, K1-K10
+   = 0, one profiled batch; a pipeline step handed CUDA tensors on a gloo
+   group raises;
+32. train_pp — the train cell's model through the 1F1B real-model mode on
+   2 local stages, M = 4, at V = 1 and 2 (K1 = 2·8·M, K3 = K4 = 8·M
+   launches a step), beside the unpipelined step: ms per step, tokens/s,
+   peak memory, bubble_fraction; a 2-layer f32 parity run against the
+   unpipelined step's loss and gradients;
+33. ps_hybrid — the reference's server_model_data_parallel recipe through
+   make_ps_hybrid_train_step on a one-rank NCCL group against the CPU's
+   steps, ms per step; the lookup over 2 virtual model shards against the
+   whole table.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -3321,10 +3339,11 @@ def mnist_loss_fn(train_kwargs=None, logit_scale: bool = False):
     return loss_fn
 
 
-def profiled_steps(torch, run, steps: int) -> dict:
+def profiled_steps(torch, run, steps: int, family=None) -> dict:
     """``run(steps)`` under torch.profiler, host clock around it ending in
     a synchronise: the wall ms, the device ms (every kernel and copy) and
-    the device's busy share, with the kernels that take its time."""
+    the device's busy share, with the kernels that take its time (and,
+    given ``family(kernel name)``, the device ms by family)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -3338,10 +3357,16 @@ def profiled_steps(torch, run, steps: int) -> dict:
                    if e.self_device_time_total > 0), key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     check(device_ms > 0, "the profiler saw no device time")
-    return {"steps": steps, "wall_ms": wall_ms, "device_ms": device_ms,
-            "device_busy_share": device_ms / wall_ms,
-            "top": [{"kernel": k[:80], "ms": t, "count": n}
-                    for k, t, n in rows[:8]]}
+    out = {"steps": steps, "wall_ms": wall_ms, "device_ms": device_ms,
+           "device_busy_share": device_ms / wall_ms,
+           "top": [{"kernel": k[:80], "ms": t, "count": n}
+                   for k, t, n in rows[:8]]}
+    if family is not None:
+        by = {}
+        for k, t, _ in rows:
+            by[family(k)] = by.get(family(k), 0.0) + t
+        out["by_family_ms"] = dict(sorted(by.items(), key=lambda kv: -kv[1]))
+    return out
 
 
 def max_rel(got: dict, want: dict) -> dict:
@@ -4278,6 +4303,606 @@ def phase_host_collectives(torch, dev, seed):
     emit({"phase": "host_collectives", "rows": rows})
 
 
+# ---- pipeline and parameter-server phases ---------------------------------
+
+PP_SPLITS = (4, 8)
+# the cells' sizes (a CPU rehearsal shrinks them): pipeline_resnet's batch
+# and image side; train_pp's sequence, batch and measured steps
+PP_RESNET = {"batch": 32, "hw": 128}
+PP_TRAIN = {"seq": 2048, "batch": 8, "steps": 10, "parity_seq": 512}
+# train_pp's parity (2 layers, f32, TF32 off): the 1F1B step's loss within
+# PP_LOSS_RTOL of the unpipelined step's, each parameter's gradient within
+# PP_GRAD_TOL of that gradient's largest element.  Both sum the same
+# per-token terms through the same kernels (K1/K3/K4, exact f32 FMAs);
+# the pipeline sums them per micro-batch of 2 sequences, scaled 1/M, and
+# then over the micro-batches: other orders, f32 rounding only.  A wrong
+# chunk, hop or micro-batch is off by the gradient's own size.
+PP_LOSS_RTOL, PP_GRAD_TOL = 1e-5, 1e-4
+# ps_hybrid: the card's steps against the CPU's, each loss and parameter
+# within PS_TOL * (1 + |CPU value|)
+PS_TOL = 1e-5
+PS_STEPS = 10
+# the bag sums of 2 virtual model shards against the whole table's: at
+# most 10 f32 terms each, summed in other orders (a few ulps), within
+# PS_BAG_RTOL of the largest sum
+PS_BAG_RTOL = 1e-6
+
+
+def split_resnet_sd(sd: dict, n0: int) -> list:
+    """A ResNet50 state_dict as resnet50_stages(2)'s: the stem and blocks
+    0..n0-1, then blocks n0.. numbered from 0 and the head."""
+    parts = [{}, {}]
+    for k, v in sd.items():
+        if k.startswith("blocks."):
+            i, rest = k[len("blocks."):].split(".", 1)
+            s = int(int(i) >= n0)
+            parts[s][f"blocks.{int(i) - n0 * s}.{rest}"] = v
+        else:
+            parts[0 if k.startswith("stem.") else 1][k] = v
+    return parts
+
+
+def join_resnet(parts: list, n0: int) -> dict:
+    """Invert split_resnet_sd (for gradients and weights)."""
+    out = dict(parts[0])
+    for k, v in parts[1].items():
+        if k.startswith("blocks."):
+            i, rest = k[len("blocks."):].split(".", 1)
+            k = f"blocks.{int(i) + n0}.{rest}"
+        out[k] = v
+    return out
+
+
+def resnet_pipeline_steps(torch, dev, parts, n0, kind, split, dtype, lr):
+    """A resnet50_stages(2) step factory on 2 local stages: ``kind``
+    "gpipe" (every stage's module here) or "packed" (one packed row per
+    stage, the stage templates on the meta device); returns ``(state,
+    step, grads(), weights())``, the last two by the full model's
+    names."""
+    from torch.func import functional_call
+
+    from tpudist_torch.models import resnet50_stages
+    from tpudist_torch.ops.losses import mse_loss
+    from tpudist_torch.parallel import pipeline as pl
+    from tpudist_torch.train import TrainState, sgd
+
+    if kind == "gpipe":
+        stages = torch.nn.ModuleList(resnet50_stages(
+            2, num_classes=1000, compute_dtype=dtype, device=dev))
+        for st, sd in zip(stages, parts):
+            st.load_state_dict(sd)
+        state = TrainState.create(stages, sgd(lr))
+        step = pl.make_pipeline_train_step([lambda m, a: m(a)] * 2,
+                                           mse_loss, None, split,
+                                           local_stages=2)
+
+        def named(attr):
+            return join_resnet([{n: attr(p) for n, p in st.named_parameters()}
+                                for st in stages], n0)
+    else:
+        templates = resnet50_stages(2, num_classes=1000, compute_dtype=dtype,
+                                    device="meta")
+        fns = [lambda p, a, m=m: functional_call(m, p, (a,))
+               for m in templates]
+        flat, meta = pl.pack_stage_params(parts)
+        state = TrainState.create(pl.ParamTree(flat, device=dev), sgd(lr))
+        step = pl.make_packed_pipeline_train_step(
+            fns, mse_loss, None, split, meta, state, local_stages=2)
+
+        def named(attr):
+            row = attr(state.model.tree())
+            return join_resnet([dict(t) for t in
+                                pl.unpack_stage_params(row, meta)], n0)
+    return (state, step,
+            lambda: named(lambda p: p.grad.detach().clone()),
+            lambda: named(lambda p: p.detach().clone()))
+
+
+def pp_gloo_probe(torch, dev) -> str:
+    """A pipeline step handed CUDA tensors on a gloo group (of one) must
+    raise before any work: gloo has no CUDA send/recv, and the port never
+    stages a hop through the host."""
+    import torch.distributed as dist
+
+    from tpudist_torch.ops.losses import mse_loss
+    from tpudist_torch.parallel import pipeline as pl
+    from tpudist_torch.runtime import initialize, pipeline_mesh, shutdown
+    from tpudist_torch.train import TrainState, sgd
+
+    check(not dist.is_initialized(), "pipeline_resnet: a process group is "
+          "already up")
+    initialize(store=dist.HashStore(), world_size=1, rank=0, device="cpu")
+    try:
+        check(dist.get_backend() == "gloo", "probe: not a gloo group")
+        model = pl.ParamTree(({"w": torch.zeros(4, 4),
+                               "b": torch.zeros(4)},), device=dev)
+        state = TrainState.create(model, sgd(0.1))
+        step = pl.make_pipeline_train_step(
+            [lambda p, a: torch.tanh(a @ p["w"] + p["b"])], mse_loss,
+            pipeline_mesh(1), 2)
+        try:
+            step(state, torch.zeros(4, 4, device=dev),
+                 torch.zeros(4, 4, device=dev))
+        except ValueError as e:
+            msg = str(e)
+        else:
+            msg = ""
+        check("need an NCCL group" in msg, f"probe: CUDA tensors on gloo "
+              f"did not raise ({msg!r})")
+        return msg
+    finally:
+        shutdown()
+
+
+def phase_pipeline_resnet(torch, dev, seed):
+    """The reference's model_parallel_ResNet50 recipe on the card:
+    resnet50_stages(2) (norm="group", 1000 classes, the stem and layer1-2,
+    then layer3-4 and the head) on 2 local stages, batch 32 at 128 px, SGD
+    0.05, MSE on one-hot labels.  Parity, f32 with TF32 off, from one
+    flax-layout tree of seeded weights: one GPipe step at splits 4 and 8
+    and one packed step at split 4 against the unpipelined ResNet50 step
+    on the same weights and batch; the loss within RESNET_LOSS_RTOL, each
+    parameter's gradient within RESNET_NOISE_FACTOR times that tensor's
+    own f32-to-f64 distance (the unpipelined step in f32 against f64 on
+    the card) or RESNET_GRAD_FLOOR where that is larger, and the weights
+    after the step apart by at most lr times that gradient distance plus
+    one f32 rounding of each update (resnet_parity's rule: micro-batches
+    of 8 and 4 may take other cuDNN algorithms and flip a ReLU whose
+    input lies within rounding of 0).  Then the sweep in bf16 (f32
+    parameters): GPipe and packed at splits 4 and 8, a warm-up and 3
+    timed batches each, ms per batch beside the unpipelined step's at
+    batch 32, peak memory, K1-K10 = 0 launches; one GPipe batch at split
+    4 profiled by kernel family; and the gloo probe."""
+    import numpy as np
+
+    from tpudist_torch.data import synthetic_images
+    from tpudist_torch.models import (
+        ResNet50,
+        from_flax_resnet_params,
+        resnet50_stages,
+    )
+    from tpudist_torch.ops.losses import mse_loss
+    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.train import TrainState, sgd
+
+    B, HW, C, lr = PP_RESNET["batch"], PP_RESNET["hw"], 1000, 0.05
+    x_np, y_np = synthetic_images(B, hw=HW, num_classes=C, seed=seed)
+    sd = from_flax_resnet_params(flax_resnet_tree(
+        np, np.random.default_rng(seed + 17), C))
+    n0 = len(resnet50_stages(2, device="meta")[0].blocks)
+    parts = split_resnet_sd(sd, n0)
+
+    def mse_any(pred, target):  # mse_loss, f64 kept f64
+        dt = torch.promote_types(pred.dtype, torch.float32)
+        return torch.square(pred.to(dt) - target.to(dt)).mean()
+
+    def whole_step(dtype, loss):
+        model = ResNet50(num_classes=C, compute_dtype=dtype, device=dev)
+        model.load_state_dict(sd)
+        state = TrainState.create(model, sgd(lr))
+        step = make_dp_train_step(
+            lambda m, batch, _g: (loss(m(batch[0]), batch[1]), {}))
+        return model, state, step
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    runs = {}
+    for name, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        model, state, step = whole_step(dt, mse_loss if dt == torch.float32
+                                        else mse_any)
+        batch = (torch.from_numpy(x_np).to(dev, dt),
+                 torch.from_numpy(y_np).to(dev, dt))
+        state, m = step(state, *batch)
+        runs[name] = (float(m["loss"]),
+                      {n: p.grad.detach().clone()
+                       for n, p in model.named_parameters()},
+                      {n: p.detach().clone()
+                       for n, p in model.named_parameters()})
+        del model, state
+    (l32, g32, w32), (l64, g64, _) = runs["f32"], runs["f64"]
+    batch = (torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev))
+    parity = []
+    for kind, split in (("gpipe", 4), ("gpipe", 8), ("packed", 4)):
+        state, step, grads, weights = resnet_pipeline_steps(
+            torch, dev, parts, n0, kind, split, torch.float32, lr)
+        state, m = step(state, *batch)
+        lp, gp, wp = float(m["loss"]), grads(), weights()
+        check(set(gp) == set(g32), f"pipeline_resnet: {kind} parameters "
+              f"{sorted(set(gp) ^ set(g32))[:4]} differ from the model's")
+        worst = (0.0, "")
+        for n in g32:
+            noise = rel_l2(g32[n], g64[n])
+            limit = max(RESNET_NOISE_FACTOR * noise, RESNET_GRAD_FLOOR)
+            got = rel_l2(gp[n], g32[n])
+            check(got <= limit, f"pipeline_resnet: {kind} split {split} "
+                  f"{n} gradient {got} from the unpipelined step's, limit "
+                  f"{limit}")
+            w = w32[n].abs()
+            slack = ((torch.nextafter(w, torch.full_like(w, np.inf)) - w)
+                     .double() + 2.0 ** -23 * lr * (gp[n].double().abs()
+                                                    + g32[n].double().abs()))
+            allowed = (lr * limit * float(g32[n].double().norm())
+                       + float(slack.norm()))
+            ratio = float((wp[n].double() - w32[n].double()).norm()) / allowed
+            check(ratio <= 1.0, f"pipeline_resnet: {kind} split {split} {n} "
+                  f"weights {ratio} of their allowed distance")
+            worst = max(worst, (got / limit, n))
+        rel = abs(lp - l32) / abs(l32)
+        check(np.isfinite(lp) and rel <= RESNET_LOSS_RTOL,
+              f"pipeline_resnet: {kind} split {split} loss {lp} vs {l32}")
+        parity.append({"kind": kind, "split": split, "loss": lp,
+                       "loss_unpipelined": l32, "loss_f64": l64,
+                       "loss_rel_err": rel, "grad_worst_ratio": worst[0],
+                       "grad_worst_param": worst[1]})
+        del state, step
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    del runs, g32, g64, w32
+    torch.cuda.empty_cache()
+
+    def timed(step, state, batches=3):
+        state, m = step(state, *batch)      # warm-up: cuDNN, allocator
+        float(m["loss"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            state, m = step(state, *batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / batches
+        losses = [float(v) for v in losses]
+        check(all(np.isfinite(losses)), f"pipeline_resnet: losses {losses}")
+        return state, {"ms_per_batch": ms, "losses": losses,
+                       "max_memory_allocated_bytes":
+                           torch.cuda.max_memory_allocated(dev)}
+
+    reset_launches()
+    sweep = []
+    model, state, step = whole_step(torch.bfloat16, mse_loss)
+    state, unpipelined = timed(step, state)
+    del model, state, step
+    profile = None
+    for split in PP_SPLITS:
+        for kind in ("gpipe", "packed"):
+            state, step, _, _ = resnet_pipeline_steps(
+                torch, dev, parts, n0, kind, split, torch.bfloat16, lr)
+            state, row = timed(step, state)
+            sweep.append({"kind": kind, "split": split, **row,
+                          "vs_unpipelined": row["ms_per_batch"]
+                          / unpipelined["ms_per_batch"]})
+            if kind == "gpipe" and split == PP_SPLITS[0]:
+                profile = profiled_steps(
+                    torch, lambda n: [step(state, *batch) for _ in range(n)],
+                    1, resnet_family)
+            del state, step
+            torch.cuda.empty_cache()
+    launches = read_launches()
+    check(all(v == 0 for v in launches.values()),
+          f"pipeline_resnet: the ResNet pipeline launched kernels {launches}")
+    probe = pp_gloo_probe(torch, dev)
+    emit({"phase": "pipeline_resnet", "batch": B, "image_size": HW,
+          "stages": 2, "parity": parity, "unpipelined": unpipelined,
+          "sweep": sweep, "profile_gpipe_split4": profile,
+          "launches": launches, "gloo_cuda_probe": probe,
+          "tolerance": {"loss_rtol": RESNET_LOSS_RTOL,
+                        "noise_factor": RESNET_NOISE_FACTOR,
+                        "grad_floor": RESNET_GRAD_FLOOR}})
+    return launches
+
+
+def pp_lm_fns(torch, cfg):
+    """The real-model 1F1B functions of a TransformerLM (tpudist's
+    make_1f1b_pipeline_train_step hooks), on the model's own modules built
+    on the meta device and called with the stage's tensors: a chunk is its
+    k DecoderBlocks in turn (flash attention), the embedding is
+    tok_embed + pos_embed, the head ln_f, lm_head and the train cell's
+    loss (cross-entropy of positions 0..S-2 against the next token)."""
+    from torch.func import functional_call
+
+    from tpudist_torch.models.transformer import TransformerLM
+    from tpudist_torch.ops.flash_attention import flash_attention_fn
+    from tpudist_torch.ops.losses import cross_entropy
+
+    tmpl = TransformerLM(cfg, attention_fn=flash_attention_fn(),
+                         param_dtype=torch.float32, device="meta")
+    blk = tmpl.blocks[0]
+
+    def block_fn(p, a):
+        for j in range(next(iter(p.values())).shape[0]):
+            a = functional_call(blk, {k: v[j] for k, v in p.items()}, (a,))
+        return a
+
+    def embed_fn(ex, x):
+        pos = torch.arange(x.shape[1], device=x.device)[None]
+        return (functional_call(tmpl.tok_embed,
+                                {"weight": ex["tok_embed.weight"]}, (x,))
+                + functional_call(tmpl.pos_embed,
+                                  {"weight": ex["pos_embed.weight"]},
+                                  (pos,)))
+
+    def head_loss_fn(ex, out, y):
+        h = functional_call(tmpl.ln_f, {"scale": ex["ln_f.scale"],
+                                        "bias": ex["ln_f.bias"]}, (out,))
+        logits = functional_call(tmpl.lm_head,
+                                 {"weight": ex["lm_head.weight"]},
+                                 (h,)).float()
+        return cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
+                             y[:, :-1].reshape(-1))
+
+    return block_fn, embed_fn, head_loss_fn
+
+
+def pp_lm_step(torch, cfg, sd, dev, P, V, M, seed):
+    """The 1F1B real-model step over ``P`` local stages from the model's
+    state_dict ``sd``; returns ``(state, step)``."""
+    from tpudist_torch.models import stack_block_params
+    from tpudist_torch.parallel import pipeline as pl
+    from tpudist_torch.train import TrainState, adam
+
+    block_fn, embed_fn, head_loss_fn = pp_lm_fns(torch, cfg)
+    tree = stack_block_params(sd, cfg.num_layers, P, V)
+    state = TrainState.create(pl.ParamTree(tree, device=dev), adam(3e-4),
+                              seed=seed)
+    step = pl.make_1f1b_pipeline_train_step(
+        block_fn, None, None, M, state, virtual_stages=V, embed_fn=embed_fn,
+        head_loss_fn=head_loss_fn, local_stages=P)
+    return state, step
+
+
+def phase_train_pp(torch, dev, seed):
+    """The train cell's model (vocab 32000, 8 layers, H=8, Hkv=2, embed
+    512, bf16 compute on f32 master weights, Adam 3e-4, flash attention,
+    the markov stream from --seed, seq 2048, batch 8) through the 1F1B
+    real-model mode on 2 local stages, M = 4 micro-batches of 2, at V = 1
+    (chunks of 4 layers) and V = 2 (chunks of 2).  First a parity run at
+    2 layers in f32 (TF32 off), batch 8 at seq 512, V = 1: the 1F1B
+    step's loss and every gradient against make_dp_train_step's on the
+    same weights and batch (PP_LOSS_RTOL, PP_GRAD_TOL).  Then each V: 2
+    warm-up and 10 measured steps with counts reset just before and read
+    just after (K1 = 2·8·M, K3 = K4 = 8·M a step: each forward tick and
+    each backward tick's recompute run K1, each backward tick K3 and K4),
+    the loss falling, ms per step, tokens/s, peak memory and
+    bubble_fraction, beside the unpipelined step from the same weights on
+    the same batch (10 steps after 2 warm-up); one V = 1 step profiled by
+    kernel family."""
+    import numpy as np
+
+    from tpudist_torch.data import markov_tokens
+    from tpudist_torch.models import unstack_block_params
+    from tpudist_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from tpudist_torch.ops.flash_attention import flash_attention_fn
+    from tpudist_torch.parallel import make_dp_train_step
+    from tpudist_torch.train import TrainState, adam
+
+    P, M = 2, 4
+
+    def lm(cfg, s):
+        model = TransformerLM(cfg, attention_fn=flash_attention_fn(),
+                              param_dtype=torch.float32, device=dev)
+        return model.init_weights(torch.Generator(device=dev).manual_seed(s))
+
+    # parity: 2 layers, f32
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg2 = TransformerConfig(vocab_size=32000, num_layers=2, num_heads=8,
+                             num_kv_heads=2, embed_dim=512,
+                             max_seq_len=PP_TRAIN["parity_seq"],
+                             compute_dtype=torch.float32)
+    model = lm(cfg2, seed + 21)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tokens = torch.from_numpy(markov_tokens(
+        PP_TRAIN["batch"], PP_TRAIN["parity_seq"], cfg2.vocab_size,
+        seed + 21)).to(dev)
+    targets = torch.roll(tokens, -1, 1)
+    state = TrainState.create(model, adam(3e-4), seed=seed)
+    state, m = make_dp_train_step(train_loss_fn(torch, cfg2))(state, tokens)
+    l_ref = float(m["loss"])
+    g_ref = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    del model, state
+    pstate, pstep = pp_lm_step(torch, cfg2, sd, dev, P, 1, M, seed)
+    reset_launches()
+    pstate, m = pstep(pstate, tokens, targets)
+    parity_launches = read_launches()
+    l_pp = float(m["loss"])
+    tree = pstate.model.tree()
+    g_pp = unstack_block_params(
+        {part: {k: v.grad for k, v in tree[part].items()}
+         for part in ("stages", "extra")}, P, 1)
+    check(set(g_pp) == set(g_ref), "train_pp: parameter names differ")
+    rel = abs(l_pp - l_ref) / abs(l_ref)
+    grads = {n: float((g_pp[n] - g_ref[n]).abs().max()
+                      / g_ref[n].abs().max().clamp_min(1e-30))
+             for n in g_ref}
+    worst = max(grads.items(), key=lambda kv: kv[1])
+    check(np.isfinite(l_pp) and rel <= PP_LOSS_RTOL,
+          f"train_pp: parity loss {l_pp} vs {l_ref}")
+    check(worst[1] <= PP_GRAD_TOL, f"train_pp: parity gradient {worst[0]} "
+          f"{worst[1]} of its max from the unpipelined step's")
+    want = {"K1": 2 * cfg2.num_layers * M, "K3": cfg2.num_layers * M,
+            "K4": cfg2.num_layers * M}
+    check(all(parity_launches[k] == v for k, v in want.items()),
+          f"train_pp: parity launches {parity_launches}, want {want}")
+    parity = {"layers": 2, "batch": PP_TRAIN["batch"],
+              "seq_len": PP_TRAIN["parity_seq"], "loss": l_pp,
+              "loss_unpipelined": l_ref, "loss_rel_err": rel,
+              "grad_worst_rel_to_max": worst[1], "grad_worst_param": worst[0],
+              "launches": parity_launches}
+    del pstate, pstep, tree, g_pp, g_ref
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 \
+        = tf32
+    torch.cuda.empty_cache()
+
+    cfg = TransformerConfig(vocab_size=32000, num_layers=8, num_heads=8,
+                            num_kv_heads=2, embed_dim=512, max_seq_len=8192,
+                            compute_dtype=torch.bfloat16)
+    B, S, steps = PP_TRAIN["batch"], PP_TRAIN["seq"], PP_TRAIN["steps"]
+    model = lm(cfg, seed + 5)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    tokens = torch.from_numpy(markov_tokens(B, S, cfg.vocab_size,
+                                            seed)).to(dev)
+    targets = torch.roll(tokens, -1, 1)
+
+    def measure(step, state, *batch):
+        for _ in range(2):
+            state, _ = step(state, *batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, *batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / steps
+        launches = read_launches()
+        losses = [float(v) for v in losses]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"train_pp: losses {losses}")
+        return state, {"ms_per_step": ms, "tokens_per_s": B * S / ms * 1e3,
+                       "losses": losses,
+                       "max_memory_allocated_bytes":
+                           torch.cuda.max_memory_allocated(dev),
+                       "launches_per_step": {k: v / steps
+                                             for k, v in launches.items()}}
+
+    state = TrainState.create(model, adam(3e-4), seed=seed)
+    state, unpipelined = measure(make_dp_train_step(train_loss_fn(torch,
+                                                                  cfg)),
+                                 state, tokens)
+    del model, state
+    torch.cuda.empty_cache()
+    rows, main_launches, profile = [], None, None
+    for V in (1, 2):
+        pstate, pstep = pp_lm_step(torch, cfg, sd, dev, P, V, M, seed)
+        pstate, row = measure(pstep, pstate, tokens, targets)
+        want = {"K1": 2 * cfg.num_layers * M, "K3": cfg.num_layers * M,
+                "K4": cfg.num_layers * M}
+        got = row["launches_per_step"]
+        check(all(got[k] == v for k, v in want.items())
+              and all(got[k] == 0 for k in got if k not in want),
+              f"train_pp V={V}: launches a step {got}, want {want}")
+        rows.append({"virtual_stages": V, "stages": P, "microbatches": M,
+                     "layers_per_chunk": cfg.num_layers // (P * V),
+                     "bubble_fraction": pstep.bubble_fraction,
+                     "ticks": pstep.schedule.T, **row,
+                     "vs_unpipelined": row["ms_per_step"]
+                     / unpipelined["ms_per_step"]})
+        if V == 1:
+            main_launches = {k: int(v * steps) for k, v in got.items()}
+            main_launches["per_step"] = got
+            profile = profiled_steps(
+                torch, lambda n: [pstep(pstate, tokens, targets)
+                                  for _ in range(n)], 1, kernel_family)
+        del pstate, pstep
+        torch.cuda.empty_cache()
+    emit({"phase": "train_pp", "batch": B, "seq_len": S, "steps": steps,
+          "parity": parity, "unpipelined": unpipelined, "runs": rows,
+          "profile_v1": profile,
+          "tolerance": {"loss_rtol": PP_LOSS_RTOL,
+                        "grad_rel_to_max": PP_GRAD_TOL}})
+    return main_launches
+
+
+def phase_ps_hybrid(torch, dev, seed):
+    """The reference's server_model_data_parallel recipe
+    (EmbeddingBag(100, 16) + Linear(16, 8), SGD 0.05, cross-entropy on
+    ragged_embedding_batches, 10 rows a step) through
+    make_ps_hybrid_train_step on a one-rank NCCL group (data 1 × model 1)
+    and on the CPU without a group, from the same weights: PS_STEPS steps,
+    each loss and every parameter after them within PS_TOL; ms per step on
+    the card; K1-K10 = 0.  Then sharded_bag_lookup's shard function with
+    2 virtual model shards (50 rows each) summed, against the whole-table
+    lookup on the card.  The group is destroyed at the end."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from tpudist_torch.data import ragged_embedding_batches
+    from tpudist_torch.models import EmbeddingBagClassifier
+    from tpudist_torch.models.mlp import linear_as
+    from tpudist_torch.ops.losses import cross_entropy
+    from tpudist_torch.parallel import ps_hybrid as ps
+    from tpudist_torch.runtime import data_model_mesh, initialize, shutdown
+    from tpudist_torch.train import TrainState, sgd
+
+    def dense_apply(m, bag):
+        return linear_as(bag, m.fc, torch.float32).float()
+
+    cpu = torch.device("cpu")
+    full = EmbeddingBagClassifier(100, 16, 8, device=cpu)
+    full.init_weights(torch.Generator().manual_seed(seed + 23))
+    batches = list(ragged_embedding_batches(PS_STEPS + 20, batch=10,
+                                            seed=seed))
+    initialize(store=dist.HashStore(), world_size=1, rank=0, device=dev)
+    try:
+        check(dist.get_backend() == "nccl", "ps_hybrid: not an NCCL group")
+        runs = {}
+        for where, d, mesh in (("cuda", dev, data_model_mesh(1)),
+                               ("cpu", cpu, None)):
+            model = EmbeddingBagClassifier(100, 16, 8, device=d)
+            model.load_state_dict(full.state_dict())
+            state = TrainState.create(model, sgd(0.05))
+            step = ps.make_ps_hybrid_train_step(dense_apply, cross_entropy,
+                                                mesh, state, 100)
+            reset_launches()
+            losses = []
+            for idx, mask, tgt in batches[:PS_STEPS]:
+                state, m = step(state, *(torch.from_numpy(a).to(d)
+                                         for a in (idx, mask, tgt)))
+                losses.append(float(m["loss"]))
+            runs[where] = (losses, {k: v.detach().cpu().clone() for k, v in
+                                    model.state_dict().items()},
+                           read_launches(), state, step)
+        (lc, wc, launches, state, step), (lh, wh, _, _, _) = \
+            runs["cuda"], runs["cpu"]
+        loss_err = max(abs(a - b) / (1 + abs(b)) for a, b in zip(lc, lh))
+        param_err = max(float(((wc[k] - wh[k]).abs()
+                               / (1 + wh[k].abs())).max()) for k in wh)
+        check(loss_err <= PS_TOL and param_err <= PS_TOL,
+              f"ps_hybrid: card against CPU loss {loss_err}, params "
+              f"{param_err}")
+        half = len(lc) // 2
+        check(sum(lc[half:]) < sum(lc[:half]),
+              f"ps_hybrid: loss did not fall {lc}")
+        check(all(v == 0 for v in launches.values()),
+              f"ps_hybrid: launched kernels {launches}")
+        timed = [tuple(torch.from_numpy(a).to(dev) for a in b)
+                 for b in batches[PS_STEPS:]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in timed:
+            state, m = step(state, *b)
+        float(m["loss"])
+        ms = (time.perf_counter() - t0) * 1e3 / len(timed)
+        table = runs["cuda"][3].model.embedding.detach()
+        idx, mask, _ = (torch.from_numpy(a).to(dev) for a in batches[0])
+        whole = torch.einsum("blh,bl->bh", table[idx.long()], mask)
+        halves = sum(ps._bag_contrib(part, idx, mask, s)
+                     for s, part in enumerate(table.chunk(2)))
+        bag_err = float((halves - whole).abs().max()
+                        / whole.abs().max())
+        check(bag_err <= PS_BAG_RTOL, f"ps_hybrid: 2 virtual shards off the "
+              f"whole table by {bag_err} of its max")
+    finally:
+        shutdown()
+    emit({"phase": "ps_hybrid", "steps": PS_STEPS, "losses_cuda": lc,
+          "losses_cpu": lh, "loss_max_err": loss_err,
+          "param_max_err": param_err, "ms_per_step": ms,
+          "timed_steps": len(timed), "virtual_shards_rel_err": bag_err,
+          "launches": launches,
+          "tolerance": {"steps": PS_TOL, "virtual_shards": PS_BAG_RTOL}})
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4339,6 +4964,9 @@ def main(argv=None) -> int:
     phase_elastic_kill9(torch, dev, args.seed)
     phase_elastic_horovod(torch, dev, args.seed)
     phase_host_collectives(torch, dev, args.seed)
+    phase_pipeline_resnet(torch, dev, args.seed)
+    pp_launches = phase_train_pp(torch, dev, args.seed)
+    phase_ps_hybrid(torch, dev, args.seed)
 
     main_k1 = next(r for r in k1 if r["q_offset"] == 7168)
     main_k2 = next(r for r in k2 if r["case"] == "per_row_side")
@@ -4356,6 +4984,8 @@ def main(argv=None) -> int:
                                     "bound_by", "library_ms")},
          "launches_train": train_launches["K1"],
          "launches_sp": sp_launches["K1"],
+         "launches_train_pp": pp_launches["K1"],
+         "launches_train_pp_per_step": pp_launches["per_step"]["K1"],
          "plan": main_k1["plan"],
          "train_ms": k1_train["ms"], "train_bound_ms": k1_train["bound_ms"],
          "train_library_ms": k1_train["library_ms"],
@@ -4380,6 +5010,8 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda",
             "source": "tpudist_torch/csrc/flash_attention_bwd.cu",
             "replaces": src_line, "launches": train_launches[key],
+            "launches_train_pp": pp_launches[key],
+            "launches_train_pp_per_step": pp_launches["per_step"][key],
             "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_rows
                                + (ring_rows if key == "K4" else [])),
             "tol_ratio": max(r[key]["tol_ratio"] for r in bwd_rows

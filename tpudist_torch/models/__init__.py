@@ -11,6 +11,10 @@ from tpudist_torch.models.convert import (
     from_flax_moe_params,
     from_flax_params,
     from_flax_resnet_params,
+    from_flax_resnet_stages,
+    from_flax_stacked_blocks,
+    stack_block_params,
+    unstack_block_params,
 )
 from tpudist_torch.models.convnet import ConvNet
 from tpudist_torch.models.embedding import EmbeddingBagClassifier
@@ -46,7 +50,11 @@ __all__ = [
     "from_flax_moe_params",
     "from_flax_params",
     "from_flax_resnet_params",
+    "from_flax_resnet_stages",
+    "from_flax_stacked_blocks",
     "greedy_generate",
     "resnet50_stages",
     "sdpa",
+    "stack_block_params",
+    "unstack_block_params",
 ]

@@ -7,7 +7,11 @@ same for a ``MoETransformerLM`` and :func:`from_flax_resnet_params` for a
 ResNet50 or one of its pipeline segments, and
 :func:`from_flax_mlp_params`, :func:`from_flax_convnet_params` and
 :func:`from_flax_embedding_params` for the MNIST models and the embedding
-classifier.  It imports nothing of the JAX package: the tree is plain
+classifier.  For the pipelines, :func:`from_flax_resnet_stages` maps the
+per-stage trees of ``resnet50_stages(n)`` and
+:func:`from_flax_stacked_blocks` (:func:`stack_block_params` on the
+port's own ``state_dict``) stacks a ``TransformerLM``'s blocks into the
+chunk layout of the 1F1B real-model mode.  It imports nothing of the JAX package: the tree is plain
 numpy.
 """
 
@@ -178,6 +182,70 @@ def from_flax_resnet_params(
                 w = w.contiguous()
             sd[name] = w
     return sd
+
+
+def from_flax_resnet_stages(stage_params) -> tuple:
+    """One ``state_dict`` per stage of ``resnet50_stages(n)`` from the
+    flax trees of its stages (each stage numbers its blocks from 0, in
+    both packages), as :func:`from_flax_resnet_params` maps each."""
+    return tuple(from_flax_resnet_params(p) for p in stage_params)
+
+
+def _device_order(n_stages: int, virtual_stages: int) -> list[int]:
+    """Chunk ``v·P + p`` at position ``p·V + v`` (tpudist's
+    ``interleave_params``)."""
+    return [v * n_stages + p for p in range(n_stages)
+            for v in range(virtual_stages)]
+
+
+def stack_block_params(state_dict: Mapping[str, torch.Tensor],
+                       num_layers: int, n_stages: int,
+                       virtual_stages: int = 1) -> dict:
+    """A ``TransformerLM`` ``state_dict`` as the real-model 1F1B layout:
+    ``{"stages": {name: [L, k, ...]}, "extra": {name: tensor}}``.  The
+    ``num_layers`` blocks are cut into ``L = n_stages · virtual_stages``
+    chunks of ``k = num_layers / L`` consecutive blocks; each block's
+    parameters, named as a ``DecoderBlock``'s (``ln1.scale``,
+    ``attn.q.weight``, ...), are stacked ``[L, k, ...]`` with the chunks in
+    device order (chunk ``v·P + p`` at ``p·V + v``).  The embeddings, final
+    norm and head are ``extra``, named as the model's."""
+    n = n_stages * virtual_stages
+    if num_layers % n:
+        raise ValueError(f"{num_layers} layers do not cut into {n_stages} "
+                         f"stages × {virtual_stages} chunks")
+    k = num_layers // n
+    names = [key[len("blocks.0."):] for key in state_dict
+             if key.startswith("blocks.0.")]
+    stages = {name: torch.stack([
+        torch.stack([state_dict[f"blocks.{c * k + j}.{name}"]
+                     for j in range(k)])
+        for c in _device_order(n_stages, virtual_stages)]) for name in names}
+    extra = {key: v for key, v in state_dict.items()
+             if not key.startswith("blocks.")}
+    return {"stages": stages, "extra": extra}
+
+
+def unstack_block_params(tree: Mapping[str, Any], n_stages: int,
+                         virtual_stages: int = 1) -> dict:
+    """Invert :func:`stack_block_params`: the model's ``state_dict`` names
+    from the stacked layout (tensors as they are, e.g. the gradients)."""
+    order = _device_order(n_stages, virtual_stages)
+    out = dict(tree["extra"])
+    for name, leaf in tree["stages"].items():
+        k = leaf.shape[1]
+        for pos, c in enumerate(order):
+            for j in range(k):
+                out[f"blocks.{c * k + j}.{name}"] = leaf[pos, j]
+    return out
+
+
+def from_flax_stacked_blocks(params: Mapping[str, Any],
+                             cfg: TransformerConfig, n_stages: int,
+                             virtual_stages: int = 1) -> dict:
+    """A flax ``TransformerLM`` tree in the real-model 1F1B layout of
+    :func:`stack_block_params`."""
+    return stack_block_params(from_flax_params(params, cfg), cfg.num_layers,
+                              n_stages, virtual_stages)
 
 
 def _mnist_name(path: tuple, layers: Mapping[str, str]) -> str:

@@ -15,19 +15,23 @@ from tpudist_torch.runtime.distributed import (
 )
 from tpudist_torch.runtime.mesh import (
     data_mesh,
+    data_model_mesh,
     local_batch_size,
     local_block,
     make_mesh,
+    pipeline_mesh,
 )
 
 __all__ = [
     "DistributedContext",
     "data_mesh",
+    "data_model_mesh",
     "initialize",
     "local_batch_size",
     "local_block",
     "local_rank",
     "make_mesh",
+    "pipeline_mesh",
     "process_count",
     "process_index",
     "shutdown",

@@ -60,6 +60,27 @@ def data_mesh(n: int | None = None) -> DeviceMesh:
     return make_mesh({"data": -1 if n is None else n})
 
 
+def data_model_mesh(model: int, n: int | None = None) -> DeviceMesh:
+    """2-D ``data × model`` mesh (data parallelism × parameter sharding);
+    ``model`` varies fastest, so a model group is a run of adjacent
+    ranks.  ``n``, when given, must be the number of processes."""
+    return make_mesh({"data": _rest(n, model), "model": model})
+
+
+def pipeline_mesh(stages: int, n: int | None = None) -> DeviceMesh:
+    """2-D ``data × stage`` mesh for (optionally data-parallel)
+    pipelining; ``stage`` varies fastest."""
+    return make_mesh({"data": _rest(n, stages), "stage": stages})
+
+
+def _rest(n: int | None, inner: int) -> int:
+    if n is None:
+        return -1
+    if n % inner:
+        raise ValueError(f"{n} processes not divisible by {inner}")
+    return n // inner
+
+
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return mesh.size(_dim(mesh, axis))
 
