@@ -185,7 +185,26 @@ Phases, each printing one JSON line and each fatal on failure:
 33. ps_hybrid — the reference's server_model_data_parallel recipe through
    make_ps_hybrid_train_step on a one-rank NCCL group against the CPU's
    steps, ms per step; the lookup over 2 virtual model shards against the
-   whole table.
+   whole table;
+34. tp_kernels — K1, K3 and K4 at a tp = 2 shard of the train cell (B=8,
+   S=2048, 4 local query heads over 1 KV head, D=64, causal) against
+   their plain versions (kernels_bwd's limits, K1 by O_ATOL/O_RTOL and
+   LSE_ATOL), a second call bitwise equal, the planners' splits, times
+   beside the bound and SDPA's forward and backward;
+35. train_spmd — the train cell through make_composed_train_step's
+   sharded path on one card: the model in the Megatron layout over a
+   one-rank tp axis, every leaf claimed by tp or fsdp (one-rank axes), so
+   each step issues the ZeRO-3 gathers and reduce-scatters, the Megatron
+   all-reduces and the logits' all-gather on one-rank NCCL groups; step 0
+   against the unsharded flash step (loss and gradients), then ms a step
+   beside it, peak memory, K1 = K3 = K4 = 8 launches a step and the
+   collectives a step;
+36. ep_moe — the train cell's widths with E = 8, top-2 einsum MoE MLPs
+   (2 layers, batch 2: EP_MOE), through the composed EP step (tokens
+   replicated over a one-rank ep axis, partial outputs all-reduced) and
+   make_ep_shard_train_step (the all-to-all pair on a one-rank expert
+   axis), each against the one-process MoE step at step 0 and timed
+   beside it, launches and collectives a step.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -206,6 +225,9 @@ import time
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# host seconds idled at each end of a decode kernel's profile window, so
+# that a device clock running apart from the host's cuts no call off it
+PROFILE_PAD_S = 0.05
 # Kernel against its plain version, bf16 inputs: each O element within
 # O_ATOL + O_RTOL * |plain O| (O's scale falls as the softmax spreads:
 # about sqrt(e / n) over n keys, 0.02 at 8k), the f32 LSE within LSE_ATOL
@@ -351,31 +373,48 @@ def timed_ms(fn, iters: int, flush) -> float:
     return ms
 
 
-def decode_split_ms(fn, iters: int, flush) -> dict:
+def decode_split_ms(fn, iters: int, flush, attempts: int = 3) -> dict:
     """Device ms of a decode call's two kernels apart — the split pass
     (``decode_partial_kernel``) and the merge (``decode_merge_kernel``) —
     as torch.profiler's mean over ``iters`` calls, each after an L2
-    flush."""
+    flush.
+
+    The profiler keeps only the device events whose timestamps, carried
+    over to the host's clock, fall inside its window, so a device clock
+    that runs apart from the host's cuts calls off the window's ends:
+    the window is padded by ``PROFILE_PAD_S`` of host time at both ends.
+    A profile that still shows another count than one of each kernel a
+    call is taken again, up to ``attempts`` profiles in all; the times
+    come from the first whose counts are exact."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    names = (("partial_ms", "decode_partial_kernel"),
+             ("merge_ms", "decode_merge_kernel"))
     flush()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            flush()
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for key, name in (("partial_ms", "decode_partial_kernel"),
-                      ("merge_ms", "decode_merge_kernel")):
-        rows = [e for e in prof.key_averages() if name in e.key]
-        check(bool(rows) and sum(e.count for e in rows) == iters,
-              f"the profile shows no {name} per call: "
-              f"{[(e.key[:60], e.count) for e in rows]}")
-        out[key] = sum(e.self_device_time_total for e in rows) / iters / 1e3
-    return out
+    seen = []
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(iters):
+                flush()
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        events = prof.key_averages()
+        out, counts = {"profile_attempts": attempt}, {}
+        for key, name in names:
+            rows = [e for e in events if name in e.key]
+            counts[name] = [(e.key[:60], e.count) for e in rows]
+            out[key] = (sum(e.self_device_time_total for e in rows)
+                        / iters / 1e3)
+        if all(sum(c for _, c in rows) == iters for rows in counts.values()):
+            return out
+        seen.append(counts)
+    check(False, f"no profile of {iters} calls shows one of each decode "
+          f"kernel a call, in {attempts} profiles: {seen}")
 
 
 def compare(o, lse, po, plse) -> tuple[float, float, float]:
@@ -1124,12 +1163,22 @@ def live_pairs(s: int, window) -> int:
     return sum(min(r + 1, window or s) for r in range(s))
 
 
-def phase_backward_kernels(torch, dev, seed):
+BWD_CASES = (("train", (8, 2048, 8, 2, 64, None)),
+             ("train_window512", (8, 2048, 8, 2, 64, 512)),
+             ("bench_flash", (4, 2048, 8, 8, 128, None)))
+# a tp = 2 shard of the train cell: its 4 local query heads over 1 KV head
+TP_CASES = (("tp2_shard", (8, 2048, 4, 1, 64, None)),)
+
+
+def phase_backward_kernels(torch, dev, seed, cases=BWD_CASES,
+                           phase="kernels_bwd", k1_case="train"):
     """K3 and K4 against their plain versions (bf16) in three cases: the
     train phase's attention shape (B=8, S=2048, H=8, Hkv=2, D=64, causal),
     the same with a 512 window, and bench.py's flash shape (B=4, S=2048,
-    H=8, Hkv=8, D=128, causal).  Returns the per-case rows and K1's row
-    at the training shape."""
+    H=8, Hkv=8, D=128, causal); K1 at the ``k1_case`` shape held against
+    its plain version too.  Returns the per-case rows and K1's row at
+    that shape.  ``tp_kernels`` runs it at a tp = 2 shard's shape
+    (TP_CASES)."""
     import torch.nn.functional as F
 
     from tpudist_torch.ops import flash_attention as fa
@@ -1145,10 +1194,7 @@ def phase_backward_kernels(torch, dev, seed):
         return torch.randn(*shape, generator=g, device=dev).to(bf)
 
     rows, k1_train = [], None
-    for case, (B, S, H, HKV, D, W) in (
-            ("train", (8, 2048, 8, 2, 64, None)),
-            ("train_window512", (8, 2048, 8, 2, 64, 512)),
-            ("bench_flash", (4, 2048, 8, 8, 128, None))):
+    for case, (B, S, H, HKV, D, W) in cases:
         q, k, v, do = rnd(B, S, H, D), rnd(B, S, HKV, D), rnd(B, S, HKV, D), \
             rnd(B, S, H, D)
         kw = dict(causal=True, window=W)
@@ -1221,23 +1267,38 @@ def phase_backward_kernels(torch, dev, seed):
 
             row["library_ms"] = (timed_ms(sdpa_fwd_bwd, 10, flush)
                                  - timed_ms(sdpa_fwd, 10, flush))
-        if case == "train":
-            # K1 on the training forward (q_offset 0), and SDPA's forward
+        if case == k1_case:
+            # K1 on the training forward (q_offset 0) against its plain
+            # version, and SDPA's forward
+            po, plse = fa._flash_forward_plain(q, k, v, True)
+            o_err, lse_err, o_ratio = compare(out, lse, po, plse)
+            check(o_ratio <= 1.0 and lse_err <= LSE_ATOL,
+                  f"K1 disagrees with its plain version ({case}): O "
+                  f"{o_err} (ratio {o_ratio}), LSE {lse_err}")
             b1 = bound(2 * qn * nb + 2 * kn * nb + B * H * S * nf,
                        4.0 * pairs * D)
             fplan = fa._fwd_plan_for(q, k, causal=True)
-            k1_train = {"case": case, "ms": timed_ms(
-                lambda: fa._flash_forward(q, k, v, True), 10, flush),
-                "plan": {"splits": fplan.splits, "chunk": fplan.chunk},
-                "bound_ms": b1[0], "bound_by": b1[1],
-                "library_ms": timed_ms(sdpa_fwd, 10, flush)}
+            k1_train = {"case": case, "shape": [B, S, H, HKV, D],
+                        "max_abs_err": o_err, "lse_err": lse_err,
+                        "tol_ratio": o_ratio, "ms": timed_ms(
+                            lambda: fa._flash_forward(q, k, v, True), 10,
+                            flush),
+                        "plain_ms": timed_ms(lambda: fa._flash_forward_plain(
+                            q, k, v, True), 2, flush),
+                        "plan": {"splits": fplan.splits,
+                                 "chunk": fplan.chunk},
+                        "bound_ms": b1[0], "bound_by": b1[1],
+                        "library_ms": timed_ms(sdpa_fwd, 10, flush)}
+            del po, plse
         rows.append(row)
         del q, k, v, do, out, lse, dq, dk, dv, pdq, pdk, pdv
     del flush_buf
     torch.cuda.empty_cache()
-    emit({"phase": "kernels_bwd", "cases": rows, "K1_train": k1_train,
+    emit({"phase": phase, "cases": rows, "K1_" + k1_case: k1_train,
           "tolerance": {"grad_atol_rel": GRAD_ATOL_REL,
-                        "grad_rtol": GRAD_RTOL, "delta_atol": DELTA_ATOL}})
+                        "grad_rtol": GRAD_RTOL, "delta_atol": DELTA_ATOL,
+                        "o_atol": O_ATOL, "o_rtol": O_RTOL,
+                        "lse_atol": LSE_ATOL}})
     return rows, k1_train
 
 
@@ -4903,6 +4964,334 @@ def phase_ps_hybrid(torch, dev, seed):
     return launches
 
 
+# train_spmd: the train cell (8 layers, batch 8, seq 2048), 10 timed steps
+SPMD = {"layers": 8, "batch": 8, "seq": 2048, "steps": 10}
+# ep_moe: the train cell's widths (embed 512, 8 heads, 2 KV heads, vocab
+# 32000) with every MLP an MoE MLP (E = 8, top-2, the einsum dispatch,
+# capacity factor 2); depth and batch cut to 2 layers of batch 2 at seq
+# 2048, as the einsum dispatch's [T, E, C] tensors (f32 routing) take
+# ~4 GB each at the cell's batch 8
+EP_MOE = {"layers": 2, "batch": 2, "seq": 2048, "steps": 10}
+
+
+def _one_rank_group(torch, dev):
+    """A one-rank NCCL group (HashStore), checked by an all-reduce."""
+    import torch.distributed as dist
+
+    from tpudist_torch.runtime import initialize
+
+    ctx = initialize(store=dist.HashStore(), world_size=1, rank=0,
+                     device=dev)
+    check(dist.get_backend() == "nccl" and ctx.process_count == 1,
+          f"one-rank group: backend {dist.get_backend()}, {ctx}")
+    probe = torch.ones(4, device=dev)
+    dist.all_reduce(probe)
+    torch.cuda.synchronize()
+    check(probe.tolist() == [1.0] * 4,
+          f"NCCL all-reduce on one rank gave {probe.tolist()}")
+
+
+def _measure_steps(torch, dev, step, state, batch, steps):
+    """2 warm-up steps, then ``steps`` on the host clock after a
+    synchronize, with the launch and collective counts reset just before
+    and read just after: ms a step, losses, peak memory, launches and
+    collectives a step."""
+    from tpudist_torch.parallel.common import CALLS, reset_calls
+
+    for _ in range(2):
+        state, _ = step(state, *batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    reset_calls()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, *batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = read_launches()
+    calls = dict(CALLS)
+    losses = [float(v) for v in losses]
+    return state, {"ms_per_step": ms, "losses": losses,
+                   "max_memory_allocated_bytes":
+                       torch.cuda.max_memory_allocated(dev),
+                   "launches_per_step": {k: v / steps
+                                         for k, v in launches.items()},
+                   "collectives_per_step": {k: v / steps
+                                            for k, v in calls.items()}}
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _worst_grad(got: dict, want: dict):
+    worst = max(((got[n].float() - want[n].float()).abs().max().item()
+                 / max(want[n].float().abs().max().item(), 1e-30), n)
+                for n in want)
+    return worst
+
+
+def phase_train_spmd(torch, dev, seed):
+    """The composed step's sharded path (make_composed_train_step with
+    explicit param_specs) on one card through one-rank groups: the train
+    cell's model (vocab 32000, 8 layers, H=8, Hkv=2, embed 512, seq 2048,
+    batch 8, bf16 on f32 masters, Adam 3e-4, flash attention) built with
+    tp_axis="tp" over MeshSpec(rules=transformer_tp_rules("tp")).build()
+    (every axis of size 1), its state sharded by fsdp_specs(tp_rules=...)
+    so that every leaf is claimed by tp or fsdp: each step issues the
+    ZeRO-3 all-gathers and reduce-scatters, the Megatron all-reduces and
+    the logits' all-gather on one-rank NCCL groups.  Step 0 against the
+    unsharded flash step (make_dp_train_step) from the same weights on
+    the same batch: the loss within LOSS_RTOL, every gradient within
+    PGRAD_TOL of its max; then 2 warm-up and 10 measured steps of each,
+    the sharded one with launch counts reset just before and read just
+    after (K1 = K3 = K4 = 8 a step), ms a step beside the unsharded step,
+    peak memory, collectives a step."""
+    import numpy as np
+
+    from tpudist_torch.data import markov_tokens
+    from tpudist_torch.models.transformer import (
+        TransformerConfig,
+        TransformerLM,
+    )
+    from tpudist_torch.ops.flash_attention import flash_attention_fn
+    from tpudist_torch.parallel import (
+        MeshSpec,
+        fsdp_specs,
+        make_composed_train_step,
+        make_dp_train_step,
+        transformer_tp_rules,
+    )
+    from tpudist_torch.parallel.tensor_parallel import (
+        gather_tree,
+        sharded_state,
+    )
+    from tpudist_torch.runtime import shutdown
+    from tpudist_torch.train import TrainState, adam
+
+    cfg = TransformerConfig(vocab_size=32000, num_layers=SPMD["layers"],
+                            num_heads=8, num_kv_heads=2, embed_dim=512,
+                            max_seq_len=8192, compute_dtype=torch.bfloat16)
+    B, S, steps = SPMD["batch"], SPMD["seq"], SPMD["steps"]
+    _one_rank_group(torch, dev)
+    try:
+        rules = tuple(transformer_tp_rules("tp"))
+        spec = MeshSpec(rules=rules)
+        mesh = spec.build()
+        tokens = torch.from_numpy(markov_tokens(B, S, cfg.vocab_size,
+                                                seed)).to(dev)
+        whole = TransformerLM(cfg, attention_fn=flash_attention_fn(),
+                              param_dtype=torch.float32, device=dev)
+        whole.init_weights(torch.Generator(device=dev).manual_seed(seed + 5))
+        sd = {k: v.detach().clone() for k, v in whole.state_dict().items()}
+        loss_fn = train_loss_fn(torch, cfg)
+        ref = TrainState.create(whole, adam(3e-4), seed=seed)
+        ref_step = make_dp_train_step(loss_fn)
+        ref, m = ref_step(ref, tokens)
+        l_ref, g_ref = float(m["loss"]), _grads(whole)
+
+        model = TransformerLM(cfg, attention_fn=flash_attention_fn(),
+                              param_dtype=torch.float32, tp_axis="tp",
+                              mesh=mesh, device=dev)
+        specs = fsdp_specs(model, mesh, axis="fsdp", tp_rules=rules)
+        unclaimed = [n for n, s in specs.items() if not s]
+        check(not unclaimed, f"train_spmd: leaves no axis claims: "
+              f"{unclaimed}")
+        state = sharded_state(model, sd, adam(3e-4), mesh, specs, seed)
+        step = make_composed_train_step(spec, mesh, loss_fn,
+                                        param_specs=specs)
+        reset_launches()
+        state, m = step(state, tokens)
+        parity_launches = read_launches()
+        l_spmd = float(m["loss"])
+        g_spmd = gather_tree({n: p.grad for n, p in
+                              state.model.named_parameters()}, mesh, specs)
+        rel = abs(l_spmd - l_ref) / abs(l_ref)
+        worst = _worst_grad(g_spmd, g_ref)
+        check(np.isfinite(l_spmd) and rel <= LOSS_RTOL,
+              f"train_spmd: loss {l_spmd} vs unsharded {l_ref}")
+        check(worst[0] <= PGRAD_TOL, f"train_spmd: gradient of {worst[1]} "
+              f"{worst[0]} of its max from the unsharded step's")
+        del g_spmd, g_ref
+        ref, unsharded = _measure_steps(torch, dev, ref_step, ref,
+                                        (tokens,), steps)
+        del ref, whole
+        torch.cuda.empty_cache()
+        state, row = _measure_steps(torch, dev, step, state, (tokens,),
+                                    steps)
+        got = row["launches_per_step"]
+        want = {"K1": cfg.num_layers, "K3": cfg.num_layers,
+                "K4": cfg.num_layers}
+        check(all(got[k] == v for k, v in want.items())
+              and all(got[k] == 0 for k in got if k not in want),
+              f"train_spmd: launches a step {got}, want {want}")
+        coll = row["collectives_per_step"]
+        sharded = sum(1 for s in specs.values() if "fsdp" in s)
+        check(coll.get("all_gather") == sharded + 1
+              and coll.get("reduce_scatter") == sharded
+              and coll.get("all_reduce") == 2 + 4 * cfg.num_layers,
+              f"train_spmd: collectives a step {coll} ({sharded} leaves "
+              f"gathered)")
+        check(all(np.isfinite(row["losses"]))
+              and row["losses"][-1] < row["losses"][0],
+              f"train_spmd: losses {row['losses']}")
+        main_launches = {k: int(v * steps) for k, v in got.items()}
+        main_launches["per_step"] = got
+        emit({"phase": "train_spmd", "batch": B, "seq_len": S,
+              "steps": steps, "mesh": spec.axis_sizes(),
+              "leaves_fsdp_gathered": sharded,
+              "parity": {"loss": l_spmd, "loss_unsharded": l_ref,
+                         "loss_rel_err": rel,
+                         "grad_worst_rel_to_max": worst[0],
+                         "grad_worst_param": worst[1],
+                         "launches": parity_launches},
+              "spmd": row, "unsharded": unsharded,
+              "vs_unsharded": row["ms_per_step"]
+              / unsharded["ms_per_step"],
+              "tokens_per_s": B * S / row["ms_per_step"] * 1e3,
+              "tolerance": {"loss_rtol": LOSS_RTOL,
+                            "grad_rel_to_max": PGRAD_TOL}})
+        del state, step
+        torch.cuda.empty_cache()
+        return main_launches
+    finally:
+        shutdown()
+
+
+def phase_ep_moe(torch, dev, seed):
+    """Expert parallelism on one card through one-rank groups: the train
+    cell's widths with every MLP an MoE MLP (E = 8, top-2, the einsum
+    dispatch), cut as EP_MOE says, bf16 on f32 masters, Adam 3e-4.  Two
+    EP steps from the same weights on the same batch — the composed step
+    (make_composed_train_step over MeshSpec(rules=moe_ep_rules("ep")),
+    the model built with ep_axis="ep", ep_tokens="replicated": partial
+    outputs all-reduced) and make_ep_shard_train_step over a data × expert
+    mesh (ep_tokens="sharded": the all-to-all pair, tpudist's sum
+    contract) — each at step 0 against the one-process MoE step
+    (make_dp_train_step on the same model without ep_axis): the loss
+    within LOSS_RTOL, every gradient within PGRAD_TOL of its max; then
+    each timed (2 warm-up, 10 measured) beside the one-process step, with
+    launches (K1 = K3 = K4 = layers a step, K7 = 0: EP runs the einsum
+    dispatch, in tpudist too) and collectives a step, peak memory."""
+    import numpy as np
+
+    from tpudist_torch.data import markov_tokens
+    from tpudist_torch.models.moe import MoEConfig, MoETransformerLM
+    from tpudist_torch.ops.flash_attention import flash_attention_fn
+    from tpudist_torch.ops.losses import cross_entropy_per_token
+    from tpudist_torch.parallel import (
+        MeshSpec,
+        make_composed_train_step,
+        make_dp_train_step,
+        make_ep_shard_train_step,
+        moe_ep_rules,
+        spec_tree_from_rules,
+    )
+    from tpudist_torch.parallel.tensor_parallel import sharded_state
+    from tpudist_torch.runtime import make_mesh, shutdown
+    from tpudist_torch.train import TrainState, adam
+
+    cfg = moe_model_config(torch, EP_MOE["layers"], torch.bfloat16, 8192)
+    moe = MoEConfig(num_experts=8, top_k=2, dispatch="einsum")
+    B, S, steps = EP_MOE["batch"], EP_MOE["seq"], EP_MOE["steps"]
+    _one_rank_group(torch, dev)
+    try:
+        tokens = torch.from_numpy(markov_tokens(B, S, cfg.vocab_size,
+                                                seed)).to(dev)
+        whole = MoETransformerLM(cfg, moe, attention_fn=flash_attention_fn(),
+                                 device=dev)
+        whole.init_weights(torch.Generator(device=dev).manual_seed(seed + 7))
+        sd = {k: v.detach().clone() for k, v in whole.state_dict().items()}
+        mean_loss = moe_loss_fn(torch, cfg)
+        ref = TrainState.create(whole, adam(3e-4), seed=seed)
+        ref_step = make_dp_train_step(mean_loss)
+        ref, m = ref_step(ref, tokens)
+        l_ref, g_ref = float(m["loss"]), _grads(whole)
+        ref, one_process = _measure_steps(torch, dev, ref_step, ref,
+                                          (tokens,), steps)
+        del ref, whole
+        torch.cuda.empty_cache()
+        total = B * (S - 1)
+
+        def shard_loss(model, batch):
+            (toks,) = batch
+            logits, aux = model(toks)
+            per_tok = cross_entropy_per_token(
+                logits[:, :-1].reshape(-1, cfg.vocab_size),
+                toks[:, 1:].reshape(-1))
+            return per_tok.sum() / total + aux
+
+        rows = {}
+        for kind in ("composed", "shard"):
+            if kind == "composed":
+                spec = MeshSpec(rules=tuple(moe_ep_rules("ep")))
+                mesh = spec.build()
+                model = MoETransformerLM(cfg, moe,
+                                         attention_fn=flash_attention_fn(),
+                                         ep_axis="ep", mesh=mesh,
+                                         ep_tokens="replicated", device=dev)
+                specs = spec_tree_from_rules(model, spec.rules)
+                state = sharded_state(model, sd, adam(3e-4), mesh, specs,
+                                      seed)
+                step = make_composed_train_step(spec, mesh, mean_loss,
+                                                param_specs=specs)
+            else:
+                mesh = make_mesh({"data": 1, "expert": 1})
+                model = MoETransformerLM(cfg, moe,
+                                         attention_fn=flash_attention_fn(),
+                                         ep_axis="expert", mesh=mesh,
+                                         device=dev)
+                model.load_state_dict(sd)
+                state = TrainState.create(model, adam(3e-4), seed=seed)
+                step = make_ep_shard_train_step(shard_loss, mesh, state)
+            reset_launches()
+            state, m = step(state, tokens)
+            launches0 = read_launches()
+            loss = float(m["loss"])
+            rel = abs(loss - l_ref) / abs(l_ref)
+            worst = _worst_grad(_grads(state.model), g_ref)
+            check(np.isfinite(loss) and rel <= LOSS_RTOL,
+                  f"ep_moe {kind}: loss {loss} vs one-process {l_ref}")
+            check(worst[0] <= PGRAD_TOL, f"ep_moe {kind}: gradient of "
+                  f"{worst[1]} {worst[0]} of its max from the one-process "
+                  "step's")
+            state, row = _measure_steps(torch, dev, step, state, (tokens,),
+                                        steps)
+            got = row["launches_per_step"]
+            want = {k: cfg.num_layers for k in ("K1", "K3", "K4")}
+            check(all(got[k] == v for k, v in want.items())
+                  and all(got[k] == 0 for k in got if k not in want),
+                  f"ep_moe {kind}: launches a step {got}, want {want}")
+            coll = row["collectives_per_step"]
+            want_coll = ({"all_reduce": 3 * cfg.num_layers}
+                         if kind == "composed"
+                         else {"all_to_all": 4 * cfg.num_layers})
+            check(coll == want_coll, f"ep_moe {kind}: collectives a step "
+                  f"{coll}, want {want_coll}")
+            check(all(np.isfinite(row["losses"]))
+                  and row["losses"][-1] < row["losses"][0],
+                  f"ep_moe {kind}: losses {row['losses']}")
+            rows[kind] = {"loss0": loss, "loss_rel_err": rel,
+                          "grad_worst_rel_to_max": worst[0],
+                          "grad_worst_param": worst[1],
+                          "launches_step0": launches0, **row,
+                          "vs_one_process": row["ms_per_step"]
+                          / one_process["ms_per_step"]}
+            del state, step, model
+            torch.cuda.empty_cache()
+        emit({"phase": "ep_moe", "layers": cfg.num_layers, "batch": B,
+              "seq_len": S, "experts": moe.num_experts, "top_k": moe.top_k,
+              "dispatch": moe.dispatch, "loss_one_process": l_ref,
+              "one_process": one_process, **rows,
+              "tolerance": {"loss_rtol": LOSS_RTOL,
+                            "grad_rel_to_max": PGRAD_TOL}})
+    finally:
+        shutdown()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4967,6 +5356,11 @@ def main(argv=None) -> int:
     phase_pipeline_resnet(torch, dev, args.seed)
     pp_launches = phase_train_pp(torch, dev, args.seed)
     phase_ps_hybrid(torch, dev, args.seed)
+    tp_rows, k1_tp = phase_backward_kernels(
+        torch, dev, args.seed, cases=TP_CASES, phase="tp_kernels",
+        k1_case="tp2_shard")
+    spmd_launches = phase_train_spmd(torch, dev, args.seed)
+    phase_ep_moe(torch, dev, args.seed)
 
     main_k1 = next(r for r in k1 if r["q_offset"] == 7168)
     main_k2 = next(r for r in k2 if r["case"] == "per_row_side")
@@ -4977,9 +5371,12 @@ def main(argv=None) -> int:
          "replaces": "tpudist/ops/flash_attention.py:127",
          "launches": launches["K1"],
          "max_abs_err": max([r["max_abs_err"] for r in k1]
-                            + [r["K1"]["max_abs_err"] for r in ring_rows]),
+                            + [r["K1"]["max_abs_err"] for r in ring_rows]
+                            + [k1_train["max_abs_err"],
+                               k1_tp["max_abs_err"]]),
          "tol_ratio": max([r["tol_ratio"] for r in k1]
-                          + [r["K1"]["tol_ratio"] for r in ring_rows]),
+                          + [r["K1"]["tol_ratio"] for r in ring_rows]
+                          + [k1_train["tol_ratio"], k1_tp["tol_ratio"]]),
          **{k: main_k1[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
          "launches_train": train_launches["K1"],
@@ -4990,7 +5387,12 @@ def main(argv=None) -> int:
          "train_ms": k1_train["ms"], "train_bound_ms": k1_train["bound_ms"],
          "train_library_ms": k1_train["library_ms"],
          "sp_ms": sp_k1["ms"], "sp_bound_ms": sp_k1["bound_ms"],
-         "sp_library_ms": sp_k1["library_ms"], "sp_plan": sp_k1["plan"]},
+         "sp_library_ms": sp_k1["library_ms"], "sp_plan": sp_k1["plan"],
+         "launches_train_spmd": spmd_launches["K1"],
+         "launches_train_spmd_per_step": spmd_launches["per_step"]["K1"],
+         **{"tp_shard_" + k: k1_tp[k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "plan", "shape")}},
         {"name": "flash_decode (K2)", "route": "cuda",
          "source": "tpudist_torch/csrc/flash_decode.cu",
          "replaces": "tpudist/ops/flash_decode.py:62",
@@ -5002,6 +5404,7 @@ def main(argv=None) -> int:
                                     "merge_ms")}},
     ]
     main_bwd = next(r for r in bwd_rows if r["case"] == "train")
+    tp_bwd = tp_rows[0]
     for key, name, src_line in (
             ("K3", "flash_bwd_dq (K3)", "tpudist/ops/flash_attention.py:320"),
             ("K4", "flash_bwd_dkv (K4)",
@@ -5012,14 +5415,23 @@ def main(argv=None) -> int:
             "replaces": src_line, "launches": train_launches[key],
             "launches_train_pp": pp_launches[key],
             "launches_train_pp_per_step": pp_launches["per_step"][key],
+            "launches_train_spmd": spmd_launches[key],
+            "launches_train_spmd_per_step":
+                spmd_launches["per_step"][key],
             "max_abs_err": max(r[key]["max_abs_err"] for r in bwd_rows
+                               + tp_rows
                                + (ring_rows if key == "K4" else [])),
             "tol_ratio": max(r[key]["tol_ratio"] for r in bwd_rows
+                             + tp_rows
                              + (ring_rows if key == "K4" else [])),
             **{k: main_bwd[key][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by")},
             # SDPA's whole backward, one call for the pair K3 + K4
-            "library_ms": main_bwd["library_ms"]})
+            "library_ms": main_bwd["library_ms"],
+            **{"tp_shard_" + k: tp_bwd[key][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by")},
+            "tp_shard_library_ms": tp_bwd["library_ms"],
+            "tp_shard_plan": tp_bwd["plan"][key]})
     # K8 is launched at train_sp's shape; K4 there too (sp_ms)
     main_k8 = next(r for r in ring_rows if r["case"] == "train_sp")
     kernels[-1].update({"launches_sp": sp_launches["K4"],

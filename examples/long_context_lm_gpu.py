@@ -1,26 +1,35 @@
 """Long-context transformer LM training on NVIDIA GPUs (the PyTorch port).
 
-The twin of ``long_context_lm_tpu.py``'s data-parallel and
-sequence-parallel branches, through ``tpudist_torch``: ``TransformerLM``
-with flash attention (kernel K1 forward, K3/K4 backward on the card),
-``cross_entropy``, Adam and ``make_dp_train_step``; or, with ``--sp N``,
-the sequence split over N processes through ring, ring flash (K1 forward,
+The twin of ``long_context_lm_tpu.py``'s data-parallel, tensor-parallel
+and sequence-parallel branches, through ``tpudist_torch``:
+``TransformerLM`` with flash attention (kernel K1 forward, K3/K4 backward
+on the card), ``cross_entropy``, Adam and ``make_dp_train_step``; with
+``--tp N``, the Megatron layout over the ``model`` axis of a ``data ×
+model`` mesh (``make_tp_state``, ``make_spmd_train_step``: each process
+runs its H/N heads through the same kernels); or, with ``--sp N``, the
+sequence split over N processes through ring, ring flash (K1 forward,
 K8/K4 backward) or Ulysses attention and ``make_sp_train_step`` over a
 ``data × seq`` mesh.  Weights are random, drawn from a fixed seed; the
-token stream is made with numpy from the same seed.
+token stream is made with numpy from the same seed.  ``--generate N``
+then greedy-decodes N tokens past a prompt cut from the stream; under
+``--tp`` the parameters are gathered and decoded on one device
+(tpudist's sharded ``tp_generate`` is ROADMAP Queue A 9).
 
 Run (one card):  python3 examples/long_context_lm_gpu.py --bf16
 Run (N cards, sequence-parallel):
     torchrun --nproc-per-node N examples/long_context_lm_gpu.py \
         --attn ring_flash --sp N --bf16
+Run (N cards, tensor-parallel, data × model over the processes):
+    torchrun --nproc-per-node N examples/long_context_lm_gpu.py \
+        --tp 2 --kv-heads 2 --bf16
 Run (CPU, plain versions of the kernels, tiny):
     python3 examples/long_context_lm_gpu.py --device cpu --seq-len 64 \
         --batch-size 2 --layers 2 --embed-dim 64 --steps 3
-    (add --attn ring_flash --sp 2 under torchrun --nproc-per-node 2 for
-    the sequence-parallel step over gloo)
+    (add --attn ring_flash --sp 2, or --tp 2, under torchrun
+    --nproc-per-node 2 for the sequence- or tensor-parallel step over
+    gloo)
 
-Tensor parallelism (``--tp``) and speculative decoding are not ported yet
-(ROADMAP Queue A 4 and 7).
+Speculative decoding is not ported yet (ROADMAP Queue A 4).
 """
 
 from __future__ import annotations
@@ -60,6 +69,12 @@ def main(argv=None) -> float:
                         help="sequence-parallel processes (with ring, "
                              "ring_flash or ulysses attention, under "
                              "torchrun)")
+    parser.add_argument("--tp", default=1, type=int,
+                        help="tensor-parallel processes (the model axis of "
+                             "a data x model mesh, under torchrun)")
+    parser.add_argument("--generate", default=0, type=int,
+                        help="after training, greedy-decode this many "
+                             "tokens past a prompt from the stream")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute (f32 params)")
     parser.add_argument("--remat", action="store_true",
@@ -77,6 +92,9 @@ def main(argv=None) -> float:
     if args.attn in sequence_parallel and args.sp <= 1:
         parser.error(f"--attn {args.attn} is sequence-parallel; pass --sp N "
                      "(N>1)")
+    if args.tp > 1 and args.sp > 1:
+        parser.error("--tp and --sp are separate branches (as in "
+                     "long_context_lm_tpu.py); pass one")
 
     import torch
 
@@ -90,13 +108,18 @@ def main(argv=None) -> float:
     from tpudist_torch.ops.losses import cross_entropy, cross_entropy_per_token
     from tpudist_torch.parallel import (
         broadcast_params,
+        gather_tree,
         make_dp_train_step,
         make_sp_train_step,
+        make_spmd_train_step,
+        make_tp_state,
         ring_attention_fn,
         ring_flash_attention_fn,
+        shard_batch,
         ulysses_attention_fn,
     )
     from tpudist_torch.runtime import (
+        data_model_mesh,
         initialize,
         local_block,
         make_mesh,
@@ -133,7 +156,32 @@ def main(argv=None) -> float:
     broadcast_params(model, mesh)
     state = TrainState.create(model, adam(args.lr), seed=args.seed)
 
-    if mesh is not None:
+    def loss_fn(m, batch, _gen):
+        (toks,) = batch
+        logits = m(toks)
+        return cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
+                             toks[:, 1:].reshape(-1)), {}
+
+    specs = None
+    if args.tp > 1:
+        # this process's shard of the whole model's weights (every
+        # process drew the same ones from the seed)
+        mesh = data_model_mesh(model=args.tp)
+        whole = {k: v.detach().clone() for k, v in
+                 model.state_dict().items()}
+        del model, state
+        model = TransformerLM(cfg, attention_fn=attn_fn, remat=args.remat,
+                              param_dtype=torch.float32, tp_axis="model",
+                              mesh=mesh, device=device)
+        state, specs = make_tp_state(model, whole, adam(args.lr), mesh,
+                                     seed=args.seed)
+        del whole
+        tp_step = make_spmd_train_step(loss_fn, mesh, specs)
+        batch = shard_batch((tokens,), mesh, "data")
+        step = lambda s, _toks: tp_step(s, *batch)
+        strategy = (f"dp{mesh.size(0)}×tp{args.tp} ({args.attn}) on "
+                    f"{ctx.process_count} {device.type} processes")
+    elif mesh is not None:
         # next-token prediction with the final position masked out
         targets = torch.cat([tokens[:, 1:], torch.full_like(tokens[:, :1],
                                                             -1)], 1)
@@ -150,12 +198,6 @@ def main(argv=None) -> float:
         strategy = (f"dp{mesh.size(0)}×sp{args.sp} ({args.attn}) on "
                     f"{ctx.process_count} {device.type} processes")
     else:
-        def loss_fn(m, batch, _gen):
-            (toks,) = batch
-            logits = m(toks)
-            return cross_entropy(logits[:, :-1].reshape(-1, cfg.vocab_size),
-                                 toks[:, 1:].reshape(-1)), {}
-
         step = make_dp_train_step(loss_fn)
         strategy = f"one {device.type} device ({args.attn})"
     log = print if ctx.is_coordinator else (lambda *a, **k: None)
@@ -182,8 +224,49 @@ def main(argv=None) -> float:
         dt = time.perf_counter() - t0
         tps = (args.steps - 1) * tokens.numel() / dt
         log(f"throughput: {tps:,.0f} tokens/sec")
+    if args.generate > 0:
+        generate(args, cfg, state, mesh, specs, tokens, device, log,
+                 gather_tree)
     shutdown()
     return loss
+
+
+def generate(args, cfg, state, mesh, specs, tokens, device, log,
+             gather_tree) -> None:
+    """Greedy decoding past a prompt cut from the stream, on one device:
+    under ``--tp`` the blocks are gathered (every process joins) and
+    process 0 decodes the whole parameters."""
+    import torch
+
+    from tpudist_torch.models.generate import greedy_generate
+    from tpudist_torch.runtime.distributed import process_index
+
+    if args.generate >= cfg.max_seq_len:
+        raise SystemExit(f"--generate must be < max_seq_len "
+                         f"({cfg.max_seq_len}); got {args.generate}")
+    params = dict(state.model.named_parameters())
+    serve = "single-program flash"
+    if specs is not None:
+        params = gather_tree(params, mesh, specs)
+        # be loud about the layout change: tpudist serves the tp layout
+        # itself (tp_generate); the port decodes the gathered weights
+        serve += (f" (tp{args.tp} serving unavailable: tp_generate waits "
+                  "for ROADMAP A9 — decoding the gathered parameters on "
+                  "one device instead)")
+    if process_index() != 0:
+        return
+    prompt_len = max(1, min(args.seq_len // 4,
+                            cfg.max_seq_len - args.generate))
+    prompt = tokens[:2, :prompt_len]
+    t0 = time.perf_counter()
+    out, lengths = greedy_generate(
+        cfg, {k: v.detach() for k, v in params.items()}, prompt,
+        args.generate, stop_tokens=[0], device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    log(f"generated {args.generate} tokens/seq via {serve} (prompt "
+        f"{prompt_len}) in {time.perf_counter() - t0:.2f}s; lengths "
+        f"(EOS=0): {lengths.tolist()}; sample: {out[0, -16:].tolist()}")
 
 
 if __name__ == "__main__":

@@ -226,7 +226,8 @@ def test_moe_mlp_bf16_matches_jax(dispatch):
 def test_moe_mlp_errors_match_jax():
     """``ep_axis`` under ragged/fused is single-shard (ValueError on both
     sides); an unknown dispatch is a ValueError on both sides; ``ep_axis``
-    under einsum (the all_to_all path) is not ported yet."""
+    under einsum builds the expert-parallel layer (its parity with
+    tpudist's is tests/test_torch_expert_parallel.py's)."""
     x = jnp.zeros((8, 16), jnp.float32)
     for dispatch in ("ragged", "fused"):
         with pytest.raises(ValueError, match="single-shard"):
@@ -240,9 +241,10 @@ def test_moe_mlp_errors_match_jax():
             jax.random.key(0), x)
     with pytest.raises(ValueError, match="unknown dispatch 'dense'"):
         tm.MoEMLP(16, 32, tm.MoEConfig(dispatch="dense"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 7"):
-        tm.MoEMLP(16, 32, tm.MoEConfig(num_experts=4), ep_axis="expert",
-                  device="cpu")
+    # without a mesh the expert axis is a group of one: all E experts
+    layer = tm.MoEMLP(16, 32, tm.MoEConfig(num_experts=4), ep_axis="expert",
+                      device="cpu")
+    assert layer.w_up.shape == (4, 16, 32)
 
 
 def test_config_defaults_match_jax():

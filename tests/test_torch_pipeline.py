@@ -10,7 +10,10 @@ virtual CPU devices.  Cases: GPipe with heterogeneous dense stages, its
 forward alone, packed, stacked, interleaved, 1F1B at V = 1 and 2 and its
 real-model mode on a tiny ``TransformerLM`` with flash attention (the
 plain versions of K1/K3/K4 on the CPU; tpudist's Pallas kernels in
-interpret mode).
+interpret mode).  The same ranks run the 3-D step of tpudist's
+``TestThreeDParallel`` (data 1 × stage 2 × model 2: the stacked pipeline
+of Megatron MLP blocks through ``state_specs=``/``grad_sync_axes=``),
+held against tpudist's sequential full-weight step with its limits.
 
 Tolerances (f32, SGD steps): the loss within rtol 1e-5 and every
 parameter within atol 1e-5 + rtol 1e-4 of tpudist's (tpudist's own
@@ -229,9 +232,9 @@ def run_port_case(case, mesh, x, y, params):
             "bubble": getattr(step, "bubble_fraction", None)}
 
 
-def _pipeline_rank(rank, world, payload):
+def _pipeline_rank(rank, world, payload, three_d):
     """Every case, in turn, on this rank (``payload``: each case with its
-    inputs, made by the parent); and the error probes."""
+    inputs, made by the parent); the 3-D cases; and the error probes."""
     from tpudist_torch.runtime.mesh import local_block, make_mesh
 
     out = {}
@@ -240,8 +243,86 @@ def _pipeline_rank(rank, world, payload):
         xb = local_block(torch.from_numpy(x), mesh, ("data",)).numpy()
         yb = local_block(torch.from_numpy(y), mesh, ("data",)).numpy()
         out[case["name"]] = run_port_case(case, mesh, xb, yb, params)
+    for name, (params, x, y) in three_d.items():
+        out[name] = run_three_d(params, x, y)
     out["errors"] = _probe_errors()
     return out
+
+
+# ---- 3-D: data × stage × model (tpudist's TestThreeDParallel) --------------
+
+THREE_D_SPECS = {"scale": ("stage",), "up": ("stage", None, "model"),
+                 "down": ("stage", "model", None)}
+THREE_D_AXES = {"data": 1, "stage": 2, "model": 2}
+
+
+def _three_d_inputs(seed, with_scale):
+    """tpudist's TestThreeDParallel weights and batch: L = 2 stacked
+    chunks, d 8, ff 16."""
+    rng = np.random.default_rng(seed)
+    L, d, ff = 2, 8, 16
+    params = {}
+    if with_scale:
+        params["scale"] = (1.0 + 0.1 * rng.standard_normal((L, d))).astype(
+            np.float32)
+    params["up"] = (rng.standard_normal((L, d, ff)) * 0.3).astype(
+        np.float32)
+    params["down"] = (rng.standard_normal((L, ff, d)) * 0.3).astype(
+        np.float32)
+    x = rng.standard_normal((16, d)).astype(np.float32)
+    y = rng.standard_normal((16, d)).astype(np.float32)
+    return params, x, y
+
+
+def run_three_d(params, x, y):
+    """The stacked GPipe step of a Megatron MLP block over the model
+    axis (f before the column-parallel up, g after the row-parallel
+    down; a scale replicated over the model axis between them), one SGD
+    step at M = 4, the blocks gathered back whole."""
+    from tpudist_torch.ops.losses import mse_loss
+    from tpudist_torch.parallel import pipeline as pl
+    from tpudist_torch.parallel.common import id_fwd_psum_bwd, psum_fwd_id_bwd
+    from tpudist_torch.parallel.tensor_parallel import gather_tree
+    from tpudist_torch.runtime.mesh import make_mesh
+    from tpudist_torch.train import TrainState, sgd
+
+    mesh = make_mesh(THREE_D_AXES)
+    group = mesh.get_group("model")
+    specs = {k: THREE_D_SPECS[k] for k in params}
+    part = pl.shard_stage_params(params, mesh, specs)
+    state = TrainState.create(pl.ParamTree(part, device="cpu"), sgd(0.1))
+
+    def tp_block(p, a):
+        a = id_fwd_psum_bwd(a, group)
+        if "scale" in p:
+            a = a * p["scale"]
+        h = torch.tanh(a @ p["up"])
+        return psum_fwd_id_bwd(h @ p["down"], group)
+
+    step = pl.make_stacked_pipeline_train_step(
+        tp_block, mse_loss, mesh, 4, state,
+        state_specs=pl.state_specs_like(state, specs),
+        grad_sync_axes=("model",))
+    state, metrics = step(state, torch.from_numpy(x), torch.from_numpy(y))
+    tree = state.model.tree()
+    full = gather_tree({k: tree[k] for k in specs}, mesh, specs)
+    errors = {}
+    try:
+        pl.make_stacked_pipeline_train_step(
+            tp_block, mse_loss, mesh, 4, state,
+            state_specs=pl.state_specs_like(state, specs))
+    except ValueError as e:
+        errors["sync"] = str(e)
+    try:
+        pl.make_stacked_pipeline_train_step(
+            tp_block, mse_loss, mesh, 4, state,
+            state_specs=pl.state_specs_like(
+                state, {k: ("model",) + tuple(v[1:]) for k, v in
+                        specs.items()}), grad_sync_axes=())
+    except ValueError as e:
+        errors["stage"] = str(e)
+    return {"loss": float(metrics["loss"]), "errors": errors,
+            "params": {k: v.numpy() for k, v in full.items()}}
 
 
 def _probe_errors():
@@ -272,11 +353,15 @@ def _probe_errors():
     return msgs
 
 
+THREE_D = {"three_d": (0, False), "three_d_scale": (1, True)}
+
+
 @pytest.fixture(scope="module")
 def rank_results(tmp_path_factory):
     payload = [(case, _inputs(case)) for case in CASES]
+    three_d = {k: _three_d_inputs(*v) for k, v in THREE_D.items()}
     return run_ranks(_pipeline_rank, 4, tmp_path_factory.mktemp("pp"),
-                     payload)
+                     payload, three_d)
 
 
 # ---- tpudist's side ---------------------------------------------------------
@@ -498,14 +583,49 @@ def test_local_stage_count_and_mesh_errors():
         pl.make_pipeline_train_step([_dense] * 2, mse_loss, None, 2)
 
 
-def test_stacked_tensor_parallel_hooks_wait_for_a7b():
-    from tpudist_torch.ops.losses import mse_loss
-    from tpudist_torch.parallel import pipeline as pl
+@pytest.mark.parametrize("name", list(THREE_D))
+def test_three_d_matches_sequential_training(name, rank_results):
+    """DP × PP × TP (data 1 × stage 2 × model 2): the stacked pipeline of
+    Megatron MLP blocks trains like tpudist's sequential full-weight
+    model (its TestThreeDParallel, whose limits these are: the loss
+    within rtol 1e-5, parameters within atol 1e-5); with a scale
+    replicated over the model axis between f and g, its partial
+    gradients summed over ``grad_sync_axes``."""
+    import jax
+    import jax.numpy as jnp
 
-    with pytest.raises(NotImplementedError, match="A 7b"):
-        pl.make_stacked_pipeline_train_step(
-            _dense, mse_loss, None, 2, None, state_specs={},
-            local_stages=2)
+    params, x, y = _three_d_inputs(*THREE_D[name])
+
+    def full_block(p, a):
+        if "scale" in p:
+            a = a * p["scale"]
+        return jnp.tanh(a @ p["up"]) @ p["down"]
+
+    def seq_loss(p):
+        h = jnp.asarray(x)
+        for c in range(2):
+            h = full_block(jax.tree.map(lambda t: t[c], p), h)
+        return jnp.mean((h - jnp.asarray(y)) ** 2)
+
+    loss, grads = jax.value_and_grad(seq_loss)(
+        jax.tree.map(jnp.asarray, params))
+    want = {k: params[k] - 0.1 * np.asarray(grads[k]) for k in params}
+    for res in rank_results:
+        got = res[name]
+        np.testing.assert_allclose(got["loss"], float(loss), rtol=1e-5)
+        for k, v in want.items():
+            np.testing.assert_allclose(got["params"][k], v, atol=1e-5,
+                                       err_msg=k)
+
+
+def test_three_d_spec_errors(rank_results):
+    """tpudist's refusals: extra mesh axes need an explicit
+    grad_sync_axes; a spec must shard the leading dim over the stage
+    axis."""
+    for res in rank_results:
+        errors = res["three_d"]["errors"]
+        assert "pass grad_sync_axes explicitly" in errors["sync"]
+        assert "leading (stage) dim" in errors["stage"]
 
 
 def test_specs_and_shards():

@@ -174,10 +174,14 @@ def test_unported_paths_raise():
         TransformerLM(cfg, cache_layout="paged", device="cpu")
     with pytest.raises(NotImplementedError, match="sharded decode"):
         TransformerLM(cfg, decode_shard=("mesh", "model"), device="cpu")
-    # scan_layers is accepted now (the port runs the unrolled stack); the
-    # sharded train state is what still waits for its ROADMAP item
+    # scan_layers is accepted now (the port runs the unrolled stack); a
+    # sharded train state is laid out over a mesh of processes, so it
+    # needs a process group (tests/test_torch_mesh_compose.py builds one)
     scanned = TransformerLM(dataclasses.replace(cfg, scan_layers=True),
                             device="cpu")
     assert len(scanned.blocks) == cfg.num_layers
-    with pytest.raises(NotImplementedError, match="create_sharded"):
-        TrainState.create_sharded(scanned, None, None)
+    from tpudist_torch.parallel import MeshSpec
+    from tpudist_torch.train import sgd
+
+    with pytest.raises(RuntimeError, match="process group"):
+        TrainState.create_sharded(scanned, sgd(0.1), MeshSpec(tp=2))

@@ -24,15 +24,21 @@ from tpudist_torch.runtime.mesh import axis_index, axis_size
 from tpudist_torch.utils.device import resolve_device
 
 
-def _data_axis(mesh, data_axis: str) -> tuple[int, int]:
+def _data_axis(mesh, data_axis) -> tuple[int, int]:
     """``(num_shards, shard)``: the data axis's size and this process's
     index on it (the world and this rank when ``mesh`` is None; one
-    shard without a process group)."""
+    shard without a process group).  A tuple of axes (the composed
+    ``("dp", "fsdp")``) is one axis of their sizes' product, the first
+    major."""
     if not (dist.is_available() and dist.is_initialized()):
         return 1, 0
     if mesh is None:
         return dist.get_world_size(), dist.get_rank()
-    return axis_size(mesh, data_axis), axis_index(mesh, data_axis)
+    n, index = 1, 0
+    for axis in ((data_axis,) if isinstance(data_axis, str) else data_axis):
+        size = axis_size(mesh, axis)
+        n, index = n * size, index * size + axis_index(mesh, axis)
+    return n, index
 
 
 class ShardedLoader:
@@ -68,10 +74,6 @@ class ShardedLoader:
         for a in arrays:
             if len(a) != n:
                 raise ValueError("all arrays must share leading dimension")
-        if not isinstance(data_axis, str):
-            raise NotImplementedError(
-                "a data axis over several mesh axes (the composed dp x fsdp "
-                "layout) is not ported yet (ROADMAP Queue A 7)")
         self.arrays = list(arrays)
         self.mesh = mesh
         self.data_axis = data_axis

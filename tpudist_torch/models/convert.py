@@ -11,8 +11,11 @@ classifier.  For the pipelines, :func:`from_flax_resnet_stages` maps the
 per-stage trees of ``resnet50_stages(n)`` and
 :func:`from_flax_stacked_blocks` (:func:`stack_block_params` on the
 port's own ``state_dict``) stacks a ``TransformerLM``'s blocks into the
-chunk layout of the 1F1B real-model mode.  It imports nothing of the JAX package: the tree is plain
-numpy.
+chunk layout of the 1F1B real-model mode.
+:func:`from_flax_tp_params` cuts a ``TransformerLM`` tree into one
+process's shard of the tensor-parallel layout and
+:func:`gather_tp_params` joins the shards back.  It imports nothing of the
+JAX package: the tree is plain numpy.
 """
 
 from __future__ import annotations
@@ -95,6 +98,73 @@ def from_flax_params(params: Mapping[str, Any],
             sd[f"blocks.{i}.mlp.{name}.weight"] = _t(
                 params[f"block{i}"]["mlp"][name]["kernel"]).T.contiguous()
     return sd
+
+
+def tp_param_specs(cfg: TransformerConfig, axis: str = "model"
+                   ) -> dict[str, tuple]:
+    """The Megatron specs (:func:`~tpudist_torch.parallel.tensor_parallel.
+    transformer_tp_rules`) of a ``TransformerLM`` ``state_dict``'s
+    names."""
+    from tpudist_torch.parallel.tensor_parallel import (
+        spec_tree_from_rules,
+        transformer_tp_rules,
+    )
+
+    names = {k: None for k in from_flax_params(_shapes_tree(cfg), cfg)}
+    return spec_tree_from_rules(names, transformer_tp_rules(axis))
+
+
+def _shapes_tree(cfg: TransformerConfig) -> dict:
+    """A flax ``TransformerLM`` tree of empty arrays with the real leaf
+    names and shapes (for the names and specs alone)."""
+    e, kv = cfg.embed_dim, cfg.kv_heads * cfg.head_dim
+    hidden = cfg.mlp_ratio * e
+    z = lambda *shape: np.zeros(shape, np.float32)  # noqa: E731
+    attn = ({"qkv": {"kernel": z(e, 3 * e)}} if cfg.kv_heads == cfg.num_heads
+            else {"q": {"kernel": z(e, e)}, "kv": {"kernel": z(e, 2 * kv)}})
+    attn["proj"] = {"kernel": z(e, e)}
+    ln = {"scale": z(e), "bias": z(e)}
+    tree = {"tok_embed": {"embedding": z(cfg.vocab_size, e)},
+            "pos_embed": {"embedding": z(cfg.max_seq_len, e)},
+            "ln_f": ln, "lm_head": {"kernel": z(e, cfg.vocab_size)}}
+    for i in range(cfg.num_layers):
+        tree[f"block{i}"] = {"ln1": ln, "ln2": ln, "attn": attn,
+                             "mlp": {"up": {"kernel": z(e, hidden)},
+                                     "down": {"kernel": z(hidden, e)}}}
+    return tree
+
+
+def from_flax_tp_params(params: Mapping[str, Any], cfg: TransformerConfig,
+                        rank: int, tp: int) -> dict[str, torch.Tensor]:
+    """Process ``rank``'s shard, of ``tp``, of a flax ``TransformerLM``
+    tree: the ``state_dict`` of a ``TransformerLM(cfg, tp_axis=...)`` on
+    that process.  ``qkv``/``q``/``kv``/``up`` keep their rows of the
+    process's heads (whole heads of each of q, k and v) or MLP columns,
+    ``proj``/``down`` the matching input columns, the token table and the
+    head their vocabulary block; the rest is whole."""
+    from tpudist_torch.parallel.tensor_parallel import cut_leaf
+
+    specs = tp_param_specs(cfg)
+    coords = {"model": (rank, tp)}
+    return {k: cut_leaf(v, specs[k], coords).contiguous()
+            for k, v in from_flax_params(params, cfg).items()}
+
+
+def gather_tp_params(shards, cfg: TransformerConfig
+                     ) -> dict[str, torch.Tensor]:
+    """The whole ``state_dict`` from every process's shard (a list in
+    rank order, as :func:`from_flax_tp_params` cuts them)."""
+    from tpudist_torch.parallel.tensor_parallel import join_blocks
+
+    specs = tp_param_specs(cfg)
+    out = {}
+    for name, spec in specs.items():
+        blocks = [torch.as_tensor(s[name]) for s in shards]
+        dim = next((d for d, a in enumerate(spec) if a is not None), None)
+        out[name] = (blocks[0] if dim is None else
+                     join_blocks(blocks, dim, getattr(spec[dim], "parts",
+                                                      1)))
+    return out
 
 
 def from_flax_moe_params(params: Mapping[str, Any],

@@ -18,10 +18,26 @@ Three dispatches, as in the JAX package:
   (:func:`tpudist_torch.ops.moe_dispatch.fused_moe_mlp`, kernel K7 on the
   card), the ``[T·k, f]`` intermediate kept on-chip.
 
-The explicit expert-parallel path (``ep_axis``: ``all_to_all`` across
-processes) is not ported yet.  The ragged ``jax.lax.ragged_dot`` becomes
-one ``torch.matmul`` per expert; the group sizes are read on the host
-(one sync per call).
+Expert parallelism (``ep_axis=`` over a ``mesh``, the ``einsum``
+dispatch only, as in tpudist): each process holds ``E/n`` experts, the
+stacks' rows ``[r·E/n, (r+1)·E/n)``, and routes over all ``E``.  Two
+schedules, by where the tokens are:
+
+* ``ep_tokens="sharded"`` (tpudist's ``ep_axis``): every process routes
+  its own tokens, an all-to-all sends the ``[E, C, d]`` blocks to the
+  experts' owners as ``[E/n, n·C, d]``, the local experts run, and the
+  reverse all-to-all brings the outputs back (its VJP is the reverse
+  exchange, so the expert stacks' gradients are complete over the axis);
+* ``ep_tokens="replicated"`` (tpudist's GSPMD program, which lowers to
+  this): every process of the axis holds the same tokens, applies its own
+  experts to its columns of the dispatch, and the partial outputs are
+  summed over the axis (``psum_fwd_id_bwd``).  ``x`` and the combine
+  weights enter the expert path through ``id_fwd_psum_bwd``, so their
+  cotangents, hence the router's and every upstream gradient, are whole on
+  every process; the aux loss, identical on all of them, is not summed.
+
+The ragged ``jax.lax.ragged_dot`` becomes one ``torch.matmul`` per
+expert; the group sizes are read on the host (one sync per call).
 """
 
 from __future__ import annotations
@@ -39,15 +55,12 @@ from tpudist_torch.models.transformer import (
     Dense,
     Embed,
     LayerNorm,
+    TensorParallel,
     TransformerConfig,
     sdpa,
 )
 from tpudist_torch.ops.moe_dispatch import fused_moe_mlp
 from tpudist_torch.utils.device import resolve_device
-
-_EP_TODO = ("MoEMLP with ep_axis (the expert-parallel all_to_all across "
-            "processes) is not ported yet (ROADMAP Queue A 7: parallel "
-            "strategies on torch.distributed, expert_parallel)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,13 +174,15 @@ class MoEMLP(nn.Module):
     returns ``(out, aux_loss)``.  Parameters (f32): ``router.weight [E,
     d]`` and the stacks ``w_up [E, d, f]``, ``w_down [E, f, d]``.
 
-    ``ep_axis`` (the JAX module's explicit expert-parallel path) raises:
-    ``ValueError`` under the ragged and fused dispatches, which are
-    single-shard in the JAX package too, and ``NotImplementedError``
-    under ``einsum`` until expert parallelism is ported."""
+    ``ep_axis`` over ``mesh`` holds this process's ``E/n`` experts and
+    runs the ``ep_tokens`` schedule (the module docstring; ``None``
+    without a mesh: a group of one).  It raises ``ValueError`` under the
+    ragged and fused dispatches, which are single-shard in the JAX package
+    too."""
 
     def __init__(self, d_model: int, d_ff: int, moe: MoEConfig,
-                 ep_axis: str | None = None, *, device=None) -> None:
+                 ep_axis: str | None = None, *, mesh=None,
+                 ep_tokens: str = "sharded", device=None) -> None:
         super().__init__()
         if moe.dispatch in ("ragged", "fused"):
             if ep_axis is not None:
@@ -178,15 +193,20 @@ class MoEMLP(nn.Module):
         elif moe.dispatch != "einsum":
             raise ValueError(f"unknown dispatch {moe.dispatch!r} "
                              f"(expected einsum|ragged|fused)")
-        elif ep_axis is not None:
-            raise NotImplementedError(_EP_TODO)
+        if ep_tokens not in ("sharded", "replicated"):
+            raise ValueError(f"ep_tokens must be 'sharded' or 'replicated', "
+                             f"got {ep_tokens!r}")
         self.moe = moe
+        self.ep_tokens = ep_tokens
+        self.ep = TensorParallel(ep_axis, mesh)
         e = moe.num_experts
+        self.ep.check(e, "num_experts")
+        local = e // self.ep.size
         self.router = nn.Linear(d_model, e, bias=False, dtype=torch.float32,
                                 device=device)
-        self.w_up = nn.Parameter(torch.empty(e, d_model, d_ff,
+        self.w_up = nn.Parameter(torch.empty(local, d_model, d_ff,
                                              device=device))
-        self.w_down = nn.Parameter(torch.empty(e, d_ff, d_model,
+        self.w_down = nn.Parameter(torch.empty(local, d_ff, d_model,
                                                device=device))
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -206,17 +226,33 @@ class MoEMLP(nn.Module):
             return out, aux.float()
         capacity = max(1, int(moe.capacity_factor * t * moe.top_k / e))
         dispatch, combine, aux = _top_k_routing(gates, moe.top_k, capacity)
-        expert_in = torch.einsum("tec,td->ecd", dispatch.to(x.dtype), x)
+        dispatch, combine = dispatch.to(x.dtype), combine.to(x.dtype)
+        ep = self.ep
+        if ep.group is not None and self.ep_tokens == "replicated":
+            # this process's experts only; partial outputs summed
+            cols = slice(ep.index * w_up.shape[0],
+                         (ep.index + 1) * w_up.shape[0])
+            x, combine = ep.enter(x), ep.enter(combine)
+            dispatch, combine = dispatch[:, cols], combine[:, cols]
+        expert_in = torch.einsum("tec,td->ecd", dispatch, x)
+        if ep.group is not None and self.ep_tokens == "sharded":
+            # [E, C, d] to the experts' owners as [E/n, n·C, d]
+            expert_in = ep.exchange(expert_in, 0, 1)
         h = F.gelu(torch.einsum("ecd,edf->ecf", expert_in, w_up),
                    approximate="tanh")
         expert_out = torch.einsum("ecf,efd->ecd", h, w_down)
-        out = torch.einsum("tec,ecd->td", combine.to(x.dtype), expert_out)
+        if ep.group is not None and self.ep_tokens == "sharded":
+            expert_out = ep.exchange(expert_out, 1, 0)
+        out = torch.einsum("tec,ecd->td", combine, expert_out)
+        if ep.group is not None and self.ep_tokens == "replicated":
+            out = ep.leave(out)
         return out, aux.float()
 
 
 class MoEDecoderBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, moe: MoEConfig,
-                 attention_fn: AttentionFn = sdpa, device=None) -> None:
+                 attention_fn: AttentionFn = sdpa, device=None,
+                 **ep_kw) -> None:
         super().__init__()
         f32 = torch.float32
         self.ln1 = LayerNorm(cfg.embed_dim, cfg.compute_dtype, device)
@@ -224,7 +260,7 @@ class MoEDecoderBlock(nn.Module):
                                         device=device)
         self.ln2 = LayerNorm(cfg.embed_dim, cfg.compute_dtype, device)
         self.moe = MoEMLP(cfg.embed_dim, cfg.mlp_ratio * cfg.embed_dim, moe,
-                          device=device)
+                          device=device, **ep_kw)
 
     def forward(self, x: torch.Tensor, causal: bool = True):
         x = x + self.attn(self.ln1(x), causal)
@@ -243,10 +279,13 @@ class MoETransformerLM(nn.Module):
     stored in f32 and cast to ``compute_dtype`` at use, as flax stores
     the JAX model's (load them with ``load_state_dict`` of
     :func:`~tpudist_torch.models.convert.from_flax_moe_params`' output,
-    or draw random ones with :meth:`init_weights`)."""
+    or draw random ones with :meth:`init_weights`).  ``ep_axis`` over
+    ``mesh`` shards every MoE layer's experts (:class:`MoEMLP`)."""
 
     def __init__(self, cfg: TransformerConfig, moe: MoEConfig, *,
-                 attention_fn: AttentionFn = sdpa, device=None) -> None:
+                 attention_fn: AttentionFn = sdpa, ep_axis: str | None = None,
+                 mesh=None, ep_tokens: str = "sharded",
+                 device=None) -> None:
         super().__init__()
         device = resolve_device(device)
         self.cfg, self.moe = cfg, moe
@@ -256,7 +295,8 @@ class MoETransformerLM(nn.Module):
         self.pos_embed = Embed(cfg.max_seq_len, cfg.embed_dim, cfg, f32,
                                device)
         self.blocks = nn.ModuleList(
-            MoEDecoderBlock(cfg, moe, attention_fn, device)
+            MoEDecoderBlock(cfg, moe, attention_fn, device, ep_axis=ep_axis,
+                            mesh=mesh, ep_tokens=ep_tokens)
             for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.embed_dim, cfg.compute_dtype, device)
         self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size, cfg, f32, device)

@@ -48,9 +48,27 @@ the plain masked softmax and is off the serve path's main configuration.
 eagerly, so there is no trace to shrink; the model runs its unrolled
 ``ModuleList``, and ``from_flax_params`` unstacks a scanned checkpoint.
 
-Not ported yet: sharded decode (``decode_shard``) and the per-row
-speculative verify chunk without side buffers.  Each raises
-``NotImplementedError`` naming its ROADMAP item.
+Tensor parallelism (``tp_axis=`` over a ``mesh``): tpudist's Megatron
+layout, with the collectives written out as the layers run.  Each process
+holds ``H/tp`` query and ``Hkv/tp`` KV heads (``qkv``/``q``/``kv``
+column-parallel, whole heads of each of q, k and v), ``proj`` row-parallel
+and followed by the all-reduce, ``up`` column- and ``down`` row-parallel
+likewise, the token table's rows of its vocabulary block (a masked lookup,
+then the all-reduce) and the head's columns of it (the logits all-gathered
+before they leave the model); norms and the position table are
+replicated.  ``id_fwd_psum_bwd`` starts each column-parallel product and
+``psum_fwd_id_bwd`` ends each row-parallel one, so every replicated
+parameter's gradient is complete on every process of the axis.  Attention
+runs over the local heads through the model's ``attention_fn`` (K1, K3 and
+K4 at the shard's shapes on the card).  A group of one process still
+issues every collective.  Weights cross with
+:func:`~tpudist_torch.parallel.tensor_parallel.make_tp_state` or
+:func:`~tpudist_torch.models.convert.from_flax_tp_params`.
+
+Not ported yet: sharded decode (``decode_shard``, and a cache on a
+tensor-parallel model: ``tp_generate``) and the per-row speculative verify
+chunk without side buffers.  Each raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -76,6 +94,9 @@ _SHARD_TODO = ("sharded decode (decode_shard) is not ported yet (ROADMAP "
 _VERIFY_TODO = ("a per-row multi-token verify chunk without side buffers is "
                 "not ported yet (ROADMAP Queue A: speculative decoding, "
                 "roles and preemption)")
+_TP_DECODE_TODO = ("a cache on a tensor-parallel model (tpudist's "
+                   "tp_generate) is not ported yet (ROADMAP Queue A 9); "
+                   "gather the parameters and decode on one card")
 _PAGED_WINDOW = ("the paged cache has no sliding-window trim yet; use "
                  "cache_layout='dense' for windowed models")
 
@@ -280,7 +301,7 @@ class CausalSelfAttention(nn.Module):
                  *, serve_side_slots: int = 0, cache_layout: str = "dense",
                  kv_block_size: int = 0, kv_num_blocks: int = 0,
                  decode_shard: Any = None, param_dtype=None,
-                 device=None) -> None:
+                 device=None, tp: "TensorParallel | None" = None) -> None:
         super().__init__()
         # cfg is the single source of truth for the sliding window: a
         # factory built with its own window that disagrees is rejected
@@ -297,21 +318,26 @@ class CausalSelfAttention(nn.Module):
         self.cfg = cfg
         self.attention_fn = attention_fn
         self.serve_side_slots = serve_side_slots
-        e, kv_flat = cfg.embed_dim, cfg.kv_heads * cfg.head_dim
-        pd = param_dtype
+        self.tp = tp or TensorParallel()
+        n = self.tp.size
+        self.tp.check(cfg.num_heads, "num_heads")
+        self.tp.check(cfg.kv_heads, "kv_heads")
+        self.h, self.h_kv = cfg.num_heads // n, cfg.kv_heads // n
+        e, d, pd = cfg.embed_dim, cfg.head_dim, param_dtype
         if cfg.kv_heads == cfg.num_heads:
-            self.qkv = Dense(e, 3 * e, cfg, pd, device)
+            self.qkv = Dense(e, 3 * self.h * d, cfg, pd, device)
         else:  # GQA: separate projections, K/V at the grouped head count
-            self.q = Dense(e, e, cfg, pd, device)
-            self.kv = Dense(e, 2 * kv_flat, cfg, pd, device)
-        self.proj = Dense(e, e, cfg, pd, device)
+            self.q = Dense(e, self.h * d, cfg, pd, device)
+            self.kv = Dense(e, 2 * self.h_kv * d, cfg, pd, device)
+        self.proj = Dense(self.h * d, e, cfg, pd, device)
 
     def forward(self, x: torch.Tensor, causal: bool = True,
                 cache: dict | None = None) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
-        h, h_kv, d = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-        if h_kv == h:
+        h, h_kv, d = self.h, self.h_kv, cfg.head_dim
+        x = self.tp.enter(x)
+        if cfg.kv_heads == cfg.num_heads:
             q, k, v = self.qkv(x).reshape(b, s, 3, h, d).unbind(2)
         else:
             q = self.q(x).reshape(b, s, h, d)
@@ -321,7 +347,7 @@ class CausalSelfAttention(nn.Module):
         else:
             out = self.attention_fn(q, k, v, causal=causal,
                                     window=cfg.attention_window)
-        return self.proj(out.reshape(b, s, cfg.embed_dim))
+        return self.tp.leave(self.proj(out.reshape(b, s, h * d)))
 
     def _cached_attend(self, q, k, v, cache):
         """Decoding against the layer's cache.  ``s == 1`` is the per-token
@@ -450,28 +476,100 @@ class CausalSelfAttention(nn.Module):
         return out
 
 
+class TensorParallel:
+    """A model's tensor- (or expert-) parallel axis: its name, the process
+    group (None:
+    no axis, every method the identity), its size and this process's
+    index on it.  ``enter`` is Megatron's f (identity forward, all-reduce
+    of the cotangent), ``leave`` its g (all-reduce forward, identity
+    backward)."""
+
+    def __init__(self, axis: str | None = None, mesh=None) -> None:
+        self.axis, self.group, self.size, self.index = axis, None, 1, 0
+        if axis is not None and mesh is not None:
+            self.group = mesh.get_group(axis)
+            self.size = mesh.size(list(mesh.mesh_dim_names).index(axis))
+            self.index = mesh.get_local_rank(axis)
+
+    def check(self, count: int, what: str) -> None:
+        if count % self.size:
+            raise ValueError(f"{what} {count} not divisible by "
+                             f"{self.axis!r} size {self.size}")
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        from tpudist_torch.parallel.common import id_fwd_psum_bwd
+
+        return id_fwd_psum_bwd(x, self.group)
+
+    def leave(self, x: torch.Tensor) -> torch.Tensor:
+        from tpudist_torch.parallel.common import psum_fwd_id_bwd
+
+        return psum_fwd_id_bwd(x, self.group)
+
+    def exchange(self, x: torch.Tensor, split: int,
+                 concat: int) -> torch.Tensor:
+        """The tiled all-to-all over the axis (``lax.all_to_all``)."""
+        from tpudist_torch.parallel.common import all_to_all
+
+        return all_to_all(x, self.group, split, concat)
+
+    def join(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every process's block of ``x`` joined along ``dim``; the VJP
+        keeps this process's block of the (whole) cotangent."""
+        from tpudist_torch.parallel.common import all_gather_fwd_slice_bwd
+
+        return all_gather_fwd_slice_bwd(x, self.group, dim)
+
+
 class MLPBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, param_dtype=None,
-                 device=None) -> None:
+                 device=None, tp: TensorParallel | None = None) -> None:
         super().__init__()
+        self.tp = tp or TensorParallel()
         hidden = cfg.mlp_ratio * cfg.embed_dim
+        self.tp.check(hidden, "mlp width")
+        hidden //= self.tp.size
         self.up = Dense(cfg.embed_dim, hidden, cfg, param_dtype, device)
         self.down = Dense(hidden, cfg.embed_dim, cfg, param_dtype, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # flax nn.gelu defaults to the tanh approximation
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+        h = F.gelu(self.up(self.tp.enter(x)), approximate="tanh")
+        return self.tp.leave(self.down(h))
+
+
+class VocabParallelEmbed(Embed):
+    """The token table's rows of this process's vocabulary block: a
+    lookup of the ids in the block (others give zero rows), summed over
+    the axis in ``param_dtype`` (one real row and zeros: exact), then
+    cast."""
+
+    def __init__(self, n: int, dim: int, cfg: TransformerConfig,
+                 param_dtype, device, tp: TensorParallel) -> None:
+        tp.check(n, "vocab_size")
+        super().__init__(n // tp.size, dim, cfg, param_dtype, device)
+        self.tp = tp
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        rows = self.weight.shape[0]
+        local = ids - self.tp.index * rows
+        hit = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), self.weight)
+        x = torch.where(hit[..., None], x, torch.zeros_like(x))
+        return self.tp.leave(x).to(self.compute_dtype)
 
 
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: TransformerConfig, attention_fn: AttentionFn,
-                 device=None, param_dtype=None, **attn_kw) -> None:
+                 device=None, param_dtype=None,
+                 tp: TensorParallel | None = None, **attn_kw) -> None:
         super().__init__()
         self.ln1 = LayerNorm(cfg.embed_dim, cfg.compute_dtype, device)
         self.attn = CausalSelfAttention(cfg, attention_fn, device=device,
-                                        param_dtype=param_dtype, **attn_kw)
+                                        param_dtype=param_dtype, tp=tp,
+                                        **attn_kw)
         self.ln2 = LayerNorm(cfg.embed_dim, cfg.compute_dtype, device)
-        self.mlp = MLPBlock(cfg, param_dtype, device)
+        self.mlp = MLPBlock(cfg, param_dtype, device, tp)
 
     def forward(self, x: torch.Tensor, causal: bool = True,
                 cache: dict | None = None) -> torch.Tensor:
@@ -493,25 +591,35 @@ class TransformerLM(nn.Module):
     ``cache_layout="paged"`` with ``kv_block_size`` / ``kv_num_blocks``
     sizes the slot cache :func:`~tpudist_torch.models.generate._blank_cache`
     builds for it as a block pool (the serve path's side buffers,
-    ``serve_side_slots > 0``, are then required)."""
+    ``serve_side_slots > 0``, are then required).  ``tp_axis`` over
+    ``mesh`` builds this process's shard of the Megatron layout (the
+    module docstring): parameters at the shard's shapes, the logits
+    whole on every process of the axis."""
 
     def __init__(self, cfg: TransformerConfig, *,
                  attention_fn: AttentionFn = sdpa, remat: bool = False,
                  param_dtype: torch.dtype | None = None,
                  serve_side_slots: int = 0, cache_layout: str = "dense",
                  kv_block_size: int = 0, kv_num_blocks: int = 0,
-                 decode_shard: Any = None, device=None) -> None:
+                 decode_shard: Any = None, tp_axis: str | None = None,
+                 mesh=None, device=None) -> None:
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
         self.remat = remat
         self.kv_block_size, self.kv_num_blocks = kv_block_size, kv_num_blocks
         dt, pd = cfg.compute_dtype, param_dtype
-        self.tok_embed = Embed(cfg.vocab_size, cfg.embed_dim, cfg, pd, device)
+        tp = self.tp = TensorParallel(tp_axis, mesh)
+        if tp.group is None:
+            self.tok_embed = Embed(cfg.vocab_size, cfg.embed_dim, cfg, pd,
+                                   device)
+        else:
+            self.tok_embed = VocabParallelEmbed(
+                cfg.vocab_size, cfg.embed_dim, cfg, pd, device, tp)
         self.pos_embed = Embed(cfg.max_seq_len, cfg.embed_dim, cfg, pd,
                                device)
         self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, attention_fn, device, param_dtype=pd,
+            DecoderBlock(cfg, attention_fn, device, param_dtype=pd, tp=tp,
                          serve_side_slots=serve_side_slots,
                          cache_layout=cache_layout,
                          kv_block_size=kv_block_size,
@@ -519,7 +627,9 @@ class TransformerLM(nn.Module):
                          decode_shard=decode_shard)
             for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.embed_dim, dt, device)
-        self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size, cfg, pd, device)
+        tp.check(cfg.vocab_size, "vocab_size")
+        self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size // tp.size, cfg,
+                             pd, device)
 
     @property
     def device(self) -> torch.device:
@@ -550,6 +660,8 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, *,
                 positions: torch.Tensor | None = None,
                 cache: list[dict] | None = None, causal: bool = True):
+        if cache is not None and self.tp.group is not None:
+            raise NotImplementedError(_TP_DECODE_TODO)
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]
@@ -562,5 +674,8 @@ class TransformerLM(nn.Module):
                                                       use_reentrant=False)
             else:
                 x = blk(x, causal)
-        logits = self.lm_head(self.ln_f(x)).float()
+        logits = self.lm_head(self.tp.enter(self.ln_f(x)))
+        if self.tp.group is not None:
+            logits = self.tp.join(logits, -1)
+        logits = logits.float()
         return logits if cache is None else (logits, cache)

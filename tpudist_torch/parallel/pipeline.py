@@ -72,10 +72,6 @@ from tpudist_torch.utils.trees import _leaves, tree_map
 # A stage is a function (stage_params, activations[mb, ...]) -> out[mb, ...]
 StageFn = Callable[[Any, torch.Tensor], torch.Tensor]
 
-_TP_TODO = ("tensor-parallel blocks in the stacked pipeline (state_specs=, "
-            "grad_sync_axes=) are not ported yet (ROADMAP Queue A 7b)")
-
-
 # ---- parameters as a tree ---------------------------------------------------
 
 def _tensor(x) -> torch.Tensor:
@@ -643,10 +639,14 @@ def _microbatches(x: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def _sync_and_step(state: TrainState, ring: _StageRing, loss: torch.Tensor,
-                   stage_summed: Sequence[torch.Tensor] = ()):
+                   stage_summed: Sequence[torch.Tensor] = (),
+                   leaf_sums: Sequence[tuple] = ()):
     """tpudist's sync after the schedule: the loss and the gradients of
     ``stage_summed`` summed over the stage axis, then every gradient and
-    the loss averaged over data; then the optimizer's step."""
+    the loss averaged over data, then each parameter's gradient summed
+    over the groups ``leaf_sums`` gives it (by parameter order; a 3-D
+    step's replicated leaves over a tensor axis); then the optimizer's
+    step."""
     params = list(state.model.parameters())
     for p in params:
         if p.grad is None:
@@ -660,6 +660,12 @@ def _sync_and_step(state: TrainState, ring: _StageRing, loss: torch.Tensor,
         for g in grads:
             g.mul_(inv)
         loss.mul_(inv)
+    by_groups: dict[tuple, list[torch.Tensor]] = {}
+    for g, groups in zip(grads, leaf_sums):
+        if groups:
+            by_groups.setdefault(groups, []).append(g)
+    for groups, same in by_groups.items():
+        all_reduce_sum(same, list(groups))
     return state.apply_gradients(), {"loss": loss}
 
 
@@ -1135,7 +1141,56 @@ def _chunk(tree, i: int) -> Any:
     return tree_map(lambda leaf: leaf[i], tree)
 
 
-def _homogeneous_step(ring, sched, block_fn, loss_fn, V, M, remat):
+def _leaf_sums(mesh, state_example, state_specs, grad_sync_axes,
+               data_axis: str, stage_axis: str) -> list[tuple]:
+    """tpudist's per-leaf plan for a stacked step given ``state_specs``:
+    each leaf's spec must shard its leading (stage) dimension over
+    ``stage_axis``; its gradient is summed over every axis of
+    ``grad_sync_axes`` (a sequence for every leaf, or ``{path: axes}`` by
+    the tree's leaf paths) its spec does not name.  ``grad_sync_axes``
+    is required when the mesh has axes beyond data and stage: a sum is
+    right only for leaves whose cotangents are per-shard partials (used
+    between the Megatron f and g), and would scale any other by the axis
+    size.  Returns the groups to sum over, by parameter order."""
+    from tpudist_torch.parallel.tensor_parallel import spec_axes
+
+    pspecs = state_specs.get("params", state_specs)
+    paths = [p for p, _ in _leaves(_model_tree(state_example))]
+    if list(pspecs) != paths:
+        raise ValueError(f"state_specs name {list(pspecs)}, the state's "
+                         f"leaves are {paths}")
+    for path, spec in pspecs.items():
+        if not (len(spec) >= 1 and spec[0] == stage_axis):
+            raise ValueError(
+                f"state_specs param leaf {path} must shard its leading "
+                f"(stage) dim over {stage_axis!r}; got {spec}")
+    if grad_sync_axes is None:
+        extra = tuple(a for a in (mesh.mesh_dim_names if mesh is not None
+                                  else ())
+                      if a not in (data_axis, stage_axis))
+        if extra:
+            raise ValueError(
+                f"state_specs given with extra mesh axes {extra}: pass "
+                f"grad_sync_axes explicitly — grad_sync_axes={extra} to "
+                "psum partial-cotangent replicated leaves over them, "
+                "grad_sync_axes=() if every replicated leaf's gradient is "
+                "already complete, or a per-leaf mapping for mixed blocks")
+        grad_sync_axes = ()
+    if isinstance(grad_sync_axes, Mapping):
+        if list(grad_sync_axes) != paths:
+            raise ValueError(f"grad_sync_axes names {list(grad_sync_axes)}"
+                             f", the state's leaves are {paths}")
+        per_leaf = [tuple(grad_sync_axes[p]) for p in paths]
+    else:
+        per_leaf = [tuple(grad_sync_axes)] * len(paths)
+    return [tuple(mesh.get_group(a) for a in sync
+                  if a not in spec_axes(pspecs[path]))
+            if mesh is not None else ()
+            for path, sync in zip(paths, per_leaf)]
+
+
+def _homogeneous_step(ring, sched, block_fn, loss_fn, V, M, remat,
+                      leaf_sums=()):
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         ring.check(x, y, *state.model.parameters())
         xs = _microbatches(x, M)
@@ -1151,7 +1206,7 @@ def _homogeneous_step(ring, sched, block_fn, loss_fn, V, M, remat):
                                     lambda v: spec, lambda v: spec,
                                     train=True))
         loss = _gpipe_run(ring, sched, walks, V, lambda a: a, loss_fn, y)
-        return _sync_and_step(state, ring, loss)
+        return _sync_and_step(state, ring, loss, leaf_sums=leaf_sums)
 
     return train_step
 
@@ -1177,17 +1232,29 @@ def make_stacked_pipeline_train_step(
     (:func:`shard_stage_params` with :func:`stacked_state_specs`), and
     ``block_fn(chunk, a)`` maps activations to same-shaped activations.
     Gradients are averaged over data only.  ``train_step.bubble_fraction``
-    is GPipe's ``(P-1)/(M+P-1)``.  ``state_specs``/``grad_sync_axes``
-    (tensor-parallel blocks) raise ``NotImplementedError``."""
+    is GPipe's ``(P-1)/(M+P-1)``.
+
+    ``state_specs`` (:func:`state_specs_like` of ``{path: spec}``, each
+    leading with ``stage_axis``) shards leaves over further axes too: the
+    3-D DP×PP×TP step, whose ``block_fn`` is a tensor-parallel block built
+    from :func:`~tpudist_torch.parallel.common.id_fwd_psum_bwd` and
+    :func:`~tpudist_torch.parallel.common.psum_fwd_id_bwd` on the model
+    axis's group, and the state holds this process's block of every leaf
+    (:func:`shard_stage_params` with the same specs).  A leaf left
+    replicated over a tensor axis and used between f and g gets per-shard
+    partial gradients, summed over each ``grad_sync_axes`` axis missing
+    from its spec (tpudist's opt-in: required whenever the mesh has axes
+    beyond data and stage; ``()`` for none; ``{path: axes}`` per leaf)."""
     del donate
-    if state_specs is not None or grad_sync_axes not in (None, ()):
-        raise NotImplementedError(_TP_TODO)
     ring = _StageRing(mesh, stage_axis, data_axis, local_stages)
     _check_stacked(_model_tree(state_example), len(ring.mine),
                    "stacked pipeline", ring.n)
+    leaf_sums = ([] if state_specs is None else
+                 _leaf_sums(mesh, state_example, state_specs,
+                            grad_sync_axes, data_axis, stage_axis))
     M = num_microbatches
     step = _homogeneous_step(ring, _interleave_schedule(ring.n, 1, M),
-                             block_fn, loss_fn, 1, M, remat)
+                             block_fn, loss_fn, 1, M, remat, leaf_sums)
     step.bubble_fraction = (ring.n - 1) / (M + ring.n - 1)
     return step
 

@@ -54,6 +54,37 @@ def make_mesh(axes: Mapping[str, int]) -> DeviceMesh:
                             mesh_dim_names=tuple(sizes))
 
 
+def get_devices(n: int | None = None, backend: str | None = None
+                ) -> list[torch.device]:
+    """The first ``n`` devices of this host (all if ``n`` is None): its
+    cards for ``backend`` ``"cuda"`` (the default when it has any), else
+    the CPU.  Raises when fewer exist."""
+    if backend is None:
+        backend = "cuda" if torch.cuda.is_available() else "cpu"
+    devs = ([torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+            if backend == "cuda" else [torch.device("cpu")])
+    if n is None:
+        return devs
+    if len(devs) < n:
+        raise ValueError(f"requested {n} devices but only {len(devs)} "
+                         f"available ({[str(d) for d in devs[:4]]}...); one "
+                         "process drives one device: start a process a "
+                         "device (torchrun) and build the mesh over them")
+    return devs[:n]
+
+
+def replicated(mesh: DeviceMesh | None = None) -> tuple:
+    """The spec of a tensor every process holds whole."""
+    return ()
+
+
+def batch_sharding(mesh: DeviceMesh | None = None,
+                   axis: str = "data") -> tuple:
+    """The spec of a ``[batch, ...]`` tensor split along the data axis."""
+    return (axis,)
+
+
 def data_mesh(n: int | None = None) -> DeviceMesh:
     """1-D data-parallel mesh over all processes (``n``, when given, must
     be their number)."""

@@ -17,10 +17,6 @@ from typing import Callable, Iterable
 import torch
 from torch import nn
 
-_SHARDED_TODO = ("TrainState.create_sharded is not ported yet (ROADMAP "
-                 "Queue A: parallel strategies on torch.distributed, "
-                 "MeshSpec)")
-
 # params -> optimizer, the counterpart of an optax GradientTransformation
 OptimizerFactory = Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
 
@@ -143,8 +139,27 @@ class TrainState:
             fold_in(self.seed, shard, self.step, micro))
 
     @classmethod
-    def create_sharded(cls, *args, **kwargs) -> "TrainState":
-        raise NotImplementedError(_SHARDED_TODO)
+    def create_sharded(cls, model: nn.Module, optimizer: OptimizerFactory,
+                       spec, mesh=None, seed: int = 0,
+                       params=None) -> "TrainState":
+        """A state laid out by a :class:`tpudist_torch.parallel.mesh.
+        MeshSpec` (``mesh`` defaults to ``spec.build()``): this process's
+        blocks of the parameters by the spec's composed rules (tp/ep
+        rules first, fsdp takes a remaining dimension), the optimizer
+        made over the blocks.  ``params`` is the whole model's
+        ``state_dict`` (default: ``model``'s own, for a model built
+        unsharded); a model built for a tp/ep layout takes it from the
+        whole model."""
+        from tpudist_torch.parallel.mesh import make_composed_state
+
+        if mesh is None:
+            mesh = spec.build()
+        if params is None:
+            params = {k: v.detach().clone()
+                      for k, v in model.state_dict().items()}
+        state, _ = make_composed_state(model, params, optimizer, spec, mesh,
+                                       seed=seed)
+        return state
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer step on the gradients the parameters hold."""

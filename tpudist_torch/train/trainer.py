@@ -14,9 +14,17 @@ As in tpudist, beyond the reference:
 * ``test()`` sums exact correct counts over the data axis, padding
   excluded, with one host sync per evaluation.
 
-Not ported yet: a composed mesh (``mesh_axes``, a mesh spec, pipeline
-``pp > 1``; ROADMAP Queue A 7), and tpudist's cost probe, obs spans and
-flight-recorder guard (Queue A 10).
+A :class:`~tpudist_torch.parallel.mesh.MeshSpec` (passed as ``mesh``,
+or parsed from ``config.mesh_axes``) selects how the model trains by axis
+sizes: dp, fsdp, tp and ep through
+:func:`~tpudist_torch.parallel.mesh.make_composed_train_step` on a state
+sharded by :func:`~tpudist_torch.parallel.mesh.make_composed_state`
+(pipelines, ``pp > 1``, are driven through the composed step directly).
+Snapshots of a sharded state hold the whole parameters and optimizer
+state, gathered from every process, and a restore cuts them again.
+
+Not ported yet: tpudist's cost probe, obs spans and flight-recorder guard
+(ROADMAP Queue A 10).
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import os
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
@@ -39,6 +48,15 @@ from tpudist_torch.parallel.data_parallel import (
     make_dp_train_loop,
     make_dp_train_step,
 )
+from tpudist_torch.parallel.mesh import (
+    MeshSpec,
+    _mesh_size,
+    make_composed_eval_step,
+    make_composed_state,
+    make_composed_train_step,
+)
+from tpudist_torch.parallel.pipeline import state_specs_like
+from tpudist_torch.parallel.tensor_parallel import gather_tree, shard_tree
 from tpudist_torch.runtime.distributed import process_index
 from tpudist_torch.train.state import (
     OptimizerFactory,
@@ -54,9 +72,6 @@ from tpudist_torch.utils.metrics import (
 )
 
 log = get_logger(__name__)
-
-_COMPOSED_TODO = ("a composed mesh (mesh_axes, a mesh spec, pp > 1) is not "
-                  "ported yet (ROADMAP Queue A 7); pass a data mesh or None")
 
 
 @dataclasses.dataclass
@@ -92,9 +107,10 @@ class TrainerConfig:
         "saves fully synchronous")
     mesh_axes: str = config_field(
         "",
-        "composed-mesh axis sizes, e.g. 'dp=2,fsdp=2' (not ported yet: "
-        "ROADMAP Queue A 7); empty trains data-parallel over the given "
-        "mesh")
+        "composed-mesh axis sizes, e.g. 'dp=2,fsdp=2,tp=2' — selects HOW "
+        "the model trains by axis size instead of strategy function "
+        "(tpudist_torch.parallel.mesh.MeshSpec); empty keeps the "
+        "data-parallel path over the provided mesh")
 
 
 class Trainer:
@@ -103,22 +119,49 @@ class Trainer:
         config: TrainerConfig,
         model: nn.Module,
         optimizer: OptimizerFactory,
-        mesh: DeviceMesh | None,
+        mesh: DeviceMesh | MeshSpec | None,
         train_loader: ShardedLoader,
         test_loader: ShardedLoader | None = None,
         loss_fn: Callable = cross_entropy,
         train_kwargs: dict | None = None,
         seed: int = 0,
+        params: dict | None = None,
     ) -> None:
         """``model`` is an ``nn.Module`` on its device; ``optimizer``
         builds its optimizer (:func:`~tpudist_torch.train.state.adam`,
-        :func:`~tpudist_torch.train.state.sgd`); ``mesh`` is a data mesh
-        or None (the whole world); ``loss_fn(logits, labels)``;
-        ``train_kwargs`` go to the model's forward in training (e.g.
-        ``{"train": True}`` for the ConvNet's dropout)."""
-        if config.mesh_axes or not (mesh is None
-                                    or isinstance(mesh, DeviceMesh)):
-            raise NotImplementedError(_COMPOSED_TODO)
+        :func:`~tpudist_torch.train.state.sgd`); ``mesh`` is a data mesh,
+        None (the whole world) or a :class:`MeshSpec` (its mesh is built
+        here); ``loss_fn(logits, labels)``; ``train_kwargs`` go to the
+        model's forward in training (e.g. ``{"train": True}`` for the
+        ConvNet's dropout).  Under a mesh spec the state is sharded from
+        the whole model's ``params`` (a ``state_dict``; default: rank 0's
+        ``model``, which is then built unsharded)."""
+        self.mesh_spec: MeshSpec | None = None
+        if isinstance(mesh, MeshSpec):
+            self.mesh_spec, mesh = mesh, None
+        elif config.mesh_axes:
+            self.mesh_spec = MeshSpec.parse(config.mesh_axes)
+            for name, size in self.mesh_spec.axis_sizes().items():
+                if _mesh_size(mesh, name) != size:
+                    have = {a: _mesh_size(mesh, a) for a in
+                            (getattr(mesh, "mesh_dim_names", None) or ())}
+                    raise ValueError(
+                        f"config.mesh_axes={config.mesh_axes!r} wants axis "
+                        f"{name}={size} but the provided mesh has {have}; "
+                        "build it with MeshSpec.parse(config.mesh_axes)"
+                        ".build()")
+        elif not (mesh is None or isinstance(mesh, DeviceMesh)):
+            raise TypeError(f"mesh must be a DeviceMesh, a MeshSpec or "
+                            f"None, got {type(mesh).__name__}")
+        if self.mesh_spec is not None and self.mesh_spec.pp > 1:
+            raise ValueError(
+                "Trainer's epoch/eval/snapshot loop assumes a "
+                "(state, inputs, labels) step; pipeline (pp > 1) training "
+                "uses stage-stacked params and a schedule-specific batch "
+                "layout — drive make_composed_train_step directly (see "
+                "tpudist_torch/parallel/pipeline.py)")
+        if self.mesh_spec is not None and mesh is None:
+            mesh = self.mesh_spec.build()
         self.config = config
         self.mesh = mesh
         self.train_loader = train_loader
@@ -140,18 +183,45 @@ class Trainer:
         def dp_predict(model, inputs):
             return model(*inputs)
 
-        self.state = TrainState.create(broadcast_params(model, mesh),
-                                       optimizer, seed=seed)
+        spec = self.mesh_spec
+        self._param_specs = None
+        if spec is None:
+            self.state = TrainState.create(broadcast_params(model, mesh),
+                                           optimizer, seed=seed)
+        else:
+            if params is None:
+                params = {k: v.detach().clone() for k, v in
+                          broadcast_params(model).state_dict().items()}
+            self.state, self._param_specs = make_composed_state(
+                model, params, optimizer, spec, mesh, seed=seed)
         # one save path with the elastic runtime's: the flat layout keeps
         # the reference's rolling snapshot.npz
         self._ckpt = Checkpointer(config.snapshot_path,
                                   async_save=config.async_snapshot,
                                   layout="flat")
         self._maybe_load_snapshot()
-        self.train_step = make_dp_train_step(dp_loss, mesh)
-        self.train_loop = (make_dp_train_loop(dp_loss, mesh)
-                           if config.steps_per_dispatch > 1 else None)
-        self.eval_step = make_dp_masked_eval_step(dp_predict, mesh)
+        if spec is None:
+            self.train_step = make_dp_train_step(dp_loss, mesh)
+            self.train_loop = (make_dp_train_loop(dp_loss, mesh)
+                               if config.steps_per_dispatch > 1 else None)
+            self.eval_step = make_dp_masked_eval_step(dp_predict, mesh)
+        else:
+            pure_dp = spec.fsdp == spec.tp == spec.ep == 1
+            self.train_step = make_composed_train_step(
+                spec, mesh, dp_loss,
+                param_specs=None if pure_dp else self._param_specs)
+            if config.steps_per_dispatch > 1:
+                if not pure_dp:
+                    raise ValueError(
+                        "steps_per_dispatch > 1 (the stacked dp loop) is "
+                        "data-parallel only; set it to 1 for fsdp/tp/ep "
+                        "specs")
+                self.train_loop = make_dp_train_loop(dp_loss, mesh,
+                                                     axis="dp")
+            else:
+                self.train_loop = None
+            self.eval_step = make_composed_eval_step(
+                dp_predict, mesh, self._param_specs, spec.data_axes())
         self.metrics = MetricLogger()
         self.throughput = ThroughputMeter(warmup_steps=2)
 
@@ -159,18 +229,50 @@ class Trainer:
     # state)
 
     def _snapshot_tree(self) -> dict:
-        return {"params": self.state.model.state_dict(),
-                "opt_state": self.state.optimizer.state_dict()["state"]}
+        """The parameters and the optimizer's state; under a mesh spec
+        gathered whole from every process's blocks (a collective)."""
+        params = self.state.model.state_dict()
+        opt = self.state.optimizer.state_dict()["state"]
+        if self._param_specs is None:
+            return {"params": params, "opt_state": opt}
+        opt_specs = self._opt_specs()
+        return {"params": gather_tree(params, self.mesh, self._param_specs),
+                "opt_state": {i: gather_tree(v, self.mesh, opt_specs[i])
+                              for i, v in opt.items()}}
+
+    def _opt_specs(self) -> dict:
+        return state_specs_like(self.state, self._param_specs)["opt_state"]
+
+    def _snapshot_found(self) -> bool:
+        """Whether the snapshot exists, as process 0 sees it, on every
+        process: process 0 writes it (asynchronously) and a sharded
+        restore is a collective, so the others must not decide on a file
+        still being written."""
+        found = os.path.exists(self.config.snapshot_path)
+        if not (dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            return found
+        flag = torch.tensor([int(found)],
+                            device=next(self.state.model.parameters()).device)
+        dist.broadcast(flag, src=0)
+        return bool(flag.item())
 
     def _maybe_load_snapshot(self) -> None:
-        if not os.path.exists(self.config.snapshot_path):
+        if not self._snapshot_found():
             return
         opt = init_optimizer_state(self.state.optimizer)
         tree, meta = restore_pytree(self.config.snapshot_path,
                                     self._snapshot_tree())
-        self.state.model.load_state_dict(tree["params"])
+        params = {k: v for k, v in tree["params"].items()}
+        opt_state = {int(k): v for k, v in tree["opt_state"].items()}
+        if self._param_specs is not None:
+            opt_specs = self._opt_specs()
+            params = shard_tree(params, self.mesh, self._param_specs)
+            opt_state = {i: shard_tree(v, self.mesh, opt_specs[i])
+                         for i, v in opt_state.items()}
+        self.state.model.load_state_dict(params)
         sd = opt.state_dict()
-        sd["state"] = {int(k): v for k, v in tree["opt_state"].items()}
+        sd["state"] = opt_state
         opt.load_state_dict(sd)
         self.state.step = int(meta.get("step", 0))
         self.state.seed = int(meta.get("seed", self.state.seed))
@@ -178,9 +280,10 @@ class Trainer:
         log.info("Resuming from snapshot at epoch %d", self.epochs_run)
 
     def _save_snapshot(self, epoch: int) -> None:
+        tree = self._snapshot_tree()
         if process_index() != 0:
             return
-        self._ckpt.save(epoch, self._snapshot_tree(),
+        self._ckpt.save(epoch, tree,
                         meta={"epochs_run": epoch + 1,
                               "step": self.state.step,
                               "seed": self.state.seed})
