@@ -204,7 +204,20 @@ Phases, each printing one JSON line and each fatal on failure:
    replicated over a one-rank ep axis, partial outputs all-reduced) and
    make_ep_shard_train_step (the all-to-all pair on a one-rank expert
    axis), each against the one-process MoE step at step 0 and timed
-   beside it, launches and collectives a step.
+   beside it, launches and collectives a step;
+37. serve_pipelined (after serve_prefix) — the serve cell's loop at
+   pipeline_depth 1 and 2, dense and paged: the serve phase's request mix
+   token-identical across all four (launches counted), a decode-bound mix
+   timed (ms a tick) and profiled (device busy share), no per-tick host
+   read at depth 2; a deadline kill that refunds the pool and a weight
+   swap through run(source=, sink=), both at depth 2;
+38. elastic_ici (after elastic_kill9) — the kill-9 gang on the ici data
+   plane (a process group a round; gloo, asked for explicitly, since the
+   3 ranks share one card) against elastic_kill9's host-plane card gang
+   (within 1e-4), survivors bitwise equal, calls counted on each round's
+   group and one allreduce a round on the store; detection and recovery
+   seconds; then one process through 3 world-1 NCCL rounds (form,
+   allreduce, abort), each right, no group left.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -225,6 +238,9 @@ import time
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+# serve_pipelined's decode-bound mix: 4 lanes of 300-token prompts, 256 new
+# tokens each, segments of 32 ticks (the serve cell's slots and segment)
+SERVE_PIPE = {"slots": 4, "steps": 32, "prompt": 300, "new": 256}
 # host seconds idled at each end of a decode kernel's profile window, so
 # that a device clock running apart from the host's cuts no call off it
 PROFILE_PAD_S = 0.05
@@ -756,7 +772,7 @@ def phase_parity(torch, dev, seed):
                     new, rid=i) for i, n in enumerate(lens)]
     reset_launches()
     loop = ServeLoop(cfg, sd, num_slots=2, steps_per_sync=8,
-                     prefill_chunk=512, device=dev)
+                     prefill_chunk=512, pipeline_depth=1, device=dev)
     comps = loop.run(reqs)
     serve_launches = read_launches()
     check(len(comps) == len(reqs), "parity: missing completions")
@@ -808,7 +824,7 @@ def phase_serve(torch, dev, seed):
                             compute_dtype=torch.bfloat16)
     sd = random_model(torch, cfg, dev, seed + 1).state_dict()
     loop = ServeLoop(cfg, sd, num_slots=4, steps_per_sync=32,
-                     prefill_chunk=512, device=dev)
+                     prefill_chunk=512, pipeline_depth=1, device=dev)
     rng = np.random.default_rng(seed + 1)
     # warm-up (cuBLAS handles, allocator) outside the measured run
     loop.run([Request(rng.integers(0, 32000, 600).astype(np.int32), 4)])
@@ -855,8 +871,12 @@ def phase_serve(torch, dev, seed):
 def kv_bytes(loop) -> int:
     """Bytes of the slot cache's K/V storage (dense rows or block pools;
     side buffers and indices excluded), as bench.py's kv_paging counts."""
-    return sum(t.numel() * t.element_size() for layer in loop.cache
-               for name, t in layer.items()
+    def live(name, t):  # a paged pool's sink block holds no KV
+        return (t[:loop.pool.num_blocks]
+                if name.startswith("paged_") else t)
+
+    return sum(live(name, t).numel() * t.element_size()
+               for layer in loop.cache for name, t in layer.items()
                if name in ("cached_key", "cached_value", "paged_key",
                            "paged_value"))
 
@@ -864,6 +884,207 @@ def kv_bytes(loop) -> int:
 def _sig(comps):
     return [(c.rid, tuple(int(t) for t in c.tokens), c.reason)
             for c in comps]
+
+
+def _profiled_run(torch, loop, reqs):
+    """``loop.run(reqs)`` under torch.profiler (CUDA activity): the
+    completions, the host wall ms and the device's kernel ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        comps = loop.run(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms = sum(e.self_device_time_total
+                    for e in prof.key_averages()) / 1e3
+    check(device_ms > 0, "serve_pipelined: the profiler saw no device time")
+    return comps, wall_ms, device_ms
+
+
+def phase_serve_pipelined(torch, dev, seed):
+    """The serve cell's loop at pipeline_depth 1 and 2, dense and paged
+    (block 128, a full-capacity pool): (a) the serve phase's request mix
+    (8 prompts of 2,560-7,680 tokens, 64 new each) with launches counted:
+    tokens, finish reasons and finish order identical in all four runs;
+    (b) a decode-bound mix (SERVE_PIPE: 4 prompts of 300 tokens, 256 new
+    each) timed on the host clock (ms a tick) and once more under the
+    profiler (the device's busy share); at depth 2 no per-tick host read
+    and no pinned buffer reused before its copy landed.  Then one
+    deadline kill mid-decode at depth 2 on the paged layout (a strict
+    prefix of the uninterrupted tokens, every block back in the pool) and
+    one weight swap through ``run(source=, sink=)`` at depth 2 (requests
+    decoding at the swap finish on the old weights, later ones on the
+    new; every old completion before ``on_swapped``)."""
+    import numpy as np
+
+    from tpudist_torch.models.serving import Request, ServeLoop, ServeStats
+    from tpudist_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig(vocab_size=32000, num_layers=8, num_heads=8,
+                            num_kv_heads=2, embed_dim=512, max_seq_len=8192,
+                            compute_dtype=torch.bfloat16)
+    sd = random_model(torch, cfg, dev, seed + 1).state_dict()
+    rng = np.random.default_rng(seed + 11)
+    v = cfg.vocab_size
+    lens = [7680, 5120, 2560, 7680, 2560, 5120, 7680, 2560]
+    reqs = [Request(rng.integers(0, v, n).astype(np.int32), 64, rid=i)
+            for i, n in enumerate(lens)]
+    sp = SERVE_PIPE
+    decode_reqs = [Request(rng.integers(0, v, sp["prompt"]).astype(np.int32),
+                           sp["new"], rid=f"d{i}")
+                   for i in range(sp["slots"])]
+    warm = [Request(rng.integers(0, v, 600).astype(np.int32), 4)]
+    arms, sigs, decode_sigs = {}, {}, {}
+    for layout in ("dense", "paged"):
+        kw = ({"cache_layout": "paged", "kv_block_size": 128}
+              if layout == "paged" else {})
+        for depth in (1, 2):
+            loop = ServeLoop(cfg, sd, num_slots=sp["slots"],
+                             steps_per_sync=sp["steps"], prefill_chunk=512,
+                             pipeline_depth=depth, device=dev, **kw)
+            loop.run(warm)
+            loop.stats = ServeStats()
+            reads = loop.segment_host_reads
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            comps = loop.run(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            st = loop.stats
+            sigs[(layout, depth)] = _sig(comps)
+            loop.stats = ServeStats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dcomps = loop.run(decode_reqs)
+            torch.cuda.synchronize()
+            dwall = time.perf_counter() - t0
+            dticks = loop.stats.ticks
+            host_wait = loop.stats.host_wait_seconds
+            decode_sigs[(layout, depth)] = _sig(dcomps)
+            pcomps, pwall, pdev = _profiled_run(torch, loop, decode_reqs)
+            check(_sig(pcomps) == decode_sigs[(layout, depth)],
+                  f"serve_pipelined: {layout} depth {depth} profiled run "
+                  "differs")
+            arm = {"launches": launches, "serve_wall_s": wall,
+                   "serve_ticks": st.ticks, "serve_segments": st.segments,
+                   "decode_wall_s": dwall, "decode_ticks": dticks,
+                   "ms_per_tick": dwall / dticks * 1e3,
+                   "host_wait_s": host_wait,
+                   "profiled_wall_ms": pwall, "device_ms": pdev,
+                   "device_busy_share": pdev / pwall,
+                   "per_tick_host_reads": loop.segment_host_reads - reads,
+                   "pinned_reuse_waits": loop.pinned_reuse_waits}
+            if depth > 1:
+                check(arm["per_tick_host_reads"] == 0
+                      and loop.pinned_reuse_waits == 0
+                      and len({b["emits"].data_ptr()
+                               for b in loop._ring}) == depth,
+                      f"serve_pipelined: {layout} depth {depth}: "
+                      f"{arm['per_tick_host_reads']} tick reads, "
+                      f"{loop.pinned_reuse_waits} early reuses")
+            if loop.pool is not None:
+                loop.pool.check()
+                loop.flush_prefix_cache()
+                check(loop.pool.free_blocks == loop.pool.num_blocks,
+                      f"serve_pipelined: paged depth {depth}: pool not "
+                      "drained")
+            k = "K5" if layout == "paged" else "K2"
+            other = "K2" if layout == "paged" else "K5"
+            check(launches["K1"] > 0 and launches[k] > 0
+                  and launches[other] == 0,
+                  f"serve_pipelined: {layout} depth {depth} launches "
+                  f"{launches}")
+            arms[f"{layout}_depth{depth}"] = arm
+            del loop
+            torch.cuda.empty_cache()
+    first = sigs[("dense", 1)]
+    check(all(sig == first for sig in sigs.values()),
+          "serve_pipelined: tokens, reasons or order differ across depths "
+          "and layouts")
+    check(all(sig == decode_sigs[("dense", 1)]
+              for sig in decode_sigs.values()),
+          "serve_pipelined: the decode mix differs across depths and "
+          "layouts")
+    check(all(c[2] == "length" for c in first),
+          "serve_pipelined: a serve request did not run its budget")
+    # a deadline kill mid-decode, paged, depth 2: the zombie path
+    loop = ServeLoop(cfg, sd, num_slots=sp["slots"],
+                     steps_per_sync=sp["steps"], prefill_chunk=512,
+                     pipeline_depth=2, cache_layout="paged",
+                     kv_block_size=128, device=dev)
+    t0 = time.time()
+    reads = [0]
+
+    def clock():
+        reads[0] += 1
+        return t0 + (1e6 if reads[0] > 8 else 0.0)
+
+    loop._clock = clock
+    doomed = decode_reqs[0]
+    [kc] = loop.run([Request(doomed.prompt, doomed.max_new_tokens,
+                             rid="doomed", deadline_s=t0 + 1e5)])
+    whole = next(c for c in decode_sigs[("dense", 1)] if c[0] == doomed.rid)
+    n_kill = kc.tokens.shape[0]
+    loop.pool.check()
+    check(kc.reason == "timeout" and 0 < n_kill < doomed.max_new_tokens
+          and tuple(int(t) for t in kc.tokens) == whole[1][:n_kill]
+          and loop.pool.free_blocks == loop.pool.num_blocks
+          and loop.stats.timeouts == 1,
+          f"serve_pipelined: deadline kill {kc.reason} after {n_kill} "
+          f"tokens, pool {loop.pool.free_blocks}/{loop.pool.num_blocks}")
+    del loop
+    # a midstream swap through source/sink, depth 2
+    sd2 = random_model(torch, cfg, dev, seed + 12).state_dict()
+    old = [Request(r.prompt, 24, rid=f"old{i}")
+           for i, r in enumerate(decode_reqs[:2])]
+    new = [Request(r.prompt, 24, rid=f"new{i}")
+           for i, r in enumerate(decode_reqs[2:])]
+    ref = ServeLoop(cfg, sd, num_slots=sp["slots"],
+                    steps_per_sync=sp["steps"], prefill_chunk=512,
+                    pipeline_depth=1, device=dev)
+    want = {c.rid: tuple(int(t) for t in c.tokens) for c in ref.run(old)}
+    ref.request_swap(lambda: sd2)
+    want.update({c.rid: tuple(int(t) for t in c.tokens)
+                 for c in ref.run(new)})
+    del ref
+    loop = ServeLoop(cfg, sd, num_slots=sp["slots"],
+                     steps_per_sync=sp["steps"], prefill_chunk=512,
+                     pipeline_depth=2, device=dev)
+    events, polls = [], [0]
+
+    def source():
+        polls[0] += 1
+        if polls[0] == 1:
+            return old
+        if polls[0] == 2:
+            loop.request_swap(lambda: sd2, version=2,
+                              on_swapped=lambda: events.append("swapped"))
+            return new
+        return None if len(events) == 5 else []
+
+    comps = loop.run(source=source, sink=lambda c: events.append(c.rid),
+                     idle_wait_s=0.0)
+    got = {c.rid: tuple(int(t) for t in c.tokens) for c in comps}
+    swap_at = events.index("swapped") if "swapped" in events else -1
+    check(got == want and set(events[:swap_at]) == {"old0", "old1"}
+          and loop.weights_version == 2,
+          f"serve_pipelined: swap events {events}, tokens equal "
+          f"{ {k: got.get(k) == w for k, w in want.items()} }")
+    del loop
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_pipelined", "exact_across_depths": True,
+          "serve_requests": len(reqs), "decode_mix": sp,
+          **arms,
+          "deadline_kill": {"layout": "paged", "depth": 2,
+                            "tokens_before_kill": n_kill,
+                            "pool_refunded": True},
+          "swap": {"depth": 2, "events": events, "exact": True}})
+    return {f"{layout}_depth{depth}": arms[f"{layout}_depth{depth}"][
+        "launches"] for layout in ("dense", "paged") for depth in (1, 2)}
 
 
 def phase_paged_parity(torch, dev, seed):
@@ -885,7 +1106,8 @@ def phase_paged_parity(torch, dev, seed):
     rng = np.random.default_rng(seed)
     reqs = [Request(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
                     24, rid=i) for i, n in enumerate([1100, 37, 600, 513])]
-    kw = dict(num_slots=2, steps_per_sync=8, prefill_chunk=512, device=dev)
+    kw = dict(num_slots=2, steps_per_sync=8, prefill_chunk=512,
+              pipeline_depth=1, device=dev)
     reset_launches()
     dense = _sig(ServeLoop(cfg, sd, **kw).run(reqs))
     dense_launches = read_launches()
@@ -934,7 +1156,8 @@ def phase_serve_paged(torch, dev, seed):
         kw = ({"cache_layout": "paged", "kv_block_size": block,
                "kv_num_blocks": blocks} if layout == "paged" else {})
         loop = ServeLoop(cfg, sd, num_slots=slots, steps_per_sync=gen,
-                         prefill_chunk=512, device=dev, **kw)
+                         prefill_chunk=512, pipeline_depth=1, device=dev,
+                         **kw)
         # warm-up outside the measured run (cuBLAS handles, allocator)
         loop.run([Request(rng.integers(0, cfg.vocab_size, 600).astype(
             np.int32), 2)])
@@ -1013,7 +1236,8 @@ def phase_serve_prefix(torch, dev, seed):
         loop = ServeLoop(cfg, sd, num_slots=4, steps_per_sync=8,
                          prefill_chunk=256, cache_layout="paged",
                          kv_block_size=32, chunked_prefill=sharing,
-                         prefix_sharing=sharing, device=dev)
+                         prefix_sharing=sharing, pipeline_depth=1,
+                         device=dev)
         loop.run(reqs)
         for k in loop.prefix_stats:
             loop.prefix_stats[k] = 0
@@ -3841,6 +4065,9 @@ def phase_train_convnet(torch, dev, seed):
 ELASTIC_CPU_RTOL = 1e-4
 ELASTIC_GANG_TIMEOUT_S = 300
 ELASTIC_WORKER = "tests/workers/torch_ttl_elastic_worker.py"
+# elastic_ici: world-1 NCCL rounds one process forms and tears down, and
+# the bound on that process
+ICI_NCCL_ROUNDS, ICI_NCCL_TIMEOUT_S = 3, 300
 # elastic_horovod: the reference recipe (horovod_mnist_elastic.py) cut only
 # in epochs; one worker SIGKILLed from outside after the round's second
 # commit at world 3 (mid-epoch 0)
@@ -3881,10 +4108,11 @@ def _last_params(np, ckpt_dir, sid) -> dict:
                 if k.startswith("params/")}
 
 
-def elastic_gang(device: str, tmp: str) -> dict:
-    """One run of the kill-9 gang on ``device`` under ``tmp``: its events,
-    loop records and final parameters, checked against the test's
-    outcome."""
+def elastic_gang(device: str, tmp: str, env: dict | None = None,
+                 label: str = "elastic_kill9") -> dict:
+    """One run of the kill-9 gang on ``device`` under ``tmp`` (``env``
+    added to the workers', e.g. the ici data plane): its events, loop
+    records and final parameters, checked against the test's outcome."""
     import os
 
     import numpy as np
@@ -3899,8 +4127,10 @@ def elastic_gang(device: str, tmp: str) -> dict:
                 device=device, timeout_s=ELASTIC_GANG_TIMEOUT_S,
                 env={"WORKER_OUT_DIR": out, "WORKER_CKPT_DIR": ckpt,
                      "WORKER_KILL_SPAWN_ID": "2", "WORKER_KILL_AT_STEP": "13",
-                     "TPUDIST_COLL_COMPRESS": "none", "OMP_NUM_THREADS": "1"})
+                     "TPUDIST_COLL_COMPRESS": "none", "OMP_NUM_THREADS": "1",
+                     **(env or {})})
     wall = time.perf_counter() - t0
+    device = f"{label}:{device}" if label != "elastic_kill9" else device
     check(rc == 0, f"elastic_kill9[{device}]: the gang exited {rc}")
     ev = {sid: _jsonl(f"{out}/events_{sid}.jsonl") for sid in (0, 1, 2)}
     loops = {sid: _jsonl(f"{out}/loop_{sid}.jsonl") for sid in (0, 1, 2)}
@@ -3948,7 +4178,7 @@ def elastic_gang(device: str, tmp: str) -> dict:
             "detection_s": detect, "recovery_s": recover,
             "ms_per_step": {"world3": ms_per_step(0, 5, 10),
                             "world2": ms_per_step(0, 15, 30)},
-            "kernel_launches": launches}
+            "kernel_launches": launches, "events": ev, "loops": loops}
 
 
 def phase_elastic_kill9(torch, dev, seed):
@@ -3983,6 +4213,138 @@ def phase_elastic_kill9(torch, dev, seed):
              for k in ("detection_s", "recovery_s", "ms_per_step",
                        "wall_s")},
           "kernel_launches_by_spawn": card["kernel_launches"]})
+    return card
+
+
+def ici_nccl_rounds_main(argv) -> int:
+    """One process through ICI_NCCL_ROUNDS world-1 NCCL rounds of the ici
+    data plane (run by chip_smoke in a process of its own, which holds no
+    other group): form, allreduce, abort and destroy; each round's sum
+    checked and the live groups counted after each teardown."""
+    import torch
+
+    from tpudist_torch.runtime.coord import CoordClient, CoordServer
+    from tpudist_torch.runtime.ici import (
+        IciCollectives,
+        IciDataPlane,
+        live_groups,
+    )
+
+    out_path = argv[0]
+    dev = torch.device("cuda", 0)
+    rows = []
+    with CoordServer(0) as srv, CoordClient("127.0.0.1", srv.port) as client:
+        plane = IciDataPlane(client, device=dev)
+        for round_id in range(ICI_NCCL_ROUNDS):
+            t0 = time.perf_counter()
+            group = plane.form(round_id, 0, 1)
+            form_s = time.perf_counter() - t0
+            coll = IciCollectives(group, device=dev)
+            x = torch.full((1 << 20,), float(round_id + 1), device=dev)
+            got = coll.allreduce_sum({"x": x})["x"]
+            right = bool(torch.equal(got, x))
+            backend = str(torch.distributed.get_backend(group))
+            t0 = time.perf_counter()
+            plane.teardown()
+            rows.append({"round": round_id, "backend": backend,
+                         "allreduce_right": right, "form_s": form_s,
+                         "teardown_s": time.perf_counter() - t0,
+                         "live_groups_after": live_groups(),
+                         "calls": dict(coll.calls)})
+        plane.finalize(0, lambda: None)
+        leftover = client.keys("ici/")
+    with open(out_path, "w") as fh:
+        json.dump({"rounds": rows, "leftover_keys": leftover}, fh)
+    return 0
+
+
+def phase_elastic_ici(torch, dev, seed, host_card):
+    """The kill-9 gang of elastic_kill9 with ``WORKER_DATA_PLANE=ici``: 3
+    workers on cuda:0 sync gradients over each round's process group.
+    Three ranks share one card, so the gang asks for gloo explicitly
+    (``TPUDIST_ICI_BACKEND=gloo``: NCCL holds one rank a card) over CUDA
+    tensors.  The survivors re-form at world 2 and end bitwise equal,
+    within ELASTIC_CPU_RTOL of the host-plane card gang (``host_card``);
+    every round's first step counted calls on its group, and the store
+    carried one allreduce a round (the root election's score), no
+    gradient.  Then one process takes ICI_NCCL_ROUNDS world-1 NCCL rounds
+    (form, allreduce, abort, form again), each sum right and no group
+    left behind."""
+    import os
+    import signal
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ici = elastic_gang(dev.type, f"{tmp}/ici",
+                           env={"WORKER_DATA_PLANE": "ici",
+                                "TPUDIST_ICI_BACKEND": "gloo"},
+                           label="elastic_ici")
+        proc = subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.ici_nccl_rounds_main(sys.argv[1:]))",
+             f"{tmp}/nccl.json"], cwd=_repo_root(), start_new_session=True)
+        try:
+            rc = proc.wait(timeout=ICI_NCCL_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+        check(rc == 0, f"elastic_ici: the NCCL rounds exited {rc}")
+        with open(f"{tmp}/nccl.json") as fh:
+            nccl = json.load(fh)
+    rel = {k: float(abs(ici["params"][k] - host_card["params"][k]).max()
+                    / abs(host_card["params"][k]).max())
+           for k in host_card["params"]}
+    loss_rel = abs(ici["loss"] - host_card["loss"]) / abs(host_card["loss"])
+    check(max(rel.values()) <= ELASTIC_CPU_RTOL
+          and loss_rel <= ELASTIC_CPU_RTOL,
+          f"elastic_ici: against the host plane {rel}, loss {loss_rel}")
+    group_calls = {}
+    for sid in (0, 1):
+        rounds = [e["round"] for e in ici["events"][sid]
+                  if e["event"] == "round"]
+        hlo = [e for e in ici["events"][sid] if e["event"] == "hlo"]
+        check([e["round"] for e in hlo] == rounds
+              and all(e["backend"] == "gloo" and e["calls"] > 0
+                      for e in hlo),
+              f"elastic_ici: spawn {sid}'s group events {hlo}")
+        ctl = [r for r in ici["loops"][sid]
+               if r["event"] == "control_plane"]
+        check(ctl and ctl[-1]["calls"].get("allreduce") == 1
+              and ctl[-1]["data_calls"].get("allreduce") == 20,
+              f"elastic_ici: spawn {sid}'s control plane {ctl}")
+        group_calls[sid] = {"first_step": [e["calls"] for e in hlo],
+                            "formed_s": [r["seconds"] for r in ici["loops"][sid]
+                                         if r["event"] == "ici_formed"],
+                            "teardown_s": [
+                                r["seconds"] for r in ici["loops"][sid]
+                                if r["event"] == "ici_teardown"],
+                            "last_round": ctl[-1]["data_calls"],
+                            "last_round_bytes": ctl[-1]["data_bytes"],
+                            "store_calls": ctl[-1]["calls"],
+                            "store_bytes_posted": ctl[-1]["bytes_posted"]}
+    rows = nccl["rounds"]
+    check(len(rows) == ICI_NCCL_ROUNDS
+          and all(r["backend"] == "nccl" and r["allreduce_right"]
+                  and r["live_groups_after"] == 0 for r in rows)
+          and not nccl["leftover_keys"],
+          f"elastic_ici: NCCL rounds {nccl}")
+    emit({"phase": "elastic_ici", "workers": 3, "device": str(dev),
+          "backend": "gloo (TPUDIST_ICI_BACKEND=gloo: 3 ranks share one "
+                     "card, NCCL holds one rank a card)",
+          "survivors_world": 2, "resume_batch": 10,
+          "survivors_bitwise_equal": True,
+          "vs_host_plane_param_max_rel": max(rel.values()),
+          "vs_host_plane_loss_rel": loss_rel,
+          "detection_s": ici["detection_s"], "recovery_s": ici["recovery_s"],
+          "host_plane_detection_s": host_card["detection_s"],
+          "host_plane_recovery_s": host_card["recovery_s"],
+          "ms_per_step": ici["ms_per_step"],
+          "host_plane_ms_per_step": host_card["ms_per_step"],
+          "wall_s": ici["wall_s"], "group_calls": group_calls,
+          "kernel_launches_by_spawn": ici["kernel_launches"],
+          "nccl_rounds": rows})
 
 
 def _children_with_env(pid: int, key: str, value: str) -> list:
@@ -4327,8 +4689,8 @@ def phase_host_collectives(torch, dev, seed):
     wire: ms per op (median of the ranks' medians), bytes posted and
     fetched per rank per op, the device-to-host and host-to-device staging
     ms apart; every rank's result bitwise equal, and within COLL_RTOL of
-    the f64 sum.  The baseline a process-group plane (ROADMAP A 8b) is
-    held against."""
+    the f64 sum.  The baseline the process-group plane (elastic_ici,
+    scripts/elastic_nccl_check.py) is held against."""
     import statistics
     import tempfile
 
@@ -5328,11 +5690,12 @@ def main(argv=None) -> int:
     paged_loop = ServeLoop(loop.cfg, loop.model.state_dict(), num_slots=4,
                            steps_per_sync=32, prefill_chunk=512,
                            cache_layout="paged", kv_block_size=128,
-                           device=dev)
+                           pipeline_depth=1, device=dev)
     phase_profile(torch, paged_loop, args.seed, name="profile_paged")
     del loop, paged_loop
     paged_launches = phase_serve_paged(torch, dev, args.seed)
     phase_serve_prefix(torch, dev, args.seed)
+    pipe_launches = phase_serve_pipelined(torch, dev, args.seed)
     q8_launches = phase_decode_q8(torch, dev, args.seed)
     bwd_rows, k1_train = phase_backward_kernels(torch, dev, args.seed)
     phase_train_parity(torch, dev, args.seed)
@@ -5350,7 +5713,9 @@ def main(argv=None) -> int:
     phase_mnist_parity(torch, dev, args.seed)
     phase_train_mnist(torch, dev, args.seed)
     phase_train_convnet(torch, dev, args.seed)
-    phase_elastic_kill9(torch, dev, args.seed)
+    host_card = phase_elastic_kill9(torch, dev, args.seed)
+    phase_elastic_ici(torch, dev, args.seed, host_card)
+    del host_card
     phase_elastic_horovod(torch, dev, args.seed)
     phase_host_collectives(torch, dev, args.seed)
     phase_pipeline_resnet(torch, dev, args.seed)
@@ -5380,6 +5745,8 @@ def main(argv=None) -> int:
          **{k: main_k1[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
          "launches_train": train_launches["K1"],
+         "launches_serve_pipelined": {k: v["K1"]
+                                      for k, v in pipe_launches.items()},
          "launches_sp": sp_launches["K1"],
          "launches_train_pp": pp_launches["K1"],
          "launches_train_pp_per_step": pp_launches["per_step"]["K1"],
@@ -5397,6 +5764,10 @@ def main(argv=None) -> int:
          "source": "tpudist_torch/csrc/flash_decode.cu",
          "replaces": "tpudist/ops/flash_decode.py:62",
          "launches": launches["K2"],
+         "launches_serve_pipelined_depth1": pipe_launches["dense_depth1"][
+             "K2"],
+         "launches_serve_pipelined_depth2": pipe_launches["dense_depth2"][
+             "K2"],
          "max_abs_err": max(r["max_abs_err"] for r in k2),
          "tol_ratio": max(r["tol_ratio"] for r in k2),
          **{k: main_k2[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -5461,6 +5832,9 @@ def main(argv=None) -> int:
             "source": "tpudist_torch/csrc/flash_decode.cu",
             "replaces": "tpudist/ops/flash_decode.py:62",
             "launches": launched,
+            **({f"launches_serve_pipelined_depth{d}":
+                pipe_launches[f"paged_depth{d}"]["K5"] for d in (1, 2)}
+               if key == "K5" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tol_ratio": max(r["tol_ratio"] for r in rows),
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",

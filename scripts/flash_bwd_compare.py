@@ -95,7 +95,7 @@ def prefill(torch, dev, seed):
                             compute_dtype=torch.bfloat16)
     sd = chip_smoke.random_model(torch, cfg, dev, seed + 1).state_dict()
     loop = ServeLoop(cfg, sd, num_slots=4, steps_per_sync=32,
-                     prefill_chunk=512, device=dev)
+                     prefill_chunk=512, pipeline_depth=1, device=dev)
     loop.chunked = False
     prompt = np.random.default_rng(seed + 1).integers(
         0, cfg.vocab_size, 7680).astype(np.int32)

@@ -1,8 +1,7 @@
 """The port's elastic state and loop (``tpudist_torch.elastic``): twins of
 ``tests/test_elastic.py``'s eight cases on the port's ``TrainState``, the
 optimizer state made as optax's ``init`` makes it, ``adamw`` against
-``optax.adamw``, and the worker's refusals (no CUDA, the unported ``ici``
-plane)."""
+``optax.adamw``, and the worker's refusals (no CUDA, an unknown data plane)."""
 
 import numpy as np
 import pytest
@@ -316,13 +315,19 @@ def test_worker_device_needs_cuda_unless_told(monkeypatch):
     assert worker_device() == torch.device("cpu")
 
 
-def test_ici_plane_is_not_ported():
+def test_context_host_plane_defaults():
+    """tests/test_ici_unit.py's TestElasticContextDefaults: no group on
+    the host plane."""
+    from tpudist_torch.elastic.worker import ElasticContext
+
+    ctx = ElasticContext(0, 1, 0, None, None)
+    assert ctx.mesh is None and ctx.data_plane == "host"
+
+
+def test_unknown_data_plane_rejected():
     from tpudist_torch.elastic.worker import run_elastic_worker
 
     es = ElasticState(_train_state())
-    with pytest.raises(NotImplementedError, match="A 8b"):
-        run_elastic_worker(lambda s, c: None, es, coord_addr="127.0.0.1:1",
-                           data_plane="ici")
     with pytest.raises(ValueError, match="data_plane"):
         run_elastic_worker(lambda s, c: None, es, coord_addr="127.0.0.1:1",
                            data_plane="dcn")

@@ -69,10 +69,39 @@ def _done(out, sid):
     return [e for e in _events(out, sid) if e["event"] == "done"][-1]
 
 
-def _gang(tmp_path, nprocs, env, name="port", **kw):
+def _logged(worker):
+    """``worker`` run with its stdout and stderr appended to
+    ``$WORKER_OUT_DIR/log_<spawn id>.txt`` (``exec`` keeps its pid, so a
+    launcher's signals still reach it)."""
+    return ["sh", "-c", 'exec "$0" "$1" >>"$WORKER_OUT_DIR/log_'
+            '${TPUDIST_PROCESS_ID:-x}.txt" 2>&1', sys.executable, worker]
+
+
+def _tail(path, lines=25):
+    p = Path(path)
+    return ("\n".join(p.read_text(errors="replace").splitlines()[-lines:])
+            if p.exists() else "(no log)")
+
+
+def _diagnosis(gangs, sids=(0, 1, 2)):
+    """Every gang's events without their values and the tail of each
+    worker's log: the message of an assertion that compares gangs."""
+    parts = []
+    for name, out in gangs.items():
+        for sid in sids:
+            parts.append(f"--- {name} gang, spawn {sid}: events\n"
+                         + "\n".join(json.dumps(e) for e in
+                                     _structure(_ref_view(_events(out, sid))))
+                         + f"\n--- {name} gang, spawn {sid}: log tail\n"
+                         + _tail(Path(out) / f"log_{sid}.txt"))
+    return "\n".join(parts)
+
+
+def _gang(tmp_path, nprocs, env, name="port", logged=False, **kw):
     out = tmp_path / name
     out.mkdir()
-    rc = launch([sys.executable, WORKER], nprocs=nprocs, device="cpu",
+    cmd = _logged(WORKER) if logged else [sys.executable, WORKER]
+    rc = launch(cmd, nprocs=nprocs, device="cpu",
                 elastic_inprocess=True, timeout_s=GANG_TIMEOUT_S,
                 env={"WORKER_OUT_DIR": str(out), **ONE_THREAD, **env}, **kw)
     return rc, out
@@ -83,7 +112,8 @@ def _ref_gang(tmp_path, env):
     out = tmp_path / "ref"
     out.mkdir()
     cmd = [sys.executable, "-m", "tpudist.runtime.launch", "-n", "3",
-           "--min-nprocs", "2", "--elastic-inprocess", "--", REF_WORKER]
+           "--min-nprocs", "2", "--elastic-inprocess", "--",
+           *_logged(REF_WORKER)]
     penv = dict(os.environ, WORKER_OUT_DIR=str(out), PYTHONPATH=str(ROOT),
                 JAX_PLATFORMS="cpu", **ONE_THREAD, **env)
     proc = subprocess.Popen(cmd, env=penv, cwd=str(ROOT),
@@ -142,22 +172,34 @@ def _ref_params(ckpt_dir, sid, init_params):
         jax.tree.map(np.asarray, tree.params)).items()}
 
 
-def _assert_shrunk_3_to_2(out, survivors=(0, 1), victim=2):
+def _assert_shrunk_3_to_2(out, survivors=(0, 1), victim=2, gang="port",
+                          why=""):
+    """The shrink's invariants; each failure names ``gang`` and the event
+    it is about, followed by ``why`` (the gangs' events and log tails)."""
+    def at(event, sid):
+        return f"{gang} gang, spawn {sid}, {event}\n{why}"
+
     ev = _events(out, victim)
-    assert _ref_view(ev)[-1] == {"event": "suicide", "step": 13}
+    assert _ref_view(ev)[-1:] == [{"event": "suicide", "step": 13}], \
+        at("suicide", victim)
     for sid in survivors:
         ev = _events(out, sid)
         rounds = [e for e in ev if e["event"] == "round"]
-        assert rounds[0]["world"] == 3 and rounds[0]["resume_batch"] == 0
-        assert rounds[-1]["world"] == 2
-        assert rounds[-1]["resume_batch"] == 10  # commit every 5, killed @13
+        assert rounds[0]["world"] == 3 and rounds[0]["resume_batch"] == 0, \
+            at("first round", sid)
+        assert rounds[-1]["world"] == 2, at("last round", sid)
+        # commit every 5, killed @13
+        assert rounds[-1]["resume_batch"] == 10, at("last round", sid)
         resets = [e for e in ev if e["event"] == "reset"]
-        assert [(r["old_world"], r["new_world"]) for r in resets] == [(3, 2)]
+        assert [(r["old_world"], r["new_world"]) for r in resets] == [(3, 2)], \
+            at("reset", sid)
         done = [e for e in ev if e["event"] == "done"]
-        assert done[-1]["steps"] == 30 and done[-1]["world"] == 2
-        assert done[-1]["lr"] == pytest.approx(0.1 * 2 / 3)
+        assert done and done[-1]["steps"] == 30 and done[-1]["world"] == 2, \
+            at("done", sid)
+        assert done[-1]["lr"] == pytest.approx(0.1 * 2 / 3), at("done", sid)
     a, b = (_done(out, sid) for sid in survivors)
-    assert a["checksum"] == b["checksum"] and a["loss"] == b["loss"]
+    assert a["checksum"] == b["checksum"] and a["loss"] == b["loss"], \
+        at("done (survivors differ)", survivors)
 
 
 def test_kill9_gang_matches_tpudist(tmp_path):
@@ -170,32 +212,82 @@ def test_kill9_gang_matches_tpudist(tmp_path):
             "TPUDIST_COLL_COMPRESS": "none"}
     rc, ref = _ref_gang(tmp_path, {**kill,
                                    "WORKER_CKPT_DIR": str(tmp_path / "rc")})
-    assert rc == 0
+    assert rc == 0, "ref gang exit code\n" + _diagnosis({"ref": ref})
     rc, out = _gang(tmp_path, 3, {**kill,
                                   "WORKER_INIT_NPZ": str(tmp_path / "init.npz"),
                                   "WORKER_CKPT_DIR": str(tmp_path / "pc")},
-                    min_nprocs=2)
-    assert rc == 0
-    _assert_shrunk_3_to_2(ref)
-    _assert_shrunk_3_to_2(out)
+                    min_nprocs=2, logged=True)
+    why = _diagnosis({"ref": ref, "out": out})
+    assert rc == 0, "out gang exit code\n" + why
+    _assert_shrunk_3_to_2(ref, gang="ref", why=why)
+    _assert_shrunk_3_to_2(out, gang="out", why=why)
     # the same lifecycle, event for event
     for sid in (0, 1, 2):
         got, want = _ref_view(_events(out, sid)), _events(ref, sid)
-        assert _structure(got) == _structure(want), sid
+        assert _structure(got) == _structure(want), \
+            f"out and ref gangs differ in spawn {sid}'s events\n{why}"
         for g, w in zip(got, want):
             for key in ("loss", "checksum", "lr"):
                 if key in w:
                     assert g[key] == pytest.approx(w[key], rel=VALUE_RTOL), \
-                        (sid, key)
+                        (f"out vs ref, spawn {sid}, {w['event']} {key}", why)
     # the port's survivors hold bitwise-equal parameters...
     p0, p1 = _port_params(tmp_path / "pc", 0), _port_params(tmp_path / "pc", 1)
-    assert all(np.array_equal(p0[k], p1[k]) for k in p0)
+    assert all(np.array_equal(p0[k], p1[k]) for k in p0), \
+        "out gang's survivors' last commits differ\n" + why
     # ...within PARAM_TOL of each tensor's largest magnitude of tpudist's
     want = _ref_params(tmp_path / "rc", 0, init)
     assert sorted(want) == sorted(p0)
     for k, w in want.items():
         err = np.max(np.abs(p0[k] - w)) / np.max(np.abs(w))
         assert err <= PARAM_TOL, (k, err)
+
+
+def _loop_records(out, sid):
+    p = Path(out) / f"loop_{sid}.jsonl"
+    return [json.loads(line) for line in p.read_text().splitlines()]
+
+
+def test_kill9_ici_gang_matches_host_plane(tmp_path):
+    """The kill-9 gang with gradients on each round's gloo process group
+    (``data_plane="ici"``) against the same gang on the store (an
+    uncompressed wire, as above): the same events, values within
+    VALUE_RTOL, survivors bitwise equal.  Each round's first step shows
+    the group carried the sync (``hlo``: gloo, calls counted), and the
+    last round's store carried one allreduce (the root election's score)
+    where the host plane's carried every step's."""
+    env = {"WORKER_KILL_SPAWN_ID": "2", "WORKER_KILL_AT_STEP": "13",
+           "TPUDIST_COLL_COMPRESS": "none"}
+    rc_host, host = _gang(tmp_path, 3, env, name="host", min_nprocs=2,
+                          logged=True)
+    rc_ici, ici = _gang(tmp_path, 3, {**env, "WORKER_DATA_PLANE": "ici"},
+                        name="ici", min_nprocs=2, logged=True)
+    why = _diagnosis({"host": host, "ici": ici})
+    assert rc_host == 0 and rc_ici == 0, why
+    _assert_shrunk_3_to_2(host, gang="host", why=why)
+    _assert_shrunk_3_to_2(ici, gang="ici", why=why)
+    for sid in (0, 1, 2):
+        got, want = _ref_view(_events(ici, sid)), _ref_view(_events(host, sid))
+        assert _structure(got) == _structure(want), \
+            f"ici and host gangs differ in spawn {sid}'s events\n{why}"
+        for g, w in zip(got, want):
+            for key in ("loss", "checksum", "lr"):
+                if key in w:
+                    assert g[key] == pytest.approx(w[key], rel=VALUE_RTOL), \
+                        (f"ici vs host, spawn {sid}, {w['event']} {key}", why)
+    for sid in (0, 1):
+        rounds = [e["round"] for e in _events(ici, sid)
+                  if e["event"] == "round"]
+        hlo = [e for e in _events(ici, sid) if e["event"] == "hlo"]
+        assert [e["round"] for e in hlo] == rounds, why
+        assert all(e["backend"] == "gloo" and e["calls"] >= 1 for e in hlo)
+        ici_ctl = [r for r in _loop_records(ici, sid)
+                   if r["event"] == "control_plane"][-1]
+        host_ctl = [r for r in _loop_records(host, sid)
+                    if r["event"] == "control_plane"][-1]
+        assert ici_ctl["calls"].get("allreduce") == 1, ici_ctl
+        assert ici_ctl["data_calls"]["allreduce"] == 30 - 10
+        assert host_ctl["calls"]["allreduce"] == 1 + 30 - 10, host_ctl
 
 
 def test_kill9_ring_path_with_overlap(tmp_path):
@@ -420,7 +512,7 @@ def test_horovod_example_ttl_gang_on_cpu(tmp_path):
     assert rc == 0, out
     lines = out.splitlines()
     assert sum(line.startswith("[rank ") and "epoch 1 loss" in line
-               for line in lines) == 3
+               for line in lines) == 3, out
     accuracies = {line for line in lines if line.startswith("accuracy: ")}
     assert len(accuracies) == 1, accuracies
     assert "reset:" not in out

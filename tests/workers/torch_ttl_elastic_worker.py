@@ -16,6 +16,12 @@ peer-loss records, and a ``kernel_launches`` record with this process's
 launch counts of the port's CUDA kernels (K1-K10; this path runs none),
 to ``$WORKER_OUT_DIR/loop_<spawn_id>.jsonl``.
 
+``WORKER_DATA_PLANE=ici`` syncs gradients over each round's
+``torch.distributed`` group instead (its backend from
+``TPUDIST_ICI_BACKEND``, else the device's); after a round's first step
+a worker then emits ``hlo``, the counterpart of tpudist's event of that
+name: the group's backend and the collectives counted on it this round.
+
 Extra knobs of the twin: ``WORKER_INIT_NPZ``, the MLP's initial
 ``state_dict`` (the test converts flax's init to it; without it the
 weights are drawn from a CPU generator seeded 0), and ``TPUDIST_DEVICE``
@@ -152,6 +158,7 @@ def main() -> int:
         shard = GLOBAL_BATCH // ctx.world_size
         last_loss = float("nan")
         first = True
+        hlo_emitted = False
         try:
             for step in range(state.host.batch, TOTAL_STEPS):
                 if STEP_DELAY:
@@ -177,6 +184,16 @@ def main() -> int:
                         grads, gloss = handle.wait()
                     else:
                         grads, gloss = ctx.collectives.allreduce_mean(payload)
+                if ctx.data_plane == "ici" and not hlo_emitted:
+                    # this round's gradient sync rode the group, not the
+                    # store (tpudist shows the compiled all-reduce here)
+                    import torch.distributed as dist
+
+                    emit("hlo", round=ctx.round, world=ctx.world_size,
+                         backend=str(dist.get_backend(ctx.mesh)),
+                         calls=sum(ctx.collectives.calls.values()),
+                         bytes=ctx.collectives.bytes)
+                    hlo_emitted = True
                 for n, p in params.items():
                     p.grad = grads[n].view_as(p)
                 state.state.apply_gradients()

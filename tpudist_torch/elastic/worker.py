@@ -30,17 +30,19 @@ its heartbeat makes the incumbents' next ``check()`` raise
 path and the shrink path are the same code.
 
 Devices: a worker's state lives on :func:`worker_device`'s device.
-Several workers may share one card: the gang needs no process group (the
-data plane is the store), and a card holds one NCCL rank.  Survivors
-agree bit for bit because every rank applies the same reduced bytes with
-the same optimizer kernels on the same kind of device.
+Several workers may share one card on the host plane: its gang needs no
+process group (the data plane is the store).  Survivors agree bit for bit
+because every rank applies the same reduced bytes with the same optimizer
+kernels on the same kind of device.
 
-Left for later items: ``data_plane="ici"`` (tpudist's per-round
-``jax.distributed`` world, ``runtime/ici.py``) becomes a per-round
-``torch.distributed`` process group, ROADMAP Queue A 8b; tpudist's
-flight-recorder dump of a crashed worker and its obs counters wait for
-the observability plane, A 10 — until then the round events go to
-:data:`recorded` and the counts to :data:`counters`, both plain.
+``data_plane="ici"`` (tpudist's per-round ``jax.distributed`` world,
+``runtime/ici.py``) is a per-round ``torch.distributed`` process group
+here (:mod:`tpudist_torch.runtime.ici`): NCCL on cards, gloo on the CPU,
+or gloo on cards when asked for (one card holds one NCCL rank).
+tpudist's flight-recorder dump of a crashed worker and its obs counters
+wait for the observability plane, ROADMAP Queue A 10 — until then the
+round events go to :data:`recorded` and the counts to :data:`counters`,
+both plain.
 """
 
 from __future__ import annotations
@@ -77,10 +79,6 @@ from tpudist_torch.utils.device import resolve_device
 from tpudist_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
-
-_ICI_TODO = ("data_plane='ici' (a per-round torch.distributed process group, "
-             "the counterpart of tpudist's runtime/ici.py) is not ported "
-             "yet: ROADMAP Queue A 8b")
 
 # tpudist's obs counters and flight-recorder events, kept plain: counts by
 # name, and the last round/world-change/peer-loss events with their wall
@@ -125,8 +123,9 @@ class ElasticContext:
     """Per-round handles passed to the train function.
 
     ``collectives`` is the round's DATA plane: :class:`HostCollectives`
-    (store-backed, ``data_plane="host"``; the process-group plane is
-    ROADMAP Queue A 8b).  ``mesh`` stays None on the host plane."""
+    (store-backed, ``data_plane="host"``) or :class:`~tpudist_torch.runtime.
+    ici.IciCollectives` over the round's process group (``"ici"``), which
+    is then ``mesh``; ``mesh`` stays None on the host plane."""
 
     rank: int
     world_size: int
@@ -370,6 +369,24 @@ def _next_round(client: CoordClient, round_id: int) -> int:
     return max(round_id + 1, published + 1)
 
 
+def _drop_group(ici: Any, data_coll: Any, exc: BaseException) -> None:
+    """Tear a dead round's process group down INSIDE the failure handler,
+    before the re-rendezvous (tpudist's ``_drop_ici_world`` ordering): a
+    gloo peer blocked on data that must transit this member only unblocks
+    when this member's pairs close, and a blocked NCCL kernel only when
+    the communicator is aborted; deferring it to the next ``form()``
+    would leave that peer out of the new rendezvous."""
+    if ici is None:
+        return
+    exc.__traceback__ = None  # traceback frames pin the round's buffers
+    from tpudist_torch.runtime.ici import IciCollectives
+
+    if isinstance(data_coll, IciCollectives):
+        data_coll.release()
+    ici.teardown()
+    _record("ici_teardown", seconds=ici.last_teardown_s)
+
+
 def _coord_client(coord_addr: str | None) -> CoordClient:
     addr = coord_addr or os.environ.get("TPUDIST_COORD_ADDR")
     if not addr:
@@ -392,6 +409,7 @@ def run_elastic_worker(
     rendezvous_timeout_s: float = 60.0,
     data_plane: str = "host",
     coll_config: CollectiveConfig | None = None,
+    ici_backend: str | None = None,
 ) -> ElasticState:
     """Run ``train_fn`` under TTL-heartbeat elastic supervision.
 
@@ -399,11 +417,23 @@ def run_elastic_worker(
     size.  Raises after ``max_rounds`` re-rendezvous attempts (torchrun's
     ``--max-restarts``).
 
-    ``data_plane`` selects where gradient bytes travel: ``"host"``, the
-    store-backed :class:`HostCollectives` (the reference's gloo-on-CPU
-    parity path, dynamic membership with zero backend state).  tpudist's
-    ``"ici"`` plane raises :class:`NotImplementedError` (ROADMAP Queue
-    A 8b).
+    ``data_plane`` selects where gradient bytes travel:
+
+    * ``"host"`` — the store-backed :class:`HostCollectives` (the
+      reference's gloo-on-CPU parity path, dynamic membership with zero
+      backend state);
+    * ``"ici"`` — each round forms a ``torch.distributed`` process group
+      sized to the rendezvous and ``ctx.collectives`` is an
+      :class:`~tpudist_torch.runtime.ici.IciCollectives` over it
+      (``ctx.mesh``).  The store then carries only control traffic
+      (rendezvous, the group store's address, the state broadcast at
+      round formation).  A peer dying mid-collective surfaces as a
+      classified collective failure or :class:`~tpudist_torch.runtime.ici.
+      FormationTimeout` and is handled exactly like :class:`PeerLost`.
+      The group's backend follows :func:`worker_device`: NCCL on a
+      card, gloo on the CPU; ``ici_backend`` (default
+      ``TPUDIST_ICI_BACKEND``) overrides it, and workers sharing a card
+      must ask for gloo.
 
     ``coll_config`` tunes the host collectives (algorithm / bucket_bytes /
     compression — see :class:`~tpudist_torch.runtime.collectives
@@ -411,9 +441,7 @@ def run_elastic_worker(
     environment, so launcher-spawned gangs agree on a plan without
     plumbing.
     """
-    if data_plane == "ici":
-        raise NotImplementedError(_ICI_TODO)
-    if data_plane != "host":
+    if data_plane not in ("host", "ici"):
         raise ValueError(f"unknown data_plane {data_plane!r}")
     client = _coord_client(coord_addr)
     wid = worker_id or f"w{os.getpid()}"
@@ -421,6 +449,12 @@ def run_elastic_worker(
                              interval_s=heartbeat_interval_s)
     monitor.start(None)  # beat first: liveness is membership
     rdzv = Rendezvous(client)
+    ici = None
+    if data_plane == "ici":
+        from tpudist_torch.runtime.ici import IciDataPlane
+
+        ici = IciDataPlane(client, device=worker_device(),
+                           backend=ici_backend)
     raw = client.get("elastic/round")
     round_id = 0 if raw is None else int(raw) + 1
     # soft assembly target for round 0: the launcher-declared gang size
@@ -428,12 +462,14 @@ def run_elastic_worker(
     rounds = 0
     first_round = True
 
-    def recover(new_size: int) -> tuple[int, int]:
-        """The shared WorldChanged/peer-loss recovery tail: roll back +
-        fire reset callbacks, close the round's store keys, advance the
-        round.  Returns the next ``(round_id, min_world)``.  Reads
-        ``coll``/``round_id`` late-bound so it always acts on the current
-        round."""
+    def recover(exc: BaseException, new_size: int) -> tuple[int, int]:
+        """The shared WorldChanged/peer-loss recovery tail: drop the dead
+        round's group FIRST (the ordering matters, see
+        :func:`_drop_group`), roll back + fire reset callbacks, close the
+        round's store keys, advance the round.  Returns the next
+        ``(round_id, min_world)``.  Reads ``data_coll``/``coll``/
+        ``round_id`` late-bound so it always acts on the current round."""
+        _drop_group(ici, data_coll, exc)
         state.on_world_change(new_size)
         coll.close_round()
         return _next_round(client, round_id), new_size
@@ -467,7 +503,21 @@ def run_elastic_worker(
             coll = HostCollectives(client, rank, world, round_id,
                                    on_wait=monitor.check,
                                    config=coll_config)
+            data_coll: Any = coll
             try:
+                mesh = None
+                if ici is not None:
+                    # the round's group, formed after the control plane's
+                    # collectives and before the state broadcast; a failed
+                    # formation is a membership change like any other
+                    from tpudist_torch.runtime.ici import IciCollectives
+
+                    mesh = ici.form(round_id, rank, world,
+                                    on_wait=monitor.check)
+                    _record("ici_formed", round=round_id,
+                            seconds=ici.last_form_s, backend=ici.backend)
+                    data_coll = IciCollectives(mesh, on_check=monitor.check,
+                                               device=ici.device)
                 # bitwise state agreement across the new world (the
                 # hvd.broadcast_parameters / TorchState re-broadcast role) —
                 # INCLUDING the host position: a freshly-joined worker starts
@@ -521,9 +571,21 @@ def run_elastic_worker(
                 log.info("round %d: rank %d of %d (%s)", round_id, rank,
                          world, ",".join(members))
                 train_fn(state, ElasticContext(
-                    rank, world, round_id, coll, monitor,
-                    data_plane=data_plane))
+                    rank, world, round_id, data_coll, monitor,
+                    mesh=mesh, data_plane=data_plane))
                 coll.barrier()  # all ranks finish before anyone leaves
+                # what the round's control plane carried: on the ici
+                # plane one allreduce (the root election's score), the
+                # state broadcast and barriers, never a gradient
+                _record("control_plane", round=round_id,
+                        calls=dict(coll.calls),
+                        bytes_posted=coll.bytes_posted,
+                        data_calls=dict(getattr(data_coll, "calls", {})),
+                        data_bytes=getattr(data_coll, "bytes", None))
+                if ici is not None:
+                    # the group dies with the run: tear down, wait for
+                    # every member, reap the store processes
+                    ici.finalize(rank, coll.barrier)
                 coll.close()  # stop async worker/prefetcher threads
                 return state
             except WorldChanged as e:
@@ -538,11 +600,25 @@ def run_elastic_worker(
                     "(epoch %d, batch %d)", round_id, world,
                     e.new_world_size, state.commits,
                     state._committed_host.epoch, state._committed_host.batch)
-                round_id, min_world = recover(e.new_world_size)
-            except PeerLost as e:
-                # a host-plane wait deadline fired before the TTL did: a
-                # membership change at the currently-live size; anything
-                # else is a real bug and propagates
+                mesh = None
+                round_id, min_world = recover(e, e.new_world_size)
+            except Exception as e:
+                # PeerLost: a host-plane wait deadline fired before the
+                # TTL did.  On the ici plane the same event surfaces as a
+                # failed gloo/NCCL collective or a FormationTimeout; every
+                # one of them is a membership change at the currently-live
+                # size, and anything else is a real bug and propagates
+                peerish = isinstance(e, PeerLost)
+                if not peerish and ici is not None:
+                    from tpudist_torch.runtime.ici import (
+                        FormationTimeout,
+                        is_collective_failure,
+                    )
+
+                    peerish = (isinstance(e, FormationTimeout)
+                               or is_collective_failure(e))
+                if not peerish:
+                    raise
                 counters["peer_lost"] += 1
                 _record("peer_lost", round=round_id, error=str(e)[:200])
                 rounds += 1
@@ -563,7 +639,8 @@ def run_elastic_worker(
                     live = len(client.live())
                 log.warning("round %d: %s; re-rendezvous at %d", round_id,
                             e, live)
-                round_id, min_world = recover(live)
+                mesh = None
+                round_id, min_world = recover(e, live)
     except BaseException as e:
         # tpudist dumps a post-mortem bundle here (its flight recorder,
         # ROADMAP Queue A 10); the port logs the escape and propagates
@@ -572,4 +649,10 @@ def run_elastic_worker(
                   type(e).__name__, str(e)[:200])
         raise
     finally:
+        if ici is not None:
+            try:
+                ici.teardown()  # idempotent; frees the round's group
+                ici.close()     # and the spare store process
+            except Exception:  # noqa: BLE001 - must not mask the cause
+                pass
         monitor.stop(graceful=True)

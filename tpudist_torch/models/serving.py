@@ -30,16 +30,41 @@ prompt whose leading blocks are cached ALIASES them copy-on-write and
 prefills only the rest.  Prefill stays dense, into the batch-1 cache, and
 the finish scatters that row into the slot's own pages.
 
-This slice ports the synchronous loop (``pipeline_depth=1``) with plain
-decode and the unified role.  Each tick is an eager step whose index
-arithmetic stays on the device; the loop checks once per tick whether any
-lane is still active (the early exit) and reads the segment's emits once
-per segment.  Counters are plain attributes (``stats``, ``prefix_stats``).
+The loop keeps up to ``pipeline_depth`` segments in flight (default 2,
+as in tpudist).  Each dispatch chains the device state at once; its emits
+and ``corrupt`` flags are copied device-to-host into pinned buffers by
+non-blocking copies on a side stream, after an event recorded on the
+compute stream (the twin of tpudist's ``copy_to_host_async``), and the
+host drains the OLDEST segment — waiting on that copy's event — while the
+next one computes.  Each lane carries tpudist's ``seq`` stamp (the first
+segment whose emits can hold its tokens), so a drain feeds only the lanes
+a segment carries.  At depth 1 each tick reads the lanes' ``active.any()``
+on the host for its early exit (tpudist's ``while_loop`` condition); at
+depth >= 2 a segment issues all its ticks without a host read: each tick
+copies ``active.any()`` into a pinned flag, and a tick leaves once the
+flag of the tick two before it has landed and says no lane is active (at
+most two ticks run with every lane frozen, which emit pad and merge
+nothing).  Each request's greedy tokens and finish reason are the same
+at every depth (a lane's rows are its own).  The finish ORDER is too
+unless a lane frees while requests wait: deeper, the host learns of the
+finish a segment later, so the next admission lands a segment later and
+finishes close together may swap places (tpudist's loop alike).
+Counters are plain attributes (``stats``, ``prefix_stats``).
+
+Requests may carry deadlines: a queued request past its deadline
+completes ``reason="timeout"``; a lane past it is frozen on the device and
+finalized with the tokens drained so far, and each segment's length is
+clamped against the tightest deadline by the measured seconds per token.
+With segments in flight, a killed paged lane keeps its blocks as a ZOMBIE
+until every segment dispatched before the kill has drained.
+:meth:`ServeLoop.request_swap` rebinds the weights once every lane and
+segment has drained (no request straddles two weight versions), and
+``run(source=, sink=)`` is service mode: incremental intake, completions
+streamed as they finish.
 
 Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP
-item: ``pipeline_depth`` 2, speculative decoding, the prefill/decode
-roles, preemption by migration, service mode (``source``/``sink``) and
-deadlines; the paged layout's host-RAM tier is absent (its prefix cache
+item: speculative decoding, the prefill/decode roles and preemption by
+migration; the paged layout's host-RAM tier is absent (its prefix cache
 evicts without spilling).  The overload ladder is ported: past
 ``degrade_queue`` waiting requests best-effort budgets are clamped, past
 ``max_queue`` the overflow is shed.
@@ -62,6 +87,7 @@ from tpudist_torch.models.generate import (
     _prefill,
     _stop_array,
     build_model,
+    serving_layout,
 )
 from tpudist_torch.models.kv_pages import BlockPool, PrefixCache
 from tpudist_torch.models.transformer import TransformerConfig
@@ -72,7 +98,8 @@ from tpudist_torch.utils.device import resolve_device
 class Request:
     """One serving request: a prompt and its generation budget.
     ``priority`` orders load shedding (lowest class first); ``deadline_s``
-    (absolute wall-clock seconds) is not supported by this slice.
+    is an absolute time on the loop's clock (``time.time`` unless swapped)
+    past which the request completes ``reason="timeout"``.
     ``prefix_hash`` is an opaque client-stamped hash of the prompt's shared
     prefix (:func:`tpudist_torch.models.kv_pages.request_prefix_hash`); a
     loop with prefix sharing on records the recent ones
@@ -92,7 +119,9 @@ class Completion:
     prompt: np.ndarray
     tokens: np.ndarray            # the generated tokens (stop included)
     # "stop" | "length"; "rejected" (load-shed at a full queue);
-    # "corrupt_segment" (non-finite logits or an out-of-vocab token)
+    # "timeout" (past its deadline, queued or in flight); "invalid" (a
+    # malformed request in service mode); "corrupt_segment" (non-finite
+    # logits or an out-of-vocab token)
     reason: str
 
 
@@ -109,8 +138,14 @@ class ServeStats:
     corrupt_segments: int = 0
     prompt_tokens: int = 0
     decode_tokens: int = 0        # tokens emitted by decode segments
-    prefill_seconds: float = 0.0  # prefill dispatches, device-synchronized
-    decode_seconds: float = 0.0   # segment dispatch -> emits on the host
+    prefill_seconds: float = 0.0  # prefill dispatches (synchronized at depth 1)
+    # segment dispatch -> emits drained on the host; segments in flight
+    # together overlap, so at depth >= 2 the sum exceeds the wall time
+    decode_seconds: float = 0.0
+    host_wait_seconds: float = 0.0  # blocked on a segment's emits copy
+    timeouts: int = 0
+    invalid: int = 0
+    swaps: int = 0                # weight rebinds applied
 
 
 def _index_leaves(cache: list[dict]):
@@ -143,6 +178,12 @@ class ServeLoop:
         a multiple of it (capped at ``max_seq_len``).
       stop_tokens / pad_token: EOS semantics as in ``greedy_generate``.
       temperature / top_k / top_p / generator: sampling (0 = greedy).
+      pipeline_depth: segments in flight before the host blocks on the
+        oldest one's emits (1 = the synchronous loop).  Greedy tokens
+        are the same at every depth (the finish order, see the module
+        docstring, unless lanes free while requests wait); a sampled run
+        draws a different stream at depth >= 2 (a segment's ticks past
+        its last live one still draw).
       max_queue: bound on WAITING requests; overflow is shed — lowest
         ``priority`` first, newest first within a class — as
         ``reason="rejected"`` completions.
@@ -178,7 +219,7 @@ class ServeLoop:
         top_k: Optional[int] = None,
         top_p: Optional[float] = None,
         generator: torch.Generator | None = None,
-        pipeline_depth: int = 1,
+        pipeline_depth: int = 2,
         cache_layout: str = "dense",
         kv_block_size: int = 128,
         kv_num_blocks: int | None = None,
@@ -218,10 +259,6 @@ class ServeLoop:
         if pipeline_depth < 1:
             raise ValueError(
                 f"pipeline_depth must be >= 1, got {pipeline_depth}")
-        if pipeline_depth > 1:
-            raise NotImplementedError(
-                "pipeline_depth > 1 is not ported yet (ROADMAP Queue A: "
-                "pipeline_depth 2 on a side CUDA stream)")
         if cache_layout not in ("dense", "paged"):
             raise ValueError(f"cache_layout must be 'dense' or 'paged', got "
                              f"{cache_layout!r}")
@@ -262,15 +299,20 @@ class ServeLoop:
             # table each segment stamps into the cache
             self.pool = BlockPool(nb, block, num_slots, cfg.max_seq_len)
         self.kv_block_size = block
+        # paged: one block past the allocator's range is the merge's sink
+        # for side slots that must not land (frozen lanes, dead table
+        # entries), so the merge needs no host read of which ones do
+        self._cfg_in = cfg
         self.model = build_model(cfg, params, device=device,
                                  serve_side_slots=self.side,
                                  cache_layout=cache_layout,
-                                 kv_block_size=block, kv_num_blocks=nb)
+                                 kv_block_size=block,
+                                 kv_num_blocks=nb + 1 if paged else 0)
         self.cfg = self.model.cfg
         self.device = self.model.device
         self.B = num_slots
         self.steps = steps_per_sync
-        self.pipeline_depth = 1
+        self.pipeline_depth = int(pipeline_depth)
         self.prefill_chunk = prefill_chunk
         self.pad_token = int(pad_token)
         self.chunked = bool(chunked_prefill)
@@ -316,7 +358,17 @@ class ServeLoop:
         # EMA of measured seconds per generated token (feeds _plan_steps)
         self._step_ema: float | None = None
         self._clock = time.time
+        self._pending_swap: dict | None = None
+        self.weights_version: int | None = None
         self.stats = ServeStats()
+        # depth >= 2 on a card: the side stream of the emits' copies, the
+        # pinned emits buffers (one per segment in flight, each with the
+        # event of its copy) and the pinned early-exit flags (one a tick)
+        self._copy_stream = None
+        self._ring: list[dict] = []
+        self._flags: list[tuple[torch.Tensor, Any]] = []
+        self.pinned_reuse_waits = 0   # a ring buffer reused before its copy
+        self.segment_host_reads = 0   # per-tick early-exit host reads
 
     # -- device work ---------------------------------------------------------
 
@@ -324,13 +376,36 @@ class ServeLoop:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # the early exit at depth >= 2 reads the flag of the tick this many
+    # before: the host runs ahead of the card by about a tick, so that
+    # flag has usually landed, and a late one only costs an idle tick
+    _EXIT_LAG = 2
+
+    def _exit_flag(self, i: int, active: torch.Tensor):
+        """Tick ``i``'s copy of ``active.any()``: a pinned flag written by
+        a non-blocking copy on the compute stream, with the event that
+        says it landed (on the CPU the value itself, at once)."""
+        anyone = active.any()
+        if self.device.type != "cuda":
+            return anyone, None
+        while len(self._flags) <= i:
+            self._flags.append((torch.empty((), dtype=torch.bool,
+                                            pin_memory=True),
+                                torch.cuda.Event()))
+        flag, ev = self._flags[i]
+        flag.copy_(anyone, non_blocking=True)
+        ev.record()
+        return flag, ev
+
     @torch.no_grad()
     def _segment(self, n_steps: int):
         """One multi-token segment: up to ``n_steps`` decode ticks, leaving
-        early once every lane is frozen.  Returns the ``[B, 1 + steps]``
-        emits (column 0 carries the admission-deferred first tokens,
-        columns past the ticks run are pad) and the per-lane ``corrupt``
-        flags of the in-graph NaN/inf guard."""
+        early once every lane is frozen (at depth 1 by a host read of
+        ``active.any()`` each tick; deeper, by a lagged pinned flag, see
+        the module docstring).  Returns the ``[B, 1 + steps]`` emits
+        (column 0 carries the admission-deferred first tokens, columns
+        past the ticks run are pad) and the per-lane ``corrupt`` flags of
+        the in-graph NaN/inf guard."""
         stop_arr = self._stop
         pad = self.pad_token
         S = self.cfg.max_seq_len
@@ -341,9 +416,17 @@ class ServeLoop:
         corrupt = torch.zeros((self.B,), dtype=torch.bool, device=dev)
         E = torch.full((self.B, self.steps), pad, dtype=torch.long,
                        device=dev)
+        lag = None if self.pipeline_depth == 1 else self._EXIT_LAG
+        flags = []
         for i in range(n_steps):
-            if not bool(active.any()):       # the one host sync of a tick
-                break
+            if lag is None:
+                self.segment_host_reads += 1
+                if not bool(active.any()):   # the one host sync of a tick
+                    break
+            elif i >= lag:
+                flag, ev = flags[i - lag]
+                if (ev is None or ev.query()) and not bool(flag):
+                    break
             self.stats.ticks += 1
             main_idx, side_idx = _index_leaves(cache)
             pos = main_idx if side_idx is None else main_idx + side_idx
@@ -366,6 +449,8 @@ class ServeLoop:
                         else torch.zeros_like(active))
             active = active & ~hit_stop & (remaining > 0)
             tok = torch.where(active, nxt, pad)
+            if lag is not None:
+                flags.append(self._exit_flag(i, active))
         if self.side:
             self._merge(cache, lived)
         self._tok, self._active, self._remaining = tok, active, remaining
@@ -405,13 +490,13 @@ class ServeLoop:
     def _merge_paged(self, cache: list[dict], lived: torch.Tensor) -> None:
         """End of segment, paged: row ``r``'s live side token ``t`` lands
         at logical position ``idx[r] + t``, i.e. pool block
-        ``table[r, pos // block]`` row ``pos % block``.  The scatter is
-        MASKED to live entries (``t < lived[r]`` and ``pos <
-        max_seq_len``): a frozen row's garbage side slots, or a dead table
-        entry (0, another owner's block), are never written — the JAX
-        merge drops them through an out-of-range index, which an
-        ``index_put_`` would not.  Every layer shares the indices; taking
-        them costs one host sync per segment."""
+        ``table[r, pos // block]`` row ``pos % block``.  Entries that must
+        not land (``t >= lived[r]`` or ``pos >= max_seq_len``: a frozen
+        row's garbage side slots, a dead table entry naming another
+        owner's block) are sent to the pool's sink block past the
+        allocator's range instead — the JAX merge drops them through an
+        out-of-range index, which an ``index_put_`` would not — so the
+        merge reads nothing back on the host."""
         S = self.cfg.max_seq_len
         bs = self.kv_block_size
         first = cache[0]
@@ -420,24 +505,29 @@ class ServeLoop:
         t = torch.arange(self.side, device=self.device)[None, :]
         pos = idx[:, None] + t                              # [B, cap]
         live = (t < lived[:, None]) & (pos < S)
-        rows, cols = live.nonzero(as_tuple=True)
-        at = pos[rows, cols]
-        page = tbl[rows, at // bs].long()
-        off = at % bs
+        col = (pos // bs).clamp(max=tbl.shape[1] - 1)
+        page = torch.where(live, tbl.gather(1, col).long(),
+                           self.pool.num_blocks)
+        off = torch.where(live, pos % bs, 0)
         for layer in cache:
             for name, side_name in (("paged_key", "side_key"),
                                     ("paged_value", "side_value")):
                 pool = layer[name]
-                pool[page, off] = layer[side_name][rows, cols].to(pool.dtype)
+                pool[page, off] = layer[side_name].to(pool.dtype)
             layer["cache_index"] = (idx + lived).clamp(max=S).to(torch.int32)
             layer["side_index"] = torch.zeros_like(layer["side_index"])
 
     def _stamp_table(self) -> None:
-        """Push the host allocator's page table into the cache: one device
-        copy, shared by every layer (nothing writes a layer's table in
-        place between stamps but the insert, which writes them all
-        alike)."""
-        tbl = torch.from_numpy(self.pool.table).to(self.device)
+        """Push the host allocator's page table into the cache: one
+        non-blocking copy from a pinned snapshot (a pageable one would
+        make the host wait for the card), shared by every layer (nothing
+        writes a layer's table in place between stamps but the insert,
+        which writes them all alike)."""
+        tbl = torch.from_numpy(self.pool.table)
+        if self.device.type == "cuda":
+            tbl = tbl.pin_memory().to(self.device, non_blocking=True)
+        else:
+            tbl = tbl.clone()
         for layer in self.cache:
             layer["page_table"] = tbl
 
@@ -574,11 +664,6 @@ class ServeLoop:
             raise ValueError(
                 f"request needs {prompt.size + req.max_new_tokens} cache "
                 f"slots > max_seq_len {self.cfg.max_seq_len}")
-        if req.deadline_s is not None:
-            raise NotImplementedError(
-                "request deadlines are not ported yet (ROADMAP Queue A: "
-                "pipeline_depth 2, which brings the deadline clamp's "
-                "in-flight kills)")
         if self.pool is not None:
             need = self.pool.request_blocks(prompt.size, req.max_new_tokens)
             if need > self.pool.num_blocks:
@@ -644,7 +729,10 @@ class ServeLoop:
             pages = self.pool.table[slot].copy()
         t0 = time.perf_counter()
         self._admit_oneshot(prompt, slot, max_new, pages)
-        self._sync()
+        if self.pipeline_depth == 1:
+            # device-synchronized prefill time; deeper, the admission
+            # must not wait for the segments in flight
+            self._sync()
         self.stats.prefill_seconds += time.perf_counter() - t0
         return {"req": req, "tokens": [], "pending_first": True}
 
@@ -707,7 +795,8 @@ class ServeLoop:
         if self._step_ema is None or self._step_ema <= 0:
             return self.steps
         deadlines = [st["req"].deadline_s for st in slot_state
-                     if st is not None and st["req"].deadline_s is not None]
+                     if st is not None and not st.get("zombie")
+                     and st["req"].deadline_s is not None]
         if not deadlines:
             return self.steps
         slack = min(deadlines) - self._clock()
@@ -715,28 +804,156 @@ class ServeLoop:
             return 1
         return max(1, min(self.steps, int(slack / self._step_ema)))
 
+    def request_swap(self, params_fn, *, version: int | None = None,
+                     on_swapped=None) -> None:
+        """Schedule a DRAIN-GATED weight hot-swap: admission pauses, every
+        lane already decoding runs to completion on the OLD weights, every
+        segment in flight drains, and only then is ``params_fn()`` called
+        and its tree (a state_dict or a flax tree, converted) loaded into
+        the model before admission resumes — no request straddles two
+        weight versions.  ``params_fn`` returning ``None`` (a missing
+        snapshot) keeps the old weights, but the swap still completes:
+        ``on_swapped()`` fires either way.  ``version`` (when applied)
+        becomes :attr:`weights_version`.  Callable between :meth:`run`
+        calls or during one from the ``source``/``sink`` callbacks (the
+        loop is single-threaded); the latest request wins."""
+        self._pending_swap = {"fn": params_fn, "version": version,
+                              "on_swapped": on_swapped}
+
+    def _apply_swap(self, swap: dict) -> None:
+        tree = swap["fn"]()
+        if tree is not None:
+            _, sd = serving_layout(self._cfg_in, tree)
+            self.model.load_state_dict(sd)
+            self.stats.swaps += 1
+            if swap["version"] is not None:
+                self.weights_version = int(swap["version"])
+            # cached prefix KV was computed under the old weights; the
+            # loop is drained, so every cached block returns to the pool
+            self.flush_prefix_cache()
+        if swap["on_swapped"] is not None:
+            swap["on_swapped"]()
+
+    def _fetch_start(self, seq: int, emits: torch.Tensor,
+                     corrupt: torch.Tensor):
+        """Start the segment's emits on their way to the host.  On a card
+        at depth >= 2: pinned buffer ``seq % depth`` of the ring receives
+        non-blocking copies on the side stream, after an event on the
+        compute stream; returns ``(buffers, event)``.  Otherwise the
+        values themselves (a CUDA tensor's ``.cpu()`` waits for it)."""
+        if self.device.type != "cuda" or self.pipeline_depth == 1:
+            return (emits.cpu().numpy(), corrupt.cpu().numpy()), None
+        slot = self._ring[seq % len(self._ring)]
+        if slot["event"] is not None and not slot["event"].query():
+            # the drain order makes this unreachable: the buffer's last
+            # segment drained (its event waited on) before this dispatch
+            self.pinned_reuse_waits += 1
+            slot["event"].synchronize()
+        side = self._copy_stream
+        side.wait_event(torch.cuda.current_stream(self.device)
+                        .record_event())
+        with torch.cuda.stream(side):
+            slot["emits"].copy_(emits, non_blocking=True)
+            slot["corrupt"].copy_(corrupt, non_blocking=True)
+            slot["event"] = side.record_event()
+        # the sources were made on the compute stream and are read on the
+        # side one: keep their memory out of reuse until the copies end
+        emits.record_stream(side)
+        corrupt.record_stream(side)
+        return (slot["emits"], slot["corrupt"]), slot["event"]
+
+    def _fetch_wait(self, fetched) -> tuple[np.ndarray, np.ndarray]:
+        (emits, corrupt), event = fetched
+        if event is None:
+            return emits, corrupt
+        event.synchronize()
+        return emits.numpy().copy(), corrupt.numpy().copy()
+
+    def _ready_ring(self) -> None:
+        """The pinned emits buffers of a run at depth >= 2 on a card."""
+        if self.device.type != "cuda" or self.pipeline_depth == 1:
+            return
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        shape = (self.B, 1 + self.steps)
+        while len(self._ring) < self.pipeline_depth:
+            self._ring.append({
+                "emits": torch.empty(shape, dtype=torch.long,
+                                     pin_memory=True),
+                "corrupt": torch.empty((self.B,), dtype=torch.bool,
+                                       pin_memory=True),
+                "event": None})
+        del self._ring[self.pipeline_depth:]
+
     def run(self, requests: Sequence[Request] = (), *, source=None,
-            sink=None) -> list[Completion]:
+            sink=None, idle_wait_s: float = 0.005) -> list[Completion]:
         """Serve every request to completion; returns completions in
-        FINISH order, each with its generated tokens."""
-        if source is not None or sink is not None:
-            raise NotImplementedError(
-                "service mode (source/sink) is not ported yet (ROADMAP "
-                "Queue A: speculative decoding, roles and preemption, "
-                "with the replica worker)")
+        FINISH order, each with its generated tokens.
+
+        Up to ``pipeline_depth`` segments are in flight (see the module
+        docstring); the drain applies the same stop/budget rules as the
+        synchronous loop, so each request's greedy tokens are the same at
+        any depth.
+
+        SERVICE MODE — ``source`` / ``sink`` make the batch runner a
+        long-lived replica loop:
+
+        * ``source()`` is polled once per loop iteration and returns an
+          iterable of new requests (``[]``: open but idle; the loop sleeps
+          ``idle_wait_s`` when there is nothing to do), or ``None`` to
+          CLOSE intake — the loop then drains everything and returns.
+          Requests that fail validation there complete
+          ``reason="invalid"`` instead of raising.
+        * ``sink(completion)`` fires at every finalize, rejections and
+          timeouts included; the full list is still returned.
+
+        With segments in flight, a killed paged lane (deadline, corrupt
+        token) cannot hand its blocks back at once: segments dispatched
+        before the kill still carry its pre-kill mask and pages, and a
+        recycled block would be written by their merge.  It is parked as
+        a ZOMBIE (finalized for the caller, not admittable, blocks held)
+        until the drain passes the kill point; segments dispatched after
+        the kill see the lane frozen on the device."""
         for req in requests:  # fail BEFORE any slot is touched, not mid-run
             self._validate(req)
-        pending: deque[Request] = deque(requests)
+        self._ready_ring()
+        pending: deque[Request] = deque()
         slot_state: list[dict | None] = [None] * self.B
         done: list[Completion] = []
+        # (seq, fetched emits, n_steps, t_dispatch)
+        inflight: deque[tuple] = deque()
+        seq = 0   # segments dispatched so far == index of the next one
+        closed = source is None
         stats = self.stats
+        synced = self.pipeline_depth == 1
+
+        def emit(comp: Completion) -> None:
+            done.append(comp)
+            if sink is not None:
+                sink(comp)
 
         def complete_unadmitted(req: Request, reason: str) -> None:
             if reason == "rejected":
                 stats.rejected += 1
-            done.append(Completion(
+            elif reason == "timeout":
+                stats.timeouts += 1
+            elif reason == "invalid":
+                stats.invalid += 1
+            emit(Completion(
                 rid=req.rid, prompt=np.asarray(req.prompt),
                 tokens=np.zeros((0,), np.int32), reason=reason))
+
+        def intake(batch, strict: bool) -> None:
+            """Queue new requests; in service mode (``strict=False``) a
+            request that fails validation completes ``"invalid"``."""
+            for req in batch:
+                if not strict:
+                    try:
+                        self._validate(req)
+                    except ValueError:
+                        complete_unadmitted(req, "invalid")
+                        continue
+                pending.append(req)
 
         def shed() -> None:
             """Overload ladder.  Past the soft ``degrade_queue`` watermark
@@ -755,20 +972,70 @@ class ServeLoop:
                 del pending[victim]
                 complete_unadmitted(req, "rejected")
 
-        def finalize(slot: int, reason: str) -> None:
+        def finalize(slot: int, reason: str, *,
+                     free_pool: bool = True) -> None:
             st = slot_state[slot]
-            done.append(Completion(
+            emit(Completion(
                 rid=st["req"].rid, prompt=np.asarray(st["req"].prompt),
                 tokens=np.asarray(st["tokens"], np.int32), reason=reason))
             stats.tokens += len(st["tokens"])
             slot_state[slot] = None
-            if self.pool is not None:
+            if self.pool is not None and free_pool:
                 # free-on-finalize: blocks and the unused reservation
                 # return now (the lane is frozen on the device, and the
-                # merge is masked by `lived`, so nothing writes them)
+                # merge sinks its side slots, so nothing writes them)
                 self.pool.free_slot(slot)
 
+        def kill(slot: int, reason: str) -> None:
+            """A host-side kill (deadline, corrupt token): freeze the lane
+            on the device and finalize it; a paged lane with segments in
+            flight parks as a zombie until they drain."""
+            self._active[slot] = False
+            if self.pool is not None and inflight \
+                    and "prefill" not in slot_state[slot]:
+                finalize(slot, reason, free_pool=False)
+                slot_state[slot] = {"zombie": True, "free_at": seq}
+            else:
+                # mid-prefill the lane was never active, so no segment
+                # merges for it and its chunks wrote only the transient
+                # batch-1 cache: the refund is safe now
+                finalize(slot, reason)
+
+        def expire_inflight() -> None:
+            """Kill lanes whose deadline passed, with the tokens drained
+            so far."""
+            now = None
+            for slot in range(self.B):
+                st = slot_state[slot]
+                if (st is None or st.get("zombie")
+                        or st["req"].deadline_s is None):
+                    continue
+                if now is None:
+                    now = self._clock()
+                if now > st["req"].deadline_s:
+                    stats.timeouts += 1
+                    kill(slot, "timeout")
+
         def admit_free() -> None:
+            """Expire queued deadlines, then fill free lanes from the
+            queue (none while a swap waits); a one-shot admission's tokens
+            first surface in the NEXT dispatched segment (index ``seq``),
+            so its drain is gated on that stamp."""
+            nonlocal pending
+            if pending:
+                now = None
+                kept: deque[Request] = deque()
+                for req in pending:
+                    if req.deadline_s is not None:
+                        if now is None:
+                            now = self._clock()
+                        if now > req.deadline_s:
+                            complete_unadmitted(req, "timeout")
+                            continue
+                    kept.append(req)
+                pending = kept
+            if self._pending_swap is not None:
+                return  # the swap barrier: no admissions until it lands
             for slot in range(self.B):
                 if slot_state[slot] is None and pending:
                     if self.pool is not None and not self._fits(pending[0]):
@@ -785,7 +1052,10 @@ class ServeLoop:
                         req = dataclasses.replace(
                             req, max_new_tokens=self.degrade_max_new)
                         stats.degrade_clamped += 1
-                    slot_state[slot] = self._admit(slot, req)
+                    st = self._admit(slot, req)
+                    if "prefill" not in st:
+                        st["seq"] = seq
+                    slot_state[slot] = st
                     stats.requests += 1
 
         def drain(slot: int, emit_row) -> None:
@@ -804,8 +1074,7 @@ class ServeLoop:
                     # an id outside the vocab can only come from scrambled
                     # device memory or a bad transfer
                     stats.corrupt_segments += 1
-                    self._active[slot] = False
-                    finalize(slot, "corrupt_segment")
+                    kill(slot, "corrupt_segment")
                     return
                 st["tokens"].append(t)
                 if j > 0 or not first_col:
@@ -820,7 +1089,8 @@ class ServeLoop:
         def advance_admissions() -> None:
             """Chunked prefill: advance every prefilling lane by ONE prompt
             chunk; when its worklist is empty, finish it (insert + first
-            token + lane stamps) so it joins the next segment."""
+            token + lane stamps) so it joins the next segment, its drain
+            gated on that segment's index."""
             t0 = time.perf_counter()
             worked = False
             for slot in range(self.B):
@@ -844,40 +1114,78 @@ class ServeLoop:
                         pf["padded"][0, :pf["L"]],
                         self.pool._slot_blocks[slot])
                 del st["prefill"]
+                st["seq"] = seq
             if worked:
-                self._sync()
+                if synced:
+                    self._sync()
                 stats.prefill_seconds += time.perf_counter() - t0
 
-        def decoding() -> bool:
-            """Lanes a segment could advance (prefill-phase lanes are
-            inactive on the device until their finish)."""
-            return any(st is not None and "prefill" not in st
-                       for st in slot_state)
+        def busy_decode() -> bool:
+            """Lanes a segment could advance (zombies and prefill-phase
+            lanes, inactive on the device, excluded)."""
+            return any(st is not None and not st.get("zombie")
+                       and "prefill" not in st for st in slot_state)
 
-        def dispatch_and_drain() -> None:
+        def can_work() -> bool:
+            """Decode work a dispatch could advance.  A queued request
+            alone also counts (an empty segment, as the JAX loop runs
+            while lanes are still prefilling, and the drain that refunds a
+            zombie's blocks), except behind a swap barrier, which keeps it
+            out of every lane."""
+            return busy_decode() or (bool(pending)
+                                     and self._pending_swap is None)
+
+        def maybe_swap() -> None:
+            """Apply a pending swap once nothing is in flight and no lane
+            is occupied (zombies included)."""
+            if (self._pending_swap is None or inflight
+                    or any(st is not None for st in slot_state)):
+                return
+            swap, self._pending_swap = self._pending_swap, None
+            self._apply_swap(swap)
+            admit_free()   # the barrier is down; refill lanes now
+            shed()
+
+        def dispatch() -> None:
+            """Chain one more segment on the device and start its emits'
+            copy to the host; no host wait at depth >= 2."""
+            nonlocal seq
             n = self._plan_steps(slot_state)
             if self.pool is not None:
                 # grow-on-decode-boundary: every decoding lane's pages
                 # cover the segment's worst case (drawn from its admit-time
-                # reservation, so this cannot fail); prefilling lanes do
-                # not grow.  Then the table goes to the device.
+                # reservation, so this cannot fail); prefilling lanes and
+                # zombies do not grow.  Then the table goes to the device.
                 for slot, st in enumerate(slot_state):
-                    if st is not None and "prefill" not in st:
+                    if (st is not None and not st.get("zombie")
+                            and "prefill" not in st):
                         self.pool.grow(slot, n)
                 self._stamp_table()
             t0 = time.perf_counter()
             emits_dev, corrupt_dev = self._segment(n)
-            emits = emits_dev.cpu().numpy()
-            corrupt = corrupt_dev.cpu().numpy()
-            dt = time.perf_counter() - t0
+            inflight.append((seq, self._fetch_start(seq, emits_dev,
+                                                    corrupt_dev), n, t0))
+            seq += 1
             stats.segments += 1
+
+        def drain_oldest() -> None:
+            """Resolve the oldest segment in flight: wait for its copy,
+            then feed every lane whose stamp says this segment carries its
+            tokens, and refund the zombies it was the last to hold."""
+            s_idx, fetched, n, t_disp = inflight.popleft()
+            t0 = time.perf_counter()
+            emits, corrupt = self._fetch_wait(fetched)
+            now = time.perf_counter()
+            stats.host_wait_seconds += now - t0
+            dt = now - t_disp
             stats.decode_seconds += dt
             per = dt / n
             self._step_ema = (per if self._step_ema is None
                               else 0.7 * self._step_ema + 0.3 * per)
             for slot in range(self.B):
                 st = slot_state[slot]
-                if st is None or "prefill" in st:
+                if (st is None or st.get("zombie") or "seq" not in st
+                        or st["seq"] > s_idx):
                     continue
                 if corrupt[slot]:
                     # the guard froze this lane before emitting anything
@@ -887,18 +1195,43 @@ class ServeLoop:
                     finalize(slot, "corrupt_segment")
                 else:
                     drain(slot, emits[slot, :1 + n])
+            # every segment dispatched before a kill (index < free_at) has
+            # drained once s_idx reaches free_at - 1
+            for slot in range(self.B):
+                st = slot_state[slot]
+                if (st is not None and st.get("zombie")
+                        and s_idx >= st["free_at"] - 1):
+                    self.pool.free_slot(slot)
+                    slot_state[slot] = None
 
+        intake(requests, strict=True)
         admit_free()
         shed()
         while True:
+            if not closed:
+                batch = source()
+                if batch is None:
+                    closed = True
+                elif batch:
+                    intake(batch, strict=False)
+                    admit_free()
+                    shed()
+            expire_inflight()
             advance_admissions()
-            # a queued request alone also dispatches (an empty segment), as
-            # the JAX loop does while lanes are still prefilling
-            if decoding() or pending:
-                dispatch_and_drain()
+            if can_work():
+                dispatch()
+            # drain when the pipeline is full, or when nothing is left to
+            # dispatch and only drains remain
+            while inflight and (len(inflight) >= self.pipeline_depth
+                                or not can_work()):
+                drain_oldest()
                 admit_free()
-            if not (pending or any(st is not None for st in slot_state)):
-                break
+            maybe_swap()
+            if not (pending or inflight
+                    or any(st is not None for st in slot_state)):
+                if closed:
+                    break
+                time.sleep(idle_wait_s)
         # the queue drained on the way out: an idle loop is not degraded
         self._degraded = False
         return done

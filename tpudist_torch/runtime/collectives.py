@@ -762,9 +762,9 @@ class HostCollectives:
         cross-host phases still surfaces within one ``timeout_s``.
       config: algorithm/fusion/compression knobs; defaults to
         :meth:`CollectiveConfig.from_env`.
-      intra: optional intra-host plane for ``algorithm="hier"`` (tpudist's
-        is ``IciIntraHost`` over the host's ICI mesh; the port's process-
-        group plane is ROADMAP Queue A 8b).  Must expose ``local_world`` / ``local_index`` /
+      intra: optional intra-host plane for ``algorithm="hier"``
+        (:class:`~tpudist_torch.runtime.ici.IciIntraHost` over the host's
+        process group).  Must expose ``local_world`` / ``local_index`` /
         ``bounds(n)`` / ``reduce_scatter(vec)`` / ``all_gather(shard,
         n)`` and span exactly this rank's host group (``local_world ==
         world // config.hosts``).  When absent, the intra phases ride
