@@ -217,7 +217,21 @@ Phases, each printing one JSON line and each fatal on failure:
    (within 1e-4), survivors bitwise equal, calls counted on each round's
    group and one allreduce a round on the store; detection and recovery
    seconds; then one process through 3 world-1 NCCL rounds (form,
-   allreduce, abort), each right, no group left.
+   allreduce, abort), each right, no group left;
+39. spec_parity (after serve_pipelined) — speculative serving exact in f32:
+   the parity model with bench.py's draft (random, a 1,024 window) and
+   with itself as draft, num_draft 4 and adaptive (2, 4), dense (K2) and
+   paged (K5), depths 1 and 2, equal to the plain loop; K2/K5 launches
+   exactly the verify queries x layers plus the draft's steps; pools
+   drained; speculative_generate equal to greedy_generate (K1, K2);
+40. spec_serve — serve_pipelined's decode-bound mix on the bf16 model,
+   plain and num_draft 4 with each draft: ms a round, decode tokens/s,
+   acceptance, rounds, K1/K2, agreement with plain;
+41. serve_roles — serve_paged's mix on the bf16 model: prefill-role
+   handoffs adopted by a decode-role loop (equal to the unified loop, no
+   fallback), a corrupted chain falling back exactly, priority preemption
+   with every lane busy (exact, preempted == resumed >= 1), an
+   evacuation adopted by a peer; handoff bytes and ms.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -241,6 +255,23 @@ BF16_FLOPS = 989e12
 # serve_pipelined's decode-bound mix: 4 lanes of 300-token prompts, 256 new
 # tokens each, segments of 32 ticks (the serve cell's slots and segment)
 SERVE_PIPE = {"slots": 4, "steps": 32, "prompt": 300, "new": 256}
+# the serve model's widths (vocab, heads, KV heads, embed, context) and the
+# draft of bench.py's speculative cell (1 layer, 1 head, embed 128, a
+# 1,024-token window); the spec and role phases read them
+SERVE_WIDTH = {"vocab_size": 32000, "num_heads": 8, "num_kv_heads": 2,
+               "embed_dim": 512, "max_seq_len": 8192}
+SPEC_DRAFT = {"num_layers": 1, "num_heads": 1, "num_kv_heads": 1,
+              "embed_dim": 128, "attention_window": 1024}
+# spec_parity: the parity phase's requests, plus a speculative_generate
+# batch of 2 x 300 prompt tokens, 24 new each
+SPEC_PARITY = {"lens": [1100, 37, 600, 513], "new": 24, "gen_prompt": 300,
+               "gen_new": 24, "block": 16}
+# serve_roles: serve_paged's mix (block 128, a 72-block pool), segments of
+# 32; a priority-1 arrival of 512 + 64 tokens at the preemption's 3rd poll,
+# an evacuation at the 6th
+SERVE_ROLES = {"lens": [1024, 2048, 512, 1024, 512, 2048], "new": 256,
+               "block": 128, "slots": 4, "steps": 32, "vip": (512, 64),
+               "vip_at": 3, "evacuate_at": 6}
 # host seconds idled at each end of a decode kernel's profile window, so
 # that a device clock running apart from the host's cuts no call off it
 PROFILE_PAD_S = 0.05
@@ -1085,6 +1116,547 @@ def phase_serve_pipelined(torch, dev, seed):
           "swap": {"depth": 2, "events": events, "exact": True}})
     return {f"{layout}_depth{depth}": arms[f"{layout}_depth{depth}"][
         "launches"] for layout in ("dense", "paged") for depth in (1, 2)}
+
+
+def serve_config(torch, layers: int, dtype, **extra):
+    from tpudist_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(**{**SERVE_WIDTH, **extra}, num_layers=layers,
+                             compute_dtype=dtype)
+
+
+def spec_draft_config(torch, dtype):
+    return serve_config(torch, SPEC_DRAFT["num_layers"], dtype,
+                        **{k: v for k, v in SPEC_DRAFT.items()
+                           if k != "num_layers"})
+
+
+def spec_expected(st, layout, cfg, dcfg) -> dict:
+    """The decode kernels' launches a speculative ServeLoop run must make:
+    the target's verify chunks (K+1 one-query calls a round and layer) on
+    K2 (dense) or K5 (paged), and the draft's steps on K2 unless its
+    window sends them to the banded mask."""
+    steps = st.spec_draft_steps
+    draft = steps * dcfg.num_layers if dcfg.attention_window is None else 0
+    target = steps * cfg.num_layers
+    if layout == "paged":
+        return {"K2": draft, "K5": target}
+    return {"K2": target + draft, "K5": 0}
+
+
+def spec_kernel_checks(torch, dev, seed) -> dict:
+    """K1, K2 and K5 against their plain versions at the shapes the
+    speculative paths give them, in bf16 and f32, at the serve model's
+    widths (H=8, Hkv=2, D=64, the packed 8k cache).  K1: a K+1 = 5-query
+    verify chunk of 2 rows at q_offset 300 (speculative_generate's first
+    round).  K2: the unwindowed draft's one-query step at per-row lengths
+    with no side buffer.  K2 and K5 (block 16 and 128): a 5-query verify
+    chunk of 4 rows at per-row lengths over a side buffer of
+    steps + K_max slots (12 as in spec_parity, 36 as in spec_serve) at the
+    side lengths of a segment's first, a middle and its last round; query
+    j sees the side's first side_len - (4 - j) positions.  Every query's
+    O must agree within O_ATOL/O_RTOL and, where the wrapper returns it,
+    its LSE within LSE_ATOL; the multi-query wrapper's output must equal
+    its one-query calls (and K5 equal K2 over the gathered view) bit for
+    bit.  Returns the worst errors by kernel."""
+    from tpudist_torch.ops import flash_attention as fa
+    from tpudist_torch.ops import flash_decode as fd
+
+    g = torch.Generator(device=dev).manual_seed(seed + 23)
+    H, HKV, D, S, K = 8, 2, 64, 8192, 4
+    F_ = HKV * D
+    lens = torch.tensor([1100, 37, 556, 300], dtype=torch.int32, device=dev)
+    B = lens.numel()
+    worst = {k: {"max_abs_err": 0.0, "tol_ratio": 0.0, "lse_err": 0.0}
+             for k in ("K1", "K2", "K5")}
+    cases = []
+
+    def note(kernel, case, o, po, lse=None, plse=None):
+        if lse is None:
+            diff = (o.float() - po.float()).abs()
+            err_o, err_l = diff.max().item(), 0.0
+            ratio = (diff / (O_ATOL + O_RTOL * po.float().abs())).max().item()
+        else:
+            err_o, err_l, ratio = compare(o, lse, po, plse)
+        check(ratio <= 1.0 and err_l <= LSE_ATOL,
+              f"spec_parity: {kernel} disagrees with its plain version at "
+              f"{case}: O {err_o} (ratio to limit {ratio}) LSE {err_l}")
+        w = worst[kernel]
+        w.update(max_abs_err=max(w["max_abs_err"], err_o),
+                 tol_ratio=max(w["tol_ratio"], ratio),
+                 lse_err=max(w["lse_err"], err_l))
+        cases.append(kernel + " " + case)
+
+    for dt in (torch.bfloat16, torch.float32):
+        tag = str(dt).split(".")[-1]
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+        kc, vc = rnd(B, S, F_), rnd(B, S, F_)
+        k4, v4 = kc[:2].view(2, S, HKV, D), vc[:2].view(2, S, HKV, D)
+        q = rnd(2, K + 1, H, D)
+        off = torch.tensor(300, dtype=torch.int32, device=dev)
+        o, lse = fa._flash_forward(q, k4, v4, True, q_offset=off)
+        po, plse = fa._flash_forward_plain(q, k4, v4, True, q_offset=off)
+        note("K1", f"{tag} [2,5,8,64] q_offset 300", o, po, lse, plse)
+        q1 = rnd(B, 1, H, D)
+        o, lse = fd.flash_decode(q1, kc, vc, lens, packed_kv_heads=HKV,
+                                 return_lse=True)
+        po, plse = fd.flash_decode_plain(q1, kc, vc, lens,
+                                         packed_kv_heads=HKV, return_lse=True)
+        note("K2", f"{tag} draft step, per-row lengths, no side", o, po,
+             lse, plse)
+        pools = {}
+        for bs in (16, 128):
+            m = S // bs
+            table = torch.randperm(B * m, generator=g, device=dev).to(
+                torch.int32).view(B, m)
+            kp = torch.empty(B * m, bs, F_, dtype=dt, device=dev)
+            vp = torch.empty_like(kp)
+            # the pool holds the dense cache's rows at the table's blocks,
+            # so K5 must give K2's bits
+            kp[table.view(-1).long()] = kc.view(B * m, bs, F_)
+            vp[table.view(-1).long()] = vc.view(B * m, bs, F_)
+            pools[bs] = (kp, vp, table)
+        q = rnd(B, K + 1, H, D)
+        for cap, side_lens in ((12, (5, 12)), (36, (5, 20, 36))):
+            sk, sv = rnd(B, cap, F_), rnd(B, cap, F_)
+            for n in side_lens:
+                sl = torch.tensor(n, dtype=torch.int32, device=dev)
+                kw = dict(side_k=sk, side_v=sv, packed_kv_heads=HKV)
+                case = f"{tag} verify chunk, side {n} of {cap}"
+                multi = fd.flash_decode(q, kc, vc, lens, side_len=sl, **kw)
+                ones = []
+                for j in range(K + 1):
+                    at = sl - (K - j)
+                    o, lse = fd.flash_decode(q[:, j:j + 1], kc, vc, lens,
+                                             side_len=at, return_lse=True,
+                                             **kw)
+                    po, plse = fd.flash_decode_plain(
+                        q[:, j:j + 1], kc, vc, lens, side_len=at,
+                        return_lse=True, **kw)
+                    note("K2", f"{case}, query {j}", o, po, lse, plse)
+                    ones.append(o)
+                check(torch.equal(multi, torch.cat(ones, 1)),
+                      f"spec_parity: K2's multi-query call differs from its "
+                      f"one-query calls ({case})")
+                for bs, (kp, vp, table) in pools.items():
+                    paged = fd.paged_flash_decode(q, kp, vp, table, lens,
+                                                  side_len=sl, **kw)
+                    for j in range(K + 1):
+                        po = fd.paged_flash_decode_plain(
+                            q[:, j:j + 1], kp, vp, table, lens,
+                            side_len=sl - (K - j), **kw)
+                        note("K5", f"{case}, block {bs}, query {j}",
+                             paged[:, j:j + 1], po)
+                    check(torch.equal(paged, multi),
+                          f"spec_parity: K5 (block {bs}) differs from K2 "
+                          f"over the same cache ({case})")
+        del kc, vc, pools
+    torch.cuda.empty_cache()
+    return {"cases": len(cases), "worst": worst}
+
+
+def phase_spec_parity(torch, dev, seed):
+    """Speculative decoding exact in f32 on the card: the parity phase's
+    full-width 2-layer model (TF32 off) with two drafts, bench.py's
+    speculative draft (random weights, a 1,024 window: its steps take the
+    banded mask) and the target itself (its steps take K2).  Greedy
+    speculative ServeLoops with num_draft 4 and "adaptive" (ladder 2, 4),
+    dense and paged (block 16, K5), at depths 1 and 2: every completion
+    equal to the plain loop's, each run's K2/K5 launches exactly the
+    target's verify queries x layers plus the draft's steps, every pool
+    drained; speculative_generate (K1 verify chunks, K2 draft steps, the
+    window passed to the kernel) equal to greedy_generate.  First, the
+    kernels at these paths' shapes against their plain versions
+    (spec_kernel_checks).  Returns (the runs' launches, those checks)."""
+    import numpy as np
+
+    from tpudist_torch.models.generate import greedy_generate
+    from tpudist_torch.models.serving import Request, ServeLoop
+    from tpudist_torch.models.speculative import speculative_generate
+
+    t_start = time.perf_counter()
+    kernel_checks = spec_kernel_checks(torch, dev, seed)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    P = SPEC_PARITY
+    cfg = serve_config(torch, 2, torch.float32)
+    sd = random_model(torch, cfg, dev, seed).state_dict()
+    dcfg = spec_draft_config(torch, torch.float32)
+    drafts = {"bench_draft": (dcfg, random_model(torch, dcfg, dev,
+                                                 seed + 21).state_dict()),
+              "self": (cfg, sd)}
+    rng = np.random.default_rng(seed)
+    v = cfg.vocab_size
+    reqs = [Request(rng.integers(0, v, n).astype(np.int32), P["new"], rid=i)
+            for i, n in enumerate(P["lens"])]
+    layouts = {"dense": {}, "paged": {"cache_layout": "paged",
+                                      "kv_block_size": P["block"]}}
+    base = dict(num_slots=2, steps_per_sync=8, prefill_chunk=512,
+                device=dev)
+    want = {layout: sorted(_sig(ServeLoop(cfg, sd, pipeline_depth=1,
+                                          **base, **kw).run(reqs)))
+            for layout, kw in layouts.items()}
+    check(want["dense"] == want["paged"],
+          "spec_parity: plain dense and paged completions differ")
+    runs, totals = {}, {"K1": 0, "K2": 0, "K5": 0}
+    for dname, (dc, dp) in drafts.items():
+        for layout, kw in layouts.items():
+            for kname, ks in (("k4", {"num_draft": 4}),
+                              ("adaptive", {"num_draft": "adaptive",
+                                            "spec_ladder": (2, 4)})):
+                for depth in (1, 2):
+                    name = f"{dname}_{layout}_{kname}_depth{depth}"
+                    loop = ServeLoop(cfg, sd, pipeline_depth=depth,
+                                     decode_mode="speculative", draft_cfg=dc,
+                                     draft_params=dp, **base, **kw, **ks)
+                    reset_launches()
+                    comps = loop.run(reqs)
+                    torch.cuda.synchronize()
+                    launches = read_launches()
+                    st = loop.stats
+                    check(sorted(_sig(comps)) == want[layout],
+                          f"spec_parity: {name} differs from plain serving")
+                    expect = spec_expected(st, layout, cfg, dc)
+                    check(launches["K1"] > 0
+                          and all(launches[k] == n
+                                  for k, n in expect.items()),
+                          f"spec_parity: {name} launches {launches}, "
+                          f"expected {expect} ({st.spec_draft_steps} "
+                          "draft steps)")
+                    if loop.pool is not None:
+                        loop.pool.check()
+                        check(loop.pool.free_blocks == loop.pool.num_blocks,
+                              f"spec_parity: {name}: pool not drained")
+                    for k in totals:
+                        totals[k] += launches[k]
+                    runs[name] = {
+                        "rounds": st.spec_rounds,
+                        "draft_steps": st.spec_draft_steps,
+                        "acceptance": st.spec_accepted / max(
+                            st.spec_row_rounds * st.spec_k, 1),
+                        "last_k": st.spec_k, "launches": launches}
+                    del loop
+    prompt = rng.integers(0, v, (2, P["gen_prompt"])).astype(np.int32)
+    greedy = greedy_generate(cfg, sd, prompt, P["gen_new"],
+                             prefill_chunk=512, device=dev).cpu()
+    gen = {}
+    for dname, (dc, dp) in drafts.items():
+        reset_launches()
+        toks, st = speculative_generate(cfg, sd, dc, dp, prompt,
+                                        P["gen_new"], num_draft=4,
+                                        prefill_chunk=512, return_stats=True,
+                                        device=dev)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(torch.equal(toks.cpu(), greedy),
+              f"spec_parity: speculative_generate ({dname}) differs from "
+              "greedy_generate")
+        steps = st["rounds"] * 5
+        chunks = -(-P["gen_prompt"] // 512)
+        want_k1 = (chunks + st["rounds"]) * cfg.num_layers \
+            + chunks * dc.num_layers
+        check(launches["K2"] == steps * dc.num_layers
+              and launches["K1"] == want_k1,
+              f"spec_parity: speculative_generate ({dname}) launches "
+              f"{launches}, expected K1 {want_k1}, K2 "
+              f"{steps * dc.num_layers}")
+        for k in totals:
+            totals[k] += launches[k]
+        gen[dname] = {**st, "launches": launches}
+    torch.cuda.empty_cache()
+    emit({"phase": "spec_parity", "exact": True, "requests": len(reqs),
+          "tokens_each": P["new"], "kernel_checks": kernel_checks,
+          "runs": runs, "speculative_generate": gen, "launches": totals,
+          "seconds": time.perf_counter() - t_start})
+    return totals, kernel_checks["worst"]
+
+
+def phase_spec_serve(torch, dev, seed):
+    """Speculative serving of the bf16 serve model on serve_pipelined's
+    decode-bound mix (SERVE_PIPE: 4 x 300 prompt tokens, 256 new, 4 slots,
+    segments of 32, depth 1): plain, then num_draft 4 with bench.py's
+    draft (random weights) and with the target as its own draft, in one
+    run.  For each: ms a round (a tick for plain), decode tokens/s,
+    acceptance, rounds, the host reads (one a round plus one a segment),
+    the K1/K2 launches (K2 exactly the verify queries
+    x layers plus the unwindowed draft's steps) and the share of tokens
+    equal to the plain loop's at the same position (bf16 near-ties may
+    flip between the verify chunk and the decode step: reported, not
+    held; spec_parity holds exactness)."""
+    import numpy as np
+
+    from tpudist_torch.models.serving import Request, ServeLoop, ServeStats
+
+    t_start = time.perf_counter()
+    sp = SERVE_PIPE
+    cfg = serve_config(torch, 8, torch.bfloat16)
+    sd = random_model(torch, cfg, dev, seed + 1).state_dict()
+    dcfg = spec_draft_config(torch, torch.bfloat16)
+    drafts = {"bench_draft": (dcfg, random_model(torch, dcfg, dev,
+                                                 seed + 22).state_dict()),
+              "self": (cfg, sd)}
+    rng = np.random.default_rng(seed + 31)
+    v = cfg.vocab_size
+    reqs = [Request(rng.integers(0, v, sp["prompt"]).astype(np.int32),
+                    sp["new"], rid=f"d{i}") for i in range(sp["slots"])]
+    warm = [Request(rng.integers(0, v, sp["prompt"]).astype(np.int32), 8)]
+    arms, plain = {}, None
+    for name in ("plain", *drafts):
+        kw = {}
+        if name != "plain":
+            dc, dp = drafts[name]
+            kw = dict(decode_mode="speculative", draft_cfg=dc,
+                      draft_params=dp, num_draft=4)
+        loop = ServeLoop(cfg, sd, num_slots=sp["slots"],
+                         steps_per_sync=sp["steps"], prefill_chunk=512,
+                         pipeline_depth=1, device=dev, **kw)
+        loop.run(warm)
+        loop.stats = ServeStats()
+        torch.cuda.synchronize()
+        reads = loop.spec_host_reads
+        reset_launches()
+        t0 = time.perf_counter()
+        comps = loop.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        st = loop.stats
+        reads = loop.spec_host_reads - reads
+        toks = {c.rid: c.tokens for c in comps}
+        check(all(c.reason == "length" and c.tokens.shape == (sp["new"],)
+                  for c in comps), f"spec_serve: {name}: bad completions")
+        arm = {"wall_s": wall, "decode_s": st.decode_seconds,
+               "decode_tokens": st.decode_tokens,
+               "decode_tokens_per_s": st.decode_tokens / st.decode_seconds,
+               "segments": st.segments,
+               "launches": {k: launches[k] for k in ("K1", "K2", "K5")}}
+        if name == "plain":
+            plain = toks
+            arm.update({"ticks": st.ticks,
+                        "ms_per_tick": st.decode_seconds / st.ticks * 1e3})
+        else:
+            expect = spec_expected(st, "dense", cfg, drafts[name][0])
+            check(launches["K2"] == expect["K2"] and launches["K1"] > 0
+                  and launches["K5"] == 0,
+                  f"spec_serve: {name} launches {launches}, expected "
+                  f"{expect}")
+            # one host read a round, and the one that ends each segment
+            check(reads == st.spec_rounds + st.segments,
+                  f"spec_serve: {name}: {reads} host reads for "
+                  f"{st.spec_rounds} rounds in {st.segments} segments")
+            same = sum(int((toks[r] == plain[r]).sum()) for r in plain)
+            arm.update({
+                "rounds": st.spec_rounds, "host_reads": reads,
+                "ms_per_round": st.decode_seconds / st.spec_rounds * 1e3,
+                "tokens_per_round": st.decode_tokens / st.spec_rounds,
+                "acceptance": st.spec_accepted / max(
+                    st.spec_row_rounds * 4, 1),
+                "draft_steps": st.spec_draft_steps,
+                "agreement_with_plain": same / (len(plain) * sp["new"])})
+        arms[name] = arm
+        del loop
+        torch.cuda.empty_cache()
+    emit({"phase": "spec_serve", "mix": sp, "num_draft": 4, **arms,
+          "seconds": time.perf_counter() - t_start})
+    return {k: sum(a["launches"][k] for a in arms.values())
+            for k in ("K1", "K2", "K5")}
+
+
+def _timed_method(torch, loop, name: str, samples: list) -> None:
+    """Wrap ``loop.<name>`` to record its device-synchronized seconds."""
+    orig = getattr(loop, name)
+
+    def wrapped(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+        return out
+
+    setattr(loop, name, wrapped)
+
+
+def _payload_bytes(payload) -> int:
+    return sum(int(t.numel() * t.element_size()) if hasattr(t, "numel")
+               else int(t.nbytes)
+               for layer in payload["layers"] for t in layer.values())
+
+
+def phase_serve_roles(torch, dev, seed):
+    """The prefill/decode roles and live migration on the bf16 serve model
+    with serve_paged's mix (SERVE_ROLES: block 128, a 72-block pool, 4
+    slots, segments of 32, 256 new tokens, the port's default depth 2):
+    (a) a prefill-role loop's handoffs adopted by a decode-role loop give
+    the unified loop's tokens, every handoff adopted (no fallback), both
+    pools drained; (b) one payload with a corrupted hash chain falls back
+    to a prefill, exactly; (c) preempt="migrate" with every lane busy and
+    a priority-1 arrival: every completion equal to the uninterrupted
+    run's, preempted >= 1, resumed == preempted, the pool drained; (d) an
+    evacuation in service mode adopted by a second loop, exactly.  The
+    handoff's bytes, its export and adoption ms (device-synchronized) and
+    the launches."""
+    import numpy as np
+
+    from tpudist_torch.models.kv_pages import blocks_for
+    from tpudist_torch.models.serving import Request, ServeLoop
+
+    t_start = time.perf_counter()
+    R = SERVE_ROLES
+    cfg = serve_config(torch, 8, torch.bfloat16)
+    sd = random_model(torch, cfg, dev, seed + 7).state_dict()
+    rng = np.random.default_rng(seed + 7)
+    v = cfg.vocab_size
+    reqs = [Request(rng.integers(0, v, n).astype(np.int32), R["new"], rid=i)
+            for i, n in enumerate(R["lens"])]
+    kw = dict(num_slots=R["slots"], steps_per_sync=R["steps"],
+              prefill_chunk=512, cache_layout="paged",
+              kv_block_size=R["block"],
+              kv_num_blocks=R["slots"] * blocks_for(
+                  max(R["lens"]) + R["new"], R["block"]), device=dev)
+
+    def drained(loop, what):
+        loop.pool.check()
+        loop.flush_prefix_cache()
+        check(loop.pool.free_blocks == loop.pool.num_blocks,
+              f"serve_roles: {what}: pool not drained")
+
+    def tokens(comps):
+        return {c.rid: tuple(int(t) for t in c.tokens) for c in comps}
+
+    launches = {}
+    reset_launches()
+    uni = ServeLoop(cfg, sd, **kw)
+    want = tokens(uni.run(reqs))
+    launches["unified"] = read_launches()
+    drained(uni, "unified")
+    del uni
+    # (a) the split
+    reset_launches()
+    pre = ServeLoop(cfg, sd, role="prefill", **kw)
+    export_s = []
+    _timed_method(torch, pre, "_build_handoff", export_s)
+    handoffs = pre.run(reqs)
+    launches["prefill_role"] = read_launches()
+    check(len(handoffs) == len(reqs)
+          and all(c.reason == "handoff" and c.handoff is not None
+                  for c in handoffs), "serve_roles: missing handoffs")
+    drained(pre, "prefill role")
+    del pre
+    payloads = {c.rid: c.handoff for c in handoffs}
+    nbytes = [_payload_bytes(p) for p in payloads.values()]
+    reset_launches()
+    dec = ServeLoop(cfg, sd, role="decode", **kw)
+    adopt_s = []
+    _timed_method(torch, dec, "_admit_adopt", adopt_s)
+    got = tokens(dec.run([Request(r.prompt, r.max_new_tokens, rid=r.rid,
+                                  kv_handoff=payloads[r.rid])
+                          for r in reqs]))
+    launches["decode_role"] = read_launches()
+    st = dec.stats
+    check(got == want, "serve_roles: the role split differs from the "
+          "unified loop")
+    check(st.adoptions == len(reqs) and st.handoff_fallbacks == 0,
+          f"serve_roles: {st.adoptions} adoptions, {st.handoff_fallbacks} "
+          "fallbacks")
+    check(launches["decode_role"]["K5"] > 0
+          and launches["prefill_role"]["K5"] == 0
+          and launches["prefill_role"]["K1"] > 0,
+          f"serve_roles: role launches {launches}")
+    drained(dec, "decode role")
+    del dec
+    # (b) one corrupted chain falls back to a prefill
+    bad = dict(payloads[0])
+    bad["chain"] = [1, 2, 3]
+    dec = ServeLoop(cfg, sd, role="decode", **kw)
+    [c] = dec.run([Request(reqs[0].prompt, R["new"], rid=0,
+                           kv_handoff=bad)])
+    check(tuple(int(t) for t in c.tokens) == want[0]
+          and dec.stats.handoff_fallbacks == 1
+          and dec.stats.adoptions == 0,
+          "serve_roles: the corrupted chain did not fall back exactly")
+    drained(dec, "fallback")
+    del dec
+    # (c) priority preemption with every lane busy
+    vip_len, vip_new = R["vip"]
+    vip = Request(rng.integers(0, v, vip_len).astype(np.int32), vip_new,
+                  rid="vip", priority=1)
+    solo = ServeLoop(cfg, sd, **kw)
+    want_vip = tokens(solo.run([vip]))["vip"]
+    del solo
+    loop = ServeLoop(cfg, sd, preempt="migrate", **kw)
+    polls, done = [0], []
+
+    def source():
+        polls[0] += 1
+        if polls[0] == 1:
+            return reqs
+        if polls[0] == R["vip_at"]:
+            return [vip]
+        return None if len(done) == len(reqs) + 1 else []
+
+    reset_launches()
+    t0 = time.perf_counter()
+    got = tokens(loop.run(source=source, sink=done.append, idle_wait_s=0.0))
+    torch.cuda.synchronize()
+    preempt_wall = time.perf_counter() - t0
+    launches["preempt"] = read_launches()
+    st = loop.stats
+    check(got == {**want, "vip": want_vip},
+          "serve_roles: a preempted run's completion differs")
+    check(st.preempted >= 1 and st.resumed == st.preempted
+          and st.handoff_fallbacks == 0,
+          f"serve_roles: preempted {st.preempted}, resumed {st.resumed}, "
+          f"fallbacks {st.handoff_fallbacks}")
+    drained(loop, "preempt")
+    preempt = {"preempted": st.preempted, "resumed": st.resumed,
+               "adoptions": st.adoptions, "wall_s": preempt_wall,
+               "finish_order": [c.rid for c in done]}
+    del loop
+    # (d) an evacuation, adopted by a peer
+    loop = ServeLoop(cfg, sd, preempt="migrate", **kw)
+    polls[0] = 0
+
+    def evac_source():
+        polls[0] += 1
+        if polls[0] == 1:
+            return reqs[:3]
+        if polls[0] == R["evacuate_at"]:
+            loop.request_evacuate()
+        return None if polls[0] > R["evacuate_at"] else []
+
+    out = loop.run(source=evac_source, sink=lambda c: None, idle_wait_s=0.0)
+    mig = {c.rid: c for c in out if c.reason == "migrate"}
+    moved = [rid for rid, c in mig.items() if c.handoff is not None]
+    check(sorted(mig) == [0, 1, 2] and moved,
+          f"serve_roles: evacuation gave {[(c.rid, c.reason) for c in out]}")
+    drained(loop, "evacuation source")
+    del loop
+    peer = ServeLoop(cfg, sd, preempt="migrate", **kw)
+    got = tokens(peer.run([Request(reqs[rid].prompt, R["new"], rid=rid,
+                                   kv_handoff=c.handoff)
+                           for rid, c in mig.items()]))
+    check(got == {rid: want[rid] for rid in mig}
+          and peer.stats.adoptions == len(moved)
+          and peer.stats.handoff_fallbacks == 0,
+          "serve_roles: the evacuated requests differ after adoption")
+    drained(peer, "evacuation peer")
+    generated = {rid: len(mig[rid].handoff["generated"]) for rid in moved}
+    del peer
+    torch.cuda.empty_cache()
+    emit({"phase": "serve_roles", "exact": True, "requests": len(reqs),
+          "handoff_bytes": nbytes,
+          "handoff_export_ms": [s * 1e3 for s in export_s],
+          "adopt_ms": [s * 1e3 for s in adopt_s],
+          "preempt": preempt,
+          "evacuation": {"migrated": len(mig), "with_pages": len(moved),
+                         "generated_at_export": generated},
+          "launches": launches, "seconds": time.perf_counter() - t_start})
+    return {k: sum(run[k] for run in launches.values())
+            for k in ("K1", "K2", "K5")}
 
 
 def phase_paged_parity(torch, dev, seed):
@@ -5696,6 +6268,11 @@ def main(argv=None) -> int:
     paged_launches = phase_serve_paged(torch, dev, args.seed)
     phase_serve_prefix(torch, dev, args.seed)
     pipe_launches = phase_serve_pipelined(torch, dev, args.seed)
+    spec_parity_launches, spec_worst = phase_spec_parity(torch, dev,
+                                                         args.seed)
+    spec_launches = {"spec_parity": spec_parity_launches,
+                     "spec_serve": phase_spec_serve(torch, dev, args.seed),
+                     "serve_roles": phase_serve_roles(torch, dev, args.seed)}
     q8_launches = phase_decode_q8(torch, dev, args.seed)
     bwd_rows, k1_train = phase_backward_kernels(torch, dev, args.seed)
     phase_train_parity(torch, dev, args.seed)
@@ -5738,16 +6315,19 @@ def main(argv=None) -> int:
          "max_abs_err": max([r["max_abs_err"] for r in k1]
                             + [r["K1"]["max_abs_err"] for r in ring_rows]
                             + [k1_train["max_abs_err"],
-                               k1_tp["max_abs_err"]]),
+                               k1_tp["max_abs_err"],
+                               spec_worst["K1"]["max_abs_err"]]),
          "tol_ratio": max([r["tol_ratio"] for r in k1]
                           + [r["K1"]["tol_ratio"] for r in ring_rows]
-                          + [k1_train["tol_ratio"], k1_tp["tol_ratio"]]),
+                          + [k1_train["tol_ratio"], k1_tp["tol_ratio"],
+                             spec_worst["K1"]["tol_ratio"]]),
          **{k: main_k1[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms")},
          "launches_train": train_launches["K1"],
          "launches_serve_pipelined": {k: v["K1"]
                                       for k, v in pipe_launches.items()},
          "launches_sp": sp_launches["K1"],
+         **{f"launches_{ph}": n["K1"] for ph, n in spec_launches.items()},
          "launches_train_pp": pp_launches["K1"],
          "launches_train_pp_per_step": pp_launches["per_step"]["K1"],
          "plan": main_k1["plan"],
@@ -5768,8 +6348,11 @@ def main(argv=None) -> int:
              "K2"],
          "launches_serve_pipelined_depth2": pipe_launches["dense_depth2"][
              "K2"],
-         "max_abs_err": max(r["max_abs_err"] for r in k2),
-         "tol_ratio": max(r["tol_ratio"] for r in k2),
+         **{f"launches_{ph}": n["K2"] for ph, n in spec_launches.items()},
+         "max_abs_err": max([r["max_abs_err"] for r in k2]
+                            + [spec_worst["K2"]["max_abs_err"]]),
+         "tol_ratio": max([r["tol_ratio"] for r in k2]
+                          + [spec_worst["K2"]["tol_ratio"]]),
          **{k: main_k2[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "partial_ms",
                                     "merge_ms")}},
@@ -5825,15 +6408,17 @@ def main(argv=None) -> int:
             ("K5", "paged_flash_decode (K5)", paged_launches["K5"],
              "block128"),
             ("K6", "flash_decode_q8 (K6)", q8_launches["K6"], "per_row")):
-        rows = paged_rows[key]
-        main_row = next(r for r in rows if r["case"] == main_case)
+        rows = paged_rows[key] + ([spec_worst["K5"]] if key == "K5" else [])
+        main_row = next(r for r in rows if r.get("case") == main_case)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "tpudist_torch/csrc/flash_decode.cu",
             "replaces": "tpudist/ops/flash_decode.py:62",
             "launches": launched,
-            **({f"launches_serve_pipelined_depth{d}":
-                pipe_launches[f"paged_depth{d}"]["K5"] for d in (1, 2)}
+            **({**{f"launches_serve_pipelined_depth{d}":
+                   pipe_launches[f"paged_depth{d}"]["K5"] for d in (1, 2)},
+                **{f"launches_{ph}": n["K5"]
+                   for ph, n in spec_launches.items()}}
                if key == "K5" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "tol_ratio": max(r["tol_ratio"] for r in rows),

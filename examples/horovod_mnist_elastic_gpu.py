@@ -45,6 +45,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 BATCHES_PER_COMMIT = 30  # `horovod_mnist_elastic.py:13`
 
 
+def say(line: str) -> None:
+    """Print ``line`` in ONE write and flush: the ranks of a gang share
+    their launcher's pipe, and with unbuffered output (``-u``,
+    ``PYTHONUNBUFFERED``) ``print`` writes the text and its newline apart,
+    so two ranks' lines printed at once could merge into one."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def main(argv=None) -> float:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--epochs", default=15, type=int,
@@ -214,8 +223,7 @@ def _ttl_main(args) -> float:
     def on_state_reset(es: ElasticState, old: int, new: int) -> None:
         for group in es.state.optimizer.param_groups:
             group["lr"] = lr_for(new)
-        print(f"reset: world {old} -> {new}, "
-              f"lr -> {lr_for(new):.5f}", flush=True)
+        say(f"reset: world {old} -> {new}, lr -> {lr_for(new):.5f}")
 
     state.register_reset_callbacks([on_state_reset])
 
@@ -270,8 +278,8 @@ def _ttl_main(args) -> float:
             es.host.epoch, es.host.batch = epoch + 1, 0
             es.commit()
             ctx.check()
-            print(f"[rank {ctx.rank}/{ctx.world_size}] epoch {epoch} "
-                  f"loss {float(gloss):.4f}", flush=True)
+            say(f"[rank {ctx.rank}/{ctx.world_size}] epoch {epoch} "
+                f"loss {float(gloss):.4f}")
 
     run_elastic_worker(train, state)
 
@@ -283,7 +291,7 @@ def _ttl_main(args) -> float:
             labels = torch.from_numpy(test_ds.labels[lo:lo + 512])
             correct += int((logits.argmax(-1).cpu() == labels).sum())
     accuracy = correct / len(test_ds)
-    print(f"accuracy: {100 * accuracy:.2f}%")  # `horovod_mnist_elastic.py:102`
+    say(f"accuracy: {100 * accuracy:.2f}%")  # `horovod_mnist_elastic.py:102`
     return accuracy
 
 

@@ -29,7 +29,10 @@ Run (CPU, plain versions of the kernels, tiny):
     --nproc-per-node 2 for the sequence- or tensor-parallel step over
     gloo)
 
-Speculative decoding is not ported yet (ROADMAP Queue A 4).
+tpudist's ``--speculative K`` branch (a draft trained beside the model,
+then a draft/verify rollout) is not wired into this example;
+``tpudist_torch.models.speculative.speculative_generate`` is ported, and
+``examples/serve_continuous_gpu.py --speculative K`` serves speculatively.
 """
 
 from __future__ import annotations

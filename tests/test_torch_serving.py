@@ -217,9 +217,19 @@ def test_validation_and_unported_options(state_dict):
         loop.run([Request(np.zeros((0,), np.int32), 5)])
     with pytest.raises(ValueError, match="num_slots"):
         ServeLoop(CFG, state_dict, num_slots=0, device="cpu")
-    for kw in ({"decode_mode": "speculative"}, {"role": "prefill"},
-               {"preempt": "migrate"}):
-        with pytest.raises(NotImplementedError):
+    # speculative decoding, the roles and preemption by migration are
+    # ported: each builds where tpudist's does and refuses where it does
+    paged = {"cache_layout": "paged", "kv_block_size": 16}
+    for kw in ({"decode_mode": "speculative", "draft_cfg": CFG,
+                "draft_params": state_dict, "num_draft": 2},
+               {"role": "prefill", **paged}, {"role": "decode", **paged},
+               {"preempt": "migrate", **paged}):
+        ServeLoop(CFG, state_dict, num_slots=1, device="cpu", **kw)
+    for kw, match in (({"decode_mode": "speculative"}, "draft_cfg"),
+                      ({"role": "prefill"}, "role='prefill' needs"),
+                      ({"role": "decode"}, "role='decode' needs"),
+                      ({"preempt": "migrate"}, "preempt='migrate' needs")):
+        with pytest.raises(ValueError, match=match):
             ServeLoop(CFG, state_dict, num_slots=1, device="cpu", **kw)
     for kw, match in (({"degrade_max_new": 0}, "degrade_max_new"),
                       ({"degrade_queue": -1}, "degrade_queue"),

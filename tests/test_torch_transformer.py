@@ -157,10 +157,18 @@ def test_cached_decode_step_matches_full_forward():
 def test_unported_paths_raise():
     _, cfg, _ = _pair("mha")
     model = TransformerLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="verify chunk"):
-        model(torch.zeros((2, 3), dtype=torch.long),
-              positions=torch.zeros((2, 3), dtype=torch.long),
-              cache=blank_cache(cfg, 2, device="cpu", per_row=True))
+    # the per-row multi-token verify chunk without side buffers is ported:
+    # each row's 3 tokens land at its own index, which advances by 3
+    # (tests/test_torch_serving_spec.py holds its logits against tpudist)
+    cache = blank_cache(cfg, 2, device="cpu", per_row=True)
+    cache[0]["cache_index"] = torch.tensor([0, 5], dtype=torch.int32)
+    logits, cache = model(torch.ones((2, 3), dtype=torch.long),
+                          positions=torch.tensor([[0, 1, 2], [5, 6, 7]]),
+                          cache=cache)
+    assert logits.shape == (2, 3, cfg.vocab_size)
+    assert cache[0]["cache_index"].tolist() == [3, 8]
+    assert cache[0]["cached_key"][1, 5:8].abs().sum() > 0
+    assert cache[0]["cached_key"][1, :5].abs().sum() == 0
     # the paged layout is ported: the model builds, sized by its pool;
     # a windowed paged model is refused as in the JAX package
     paged = TransformerLM(cfg, serve_side_slots=4, cache_layout="paged",

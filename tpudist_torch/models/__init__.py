@@ -1,8 +1,8 @@
 """The port's models (counterpart of :mod:`tpudist.models`): the
-TransformerLM forward, its generation loop, the continuous-batching
-ServeLoop, the Mixture-of-Experts LM, ResNet50 with its pipeline
-stages, and the MNIST models (MLP, ConvNet) and the embedding-bag
-classifier."""
+TransformerLM forward, its generation loop and speculative decoding, the
+continuous-batching ServeLoop, the Mixture-of-Experts LM, ResNet50 with
+its pipeline stages, and the MNIST models (MLP, ConvNet) and the
+embedding-bag classifier."""
 
 from tpudist_torch.models.convert import (
     from_flax_convnet_params,
@@ -23,6 +23,11 @@ from tpudist_torch.models.mlp import MLP
 from tpudist_torch.models.moe import MoEConfig, MoEMLP, MoETransformerLM
 from tpudist_torch.models.resnet import ResNet50, resnet50_stages
 from tpudist_torch.models.serving import Completion, Request, ServeLoop
+from tpudist_torch.models.speculative import (
+    AdaptiveDraftPolicy,
+    adaptive_speculative_generate,
+    speculative_generate,
+)
 from tpudist_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
@@ -31,6 +36,7 @@ from tpudist_torch.models.transformer import (
 )
 
 __all__ = [
+    "AdaptiveDraftPolicy",
     "Completion",
     "ConvNet",
     "EmbeddingBagClassifier",
@@ -43,6 +49,7 @@ __all__ = [
     "ServeLoop",
     "TransformerConfig",
     "TransformerLM",
+    "adaptive_speculative_generate",
     "blank_cache",
     "from_flax_convnet_params",
     "from_flax_embedding_params",
@@ -55,6 +62,7 @@ __all__ = [
     "greedy_generate",
     "resnet50_stages",
     "sdpa",
+    "speculative_generate",
     "stack_block_params",
     "unstack_block_params",
 ]

@@ -62,12 +62,42 @@ segment has drained (no request straddles two weight versions), and
 ``run(source=, sink=)`` is service mode: incremental intake, completions
 streamed as they finish.
 
-Not ported yet — each raises ``NotImplementedError`` naming its ROADMAP
-item: speculative decoding, the prefill/decode roles and preemption by
-migration; the paged layout's host-RAM tier is absent (its prefix cache
-evicts without spilling).  The overload ladder is ported: past
-``degrade_queue`` waiting requests best-effort budgets are clamped, past
-``max_queue`` the overflow is shed.
+``decode_mode="speculative"`` runs each segment as ROUNDS: the draft
+model (dense, per row, no side buffer) takes K+1 single-token steps (K2,
+or the banded mask for a windowed draft), then the target verifies
+``[tok, d_1..d_K]`` as one chunk through the sided path (K+1 launches of
+K2 or K5 a layer, one per query, as tpudist's wrappers loop), the round
+takes :func:`~tpudist_torch.models.speculative._accept_and_next` and both
+caches roll back by ``K - m``.  Each round reads ``com`` (tokens emitted
+in the segment) and ``any(active)`` on the host, at every depth; the side
+buffer holds ``steps_per_sync + K_max`` slots, which a round never
+overruns.  Admission is one-shot (the target's plus a draft prefill into
+the same slot); ``num_draft="adaptive"`` lets
+:class:`~tpudist_torch.models.speculative.AdaptiveDraftPolicy` pick K from
+``spec_ladder`` on the measured acceptance and round costs.
+
+``role="prefill"`` / ``"decode"`` split a fleet: a prefill loop exports a
+finished prompt's pool pages and its sampled first token as a KV HANDOFF
+payload (``Completion(reason="handoff", handoff=payload)``); a decode loop
+ADOPTS a ``Request.kv_handoff`` into freshly allocated blocks, or falls
+back to an ordinary prefill when any gate fails (structure, length, block
+size, hash chain, layer count and shape, weights version).  Payload layers
+are ``[n_blocks, block, Hkv·D]`` host arrays in tpudist's layer order:
+numpy for f32, CPU tensors for bf16 (numpy has no bf16 without
+``ml_dtypes``; a numpy bf16 bit pattern is read too).  With
+``preempt="migrate"`` a blocked higher-priority request PARKS the
+lowest-priority decoding lane (its payload kept whole in host RAM) and
+resumes it through the adopt path when pressure clears;
+:meth:`ServeLoop.request_migrate` / :meth:`ServeLoop.request_evacuate`
+hand lanes out as ``reason="migrate"`` completions in service mode.  Every
+export first drains the segments in flight, so no zombie's blocks and no
+half-merged segment are ever exported.
+
+Not ported yet: the paged layout's host-RAM tier (ROADMAP Queue A 9; the
+prefix cache evicts without spilling, and parked payloads stay whole in
+host RAM).  The overload ladder is ported: past ``degrade_queue`` waiting
+requests best-effort budgets are clamped, past ``max_queue`` the overflow
+is shed.
 """
 
 from __future__ import annotations
@@ -89,7 +119,13 @@ from tpudist_torch.models.generate import (
     build_model,
     serving_layout,
 )
-from tpudist_torch.models.kv_pages import BlockPool, PrefixCache
+from tpudist_torch.models.kv_pages import BlockPool, PrefixCache, chain_hashes
+from tpudist_torch.models.speculative import (
+    AdaptiveDraftPolicy,
+    _accept_and_next,
+    _filtered_probs,
+    _set_cache_index,
+)
 from tpudist_torch.models.transformer import TransformerConfig
 from tpudist_torch.utils.device import resolve_device
 
@@ -111,6 +147,10 @@ class Request:
     deadline_s: float | None = None
     priority: int = 0             # 0 = best-effort; higher = keep longer
     prefix_hash: int | None = None
+    # a KV migration payload (a prefill loop's handoff or a migrated
+    # lane): a decode-capable paged loop ADOPTS its pages; None, or a
+    # payload failing a gate, means an ordinary prefill
+    kv_handoff: Any = None
 
 
 @dataclasses.dataclass
@@ -121,8 +161,12 @@ class Completion:
     # "stop" | "length"; "rejected" (load-shed at a full queue);
     # "timeout" (past its deadline, queued or in flight); "invalid" (a
     # malformed request in service mode); "corrupt_segment" (non-finite
-    # logits or an out-of-vocab token)
+    # logits or an out-of-vocab token); "handoff" (a prefill loop
+    # exported the prompt's KV: ``handoff``); "migrate" (handed out by
+    # request_migrate / request_evacuate, ``handoff`` the payload or
+    # None for a request that never held a lane)
     reason: str
+    handoff: Any = None           # KV migration payload
 
 
 @dataclasses.dataclass
@@ -146,6 +190,18 @@ class ServeStats:
     timeouts: int = 0
     invalid: int = 0
     swaps: int = 0                # weight rebinds applied
+    spec_rounds: int = 0          # speculative draft+verify rounds
+    spec_accepted: int = 0        # accepted draft tokens (live rows)
+    spec_row_rounds: int = 0      # live rows summed over rounds
+    # draft steps = verify queries (K+1 of each a round): the K2/K5
+    # launches a speculative segment makes per layer
+    spec_draft_steps: int = 0
+    spec_k: int = 0               # the K of the last speculative segment
+    adoptions: int = 0            # handoffs admitted by adopting pages
+    handoff_fallbacks: int = 0    # handoffs re-prefilled (a gate failed)
+    preempted: int = 0            # lanes parked by priority preemption
+    resumed: int = 0              # parked lanes put back in the queue
+    migrated_out: int = 0         # reason="migrate" completions
 
 
 def _index_leaves(cache: list[dict]):
@@ -154,16 +210,34 @@ def _index_leaves(cache: list[dict]):
     return cache[0]["cache_index"], cache[0].get("side_index")
 
 
-def _set_cache_index(cache: list[dict], idx: int) -> list[dict]:
-    """Roll the cache to ``idx`` tokens: every index (``cache_index``, and
-    ``side_index`` where present) is reset; K/V buffers are left as they
-    are — slots past the index are masked by every cached-attention path
-    and overwritten by the next write at that position."""
-    for layer in cache:
-        for name in ("cache_index", "side_index"):
-            if name in layer:
-                layer[name] = torch.full_like(layer[name], idx)
-    return cache
+def _host_array(t: torch.Tensor):
+    """A payload layer on the host: numpy for f32, a CPU tensor for the
+    types numpy lacks (bf16)."""
+    t = t.detach().cpu()
+    return t.numpy() if t.dtype == torch.float32 else t
+
+
+def _payload_tensor(x) -> torch.Tensor:
+    """A payload layer as a tensor: a tensor as it is, a numpy array by
+    its dtype, a numpy bf16 (``ml_dtypes``, whose dtype numpy reads as a
+    raw 2-byte void) by its bit pattern."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.array(x, copy=True, order="C")
+    if arr.dtype.itemsize == 2 and (arr.dtype.kind == "V"
+                                    or arr.dtype.name == "bfloat16"):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _insert_dense(cache: list[dict], cache1: list[dict], slot: int,
+                  true_len: int) -> None:
+    """Copy a prefilled dense batch-1 cache into row ``slot`` of the same
+    model's dense per-row cache ``cache`` and stamp its length."""
+    for big, small in zip(cache, cache1):
+        big["cached_key"][slot].copy_(small["cached_key"][0])
+        big["cached_value"][slot].copy_(small["cached_value"][0])
+        big["cache_index"][slot] = true_len
 
 
 class ServeLoop:
@@ -190,10 +264,21 @@ class ServeLoop:
       degrade_queue / degrade_max_new: soft overload watermark (default
         ``max_queue // 2``); while more requests wait, admissions clamp
         best-effort (``priority <= 0``) budgets to ``degrade_max_new``.
-      preempt: "degrade" (the ladder above); "migrate" is not ported.
+      preempt: "degrade" (the ladder above) or "migrate" (paged only):
+        priority-first admission, and a blocked higher-priority request
+        parks the lowest-priority decoding lane instead of clamping it;
+        the lane resumes byte-identical through the adopt path.
+      decode_mode: "plain" or "speculative" (draft-K proposal and one
+        target verify chunk per round; the target's greedy tokens).
+      draft_cfg / draft_params: the proposal model (speculative only): the
+        target's vocabulary, a ``max_seq_len`` covering the target's.
+      num_draft: draft tokens per round, an int, or "adaptive" to let
+        :class:`AdaptiveDraftPolicy` pick from ``spec_ladder``.
+      spec_ladder: candidate K values for the adaptive policy.
       chunked_prefill: admit one prompt chunk per loop iteration between
         decode segments instead of the whole prompt at once (same chunk
-        grid, same tokens).
+        grid, same tokens); plain decode only (speculative admission is
+        one-shot, as in tpudist).
       cache_layout: "dense" (per-slot ``[B, S]`` K/V buffers) or "paged"
         (one block pool per layer plus per-slot page tables).
       kv_block_size: tokens per KV block (paged only), a positive
@@ -202,6 +287,10 @@ class ServeLoop:
         dense capacity, ``num_slots × ceil(max_seq_len / block)``.
       prefix_sharing: copy-on-write prefix sharing (paged layout with
         chunked prefill; off otherwise).
+      role: "both" (the unified loop), "prefill" (paged, chunked, plain:
+        every request ends ``reason="handoff"`` with its KV payload, and
+        no decode segment is ever dispatched) or "decode" (paged: adopts
+        ``Request.kv_handoff`` payloads, prefills the rest).
       device: where to run (default ``cuda``; raises if there is none).
     """
 
@@ -227,6 +316,10 @@ class ServeLoop:
         degrade_queue: int | None = None,
         degrade_max_new: int = 32,
         decode_mode: str = "plain",
+        draft_cfg: TransformerConfig | None = None,
+        draft_params: Mapping[str, Any] | None = None,
+        num_draft: int | str = "adaptive",
+        spec_ladder: Sequence[int] = (2, 4, 8),
         chunked_prefill: bool = True,
         prefix_sharing: bool = True,
         role: str = "both",
@@ -246,13 +339,6 @@ class ServeLoop:
         if degrade_max_new < 1:
             raise ValueError(
                 f"degrade_max_new must be >= 1, got {degrade_max_new}")
-        if preempt not in ("degrade", "migrate"):
-            raise ValueError(f"preempt must be 'degrade' or 'migrate', got "
-                             f"{preempt!r}")
-        if preempt == "migrate":
-            raise NotImplementedError(
-                "preempt='migrate' is not ported yet (ROADMAP Queue A: "
-                "speculative decoding, roles and preemption)")
         if steps_per_sync < 1:
             raise ValueError(
                 f"steps_per_sync must be >= 1, got {steps_per_sync}")
@@ -266,28 +352,81 @@ class ServeLoop:
             raise ValueError(
                 "cache_layout='paged' has no sliding-window trim yet; "
                 "serve windowed models with the dense layout")
-        if decode_mode not in ("plain", "speculative"):
-            raise ValueError(f"decode_mode must be 'plain' or 'speculative', "
-                             f"got {decode_mode!r}")
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"role must be 'both', 'prefill', or 'decode', "
                              f"got {role!r}")
-        if decode_mode != "plain" or role != "both":
-            raise NotImplementedError(
-                "speculative decoding and the prefill/decode roles are not "
-                "ported yet (ROADMAP Queue A: speculative decoding, roles "
-                "and preemption)")
+        if role == "prefill" and not (cache_layout == "paged"
+                                      and chunked_prefill
+                                      and decode_mode == "plain"):
+            raise ValueError(
+                "role='prefill' needs cache_layout='paged' with chunked "
+                "prefill under plain decode: the handoff exports pool "
+                "pages at the chunked-admission finish")
+        if role == "decode" and cache_layout != "paged":
+            raise ValueError(
+                "role='decode' needs cache_layout='paged': handoff "
+                "adoption scatters migrated pages into the block pool")
+        if preempt not in ("degrade", "migrate"):
+            raise ValueError(f"preempt must be 'degrade' or 'migrate', got "
+                             f"{preempt!r}")
+        if preempt == "migrate" and cache_layout != "paged":
+            raise ValueError(
+                "preempt='migrate' needs cache_layout='paged': "
+                "preemption exports the victim slot's pool pages")
+        if decode_mode not in ("plain", "speculative"):
+            raise ValueError(f"decode_mode must be 'plain' or 'speculative', "
+                             f"got {decode_mode!r}")
+        self.decode_mode = decode_mode
+        self.role = role
+        self.preempt = preempt
+        self._spec_ladder: tuple[int, ...] = ()
+        self._k_max = 0
+        if decode_mode == "speculative":
+            if draft_cfg is None or draft_params is None:
+                raise ValueError(
+                    "decode_mode='speculative' needs draft_cfg and "
+                    "draft_params")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target "
+                    f"vocab {cfg.vocab_size}")
+            if draft_cfg.max_seq_len < cfg.max_seq_len:
+                raise ValueError(
+                    f"draft max_seq_len {draft_cfg.max_seq_len} < target "
+                    f"{cfg.max_seq_len}: the draft cache mirrors each "
+                    "lane's position, so it needs the same coverage")
+            if isinstance(num_draft, int):
+                if num_draft < 1:
+                    raise ValueError(
+                        f"num_draft must be >= 1, got {num_draft}")
+                self._spec_ladder = (int(num_draft),)
+            elif num_draft == "adaptive":
+                self._spec_ladder = tuple(sorted(
+                    int(x) for x in spec_ladder))
+                if not self._spec_ladder or self._spec_ladder[0] < 1:
+                    raise ValueError(
+                        f"spec_ladder must hold K >= 1, got {spec_ladder}")
+            else:
+                raise ValueError(
+                    f"num_draft must be an int or 'adaptive', got "
+                    f"{num_draft!r}")
+            self._k_max = self._spec_ladder[-1]
         if cfg.attention_window is not None:
             warnings.warn(
                 "ServeLoop with a sliding-window model uses DENSE per-row "
                 "attention (the per-row flash kernel has no window trim): "
                 "every decode step reads the whole cache", stacklevel=2)
         # side-buffer mode (no window): steps write a segment-local buffer
-        # at a scalar index and one merge per segment scatters side -> main
-        self.side = steps_per_sync if cfg.attention_window is None else 0
+        # at a scalar index and one merge per segment scatters side -> main;
+        # a speculative segment's last round can write a whole K+1 verify
+        # chunk past the steps_per_sync - 1 tokens already kept
+        self.side = (steps_per_sync + self._k_max
+                     if cfg.attention_window is None else 0)
         if self.side > cfg.max_seq_len:
-            raise ValueError(f"steps_per_sync {steps_per_sync} exceeds "
-                             f"max_seq_len {cfg.max_seq_len}")
+            raise ValueError(
+                f"the side buffer (steps_per_sync {steps_per_sync} + "
+                f"num_draft {self._k_max} = {self.side}) exceeds "
+                f"max_seq_len {cfg.max_seq_len}")
         paged = cache_layout == "paged"
         block = nb = 0
         self.pool = None
@@ -312,10 +451,14 @@ class ServeLoop:
         self.device = self.model.device
         self.B = num_slots
         self.steps = steps_per_sync
+        # emit columns a segment returns past the deferred-first column
+        self._emit_width = steps_per_sync + self._k_max
         self.pipeline_depth = int(pipeline_depth)
         self.prefill_chunk = prefill_chunk
         self.pad_token = int(pad_token)
-        self.chunked = bool(chunked_prefill)
+        # the speculative admission prefills the draft in the same one-shot
+        # pass, so chunked prefill is plain decode's only
+        self.chunked = bool(chunked_prefill) and decode_mode == "plain"
         # prefix sharing needs the pool (shared blocks live there) and the
         # chunked admission (a hit starts its worklist past the prefix)
         self._prefix_cache = (PrefixCache(self.pool)
@@ -336,6 +479,8 @@ class ServeLoop:
         self._stop_set = (set(self._stop.tolist())
                           if self._stop is not None else set())
         self._select = _make_select(temperature, top_k, top_p)
+        self._temperature = float(temperature)
+        self._top_k, self._top_p = top_k, top_p
         self._generator = generator
         if generator is None and temperature > 0:
             self._generator = torch.Generator(self.device).manual_seed(0)
@@ -344,6 +489,19 @@ class ServeLoop:
         # and, paged, the pools and page table instead of dense rows
         self.cache = _blank_cache(self.model, num_slots, per_row=True,
                                   side_slots=self.side, paged=paged)
+        if decode_mode == "speculative":
+            # the draft decodes DENSE per row without side buffers (its
+            # cache is small by construction): [num_slots, Sd] rows
+            self.draft_cfg = draft_cfg
+            self.draft_model = build_model(draft_cfg, draft_params,
+                                           device=device)
+            self.draft_cache = _blank_cache(self.draft_model, num_slots,
+                                            per_row=True)
+            self._spec_policy = (AdaptiveDraftPolicy(self._spec_ladder)
+                                 if num_draft == "adaptive" else None)
+            # per-K dispatch counts: each K's first dispatch stays out of
+            # the measured cost model (as tpudist's, which holds a compile)
+            self._spec_uses: dict[int, int] = {}
         dev = self.device
         self._tok = torch.full((num_slots,), self.pad_token,
                                dtype=torch.long, device=dev)
@@ -359,7 +517,14 @@ class ServeLoop:
         self._step_ema: float | None = None
         self._clock = time.time
         self._pending_swap: dict | None = None
-        self.weights_version: int | None = None
+        # the version of the loaded weights: stamped into migration
+        # payloads, checked at adoption (tpudist's default, 0)
+        self.weights_version = 0
+        # rid -> parked lane ({"req", "payload"}), whole in host RAM
+        self._parked: dict[Any, dict] = {}
+        # router-side migration intents, consumed by the run loop
+        self._migrate_rids: set[str] = set()
+        self._evacuate = False
         self.stats = ServeStats()
         # depth >= 2 on a card: the side stream of the emits' copies, the
         # pinned emits buffers (one per segment in flight, each with the
@@ -369,6 +534,7 @@ class ServeLoop:
         self._flags: list[tuple[torch.Tensor, Any]] = []
         self.pinned_reuse_waits = 0   # a ring buffer reused before its copy
         self.segment_host_reads = 0   # per-tick early-exit host reads
+        self.spec_host_reads = 0      # a speculative segment's per-round reads
 
     # -- device work ---------------------------------------------------------
 
@@ -455,6 +621,120 @@ class ServeLoop:
             self._merge(cache, lived)
         self._tok, self._active, self._remaining = tok, active, remaining
         return torch.cat([self._first[:, None], E], dim=1), corrupt
+
+    @torch.no_grad()
+    def _segment_spec(self, n_steps: int, k: int):
+        """The speculative segment: rounds of K+1 draft steps and one
+        K+1-token target verify chunk until at least ``n_steps`` tokens
+        are emitted or every lane is frozen (tpudist's
+        ``_segment_spec_impl``, round for round).
+
+        * Frozen lanes count as all-accept in :func:`_accept_and_next`, so
+          they never drag the batch-min ``m`` down; their emits are pad
+          and the ``lived``-masked merge drops their side writes.
+        * Both caches roll back by ``K - m`` after the verify (the side
+          counter in the sided and paged layouts, the per-row
+          ``cache_index`` without side buffers; the draft's per-row
+          ``cache_index``), so resident K/V tracks the emitted tokens.
+        * A lane that stops or runs out of budget mid-round contributes
+          ``min(stop_pos + 1, remaining)`` real tokens and freezes.
+
+        Each round begins with ONE host read, of ``com`` (tokens emitted
+        so far), ``any(active)`` and the two acceptance tallies.  Returns
+        the ``[B, 1 + steps + K_max]`` emits (column 0 the deferred first
+        tokens), the per-lane ``corrupt`` flags (always clear: this path,
+        as tpudist's, has no in-graph guard; the drain's range check
+        stands in) and the host stats ``(emitted, rounds, accepted,
+        active_row_rounds)``."""
+        stop_arr = self._stop
+        pad = self.pad_token
+        S = self.cfg.max_seq_len
+        Sd = self.draft_cfg.max_seq_len
+        dev = self.device
+        B, width = self.B, self._emit_width
+        gen, temp = self._generator, self._temperature
+        top_k, top_p = self._top_k, self._top_p
+        cache, d_cache = self.cache, self.draft_cache
+        tok, active, remaining = self._tok, self._active, self._remaining
+        # one sink column past the window takes the columns past m
+        E = torch.full((B, width + 1), pad, dtype=torch.long, device=dev)
+        t_idx = torch.arange(k + 1, device=dev)
+        zero = torch.zeros((), dtype=torch.long, device=dev)
+        com, acc_sum, act_rounds = zero, zero, zero
+        lived = torch.zeros((B,), dtype=torch.long, device=dev)
+        index_name = "side_index" if self.side else "cache_index"
+        rounds = 0
+        while True:
+            self.spec_host_reads += 1
+            emitted, live, acc, act = torch.stack(
+                [com, active.any().long(), acc_sum, act_rounds]).tolist()
+            if emitted >= n_steps or not live:
+                break
+            main_idx, side_idx = _index_leaves(cache)
+            n_pos = (main_idx if side_idx is None
+                     else main_idx + side_idx).long()
+            # DRAFT: K proposals with their distributions; a (K+1)-th step
+            # writes d_K's K/V for the all-accepted case
+            d_tok, drafts, qs = tok, [], []
+            for j in range(k + 1):
+                d_idx = d_cache[0]["cache_index"].long()
+                logits, d_cache = self.draft_model(
+                    d_tok[:, None], positions=d_idx.clamp(max=Sd - 1)[:, None],
+                    cache=d_cache)
+                if j == k:
+                    break
+                last = logits[:, -1]
+                qs.append(_filtered_probs(last, temp, top_k, top_p))
+                d_tok = self._select(last, gen)
+                drafts.append(d_tok)
+            drafts = torch.stack(drafts, dim=1)                  # [B, K]
+            q = torch.stack(qs, dim=1)                           # [B, K, V]
+            # VERIFY: one target chunk over [tok, d_1..d_K] per lane
+            verify = torch.cat([tok[:, None], drafts], dim=1)
+            positions = (n_pos[:, None] + t_idx[None, :]).clamp(max=S - 1)
+            t_logits, cache = self.model(verify, positions=positions,
+                                         cache=cache)
+            p = _filtered_probs(t_logits, temp, top_k, top_p)
+            m, emit, accepted = _accept_and_next(p, q, drafts, gen,
+                                                 active=active)
+            shift = (k - m).to(torch.int32)
+            for layer in cache:
+                layer[index_name] = layer[index_name] - shift
+            for layer in d_cache:
+                layer["cache_index"] = layer["cache_index"] - shift
+            # the round's window: accepted drafts, the verify token at m
+            e_buf = torch.cat([drafts, emit[:, None]], dim=1)
+            e_buf = e_buf.scatter(1, m.view(1, 1).expand(B, 1),
+                                  emit[:, None])
+            upto = t_idx <= m                                    # [K+1]
+            if stop_arr is not None:
+                hit = torch.isin(e_buf, stop_arr) & upto[None, :]
+                stop_pos = torch.where(hit, t_idx[None, :],
+                                       m + 1).amin(dim=1)        # [B]
+            else:
+                stop_pos = (m + 1).expand(B)
+            # REAL tokens this round: what the drain will consume, up to
+            # the stop (inclusive), the budget and the batch-min window
+            real = torch.where(
+                active, torch.minimum(torch.minimum(stop_pos + 1, remaining),
+                                      m + 1), 0)
+            lived = lived + real
+            remaining = remaining - real
+            cols = torch.where(upto, com + t_idx, width)
+            E[:, cols] = torch.where(active[:, None], e_buf, pad)
+            acc_sum = acc_sum + torch.where(active, accepted, 0).sum()
+            act_rounds = act_rounds + active.long().sum()
+            active = active & (stop_pos >= m + 1) & (remaining > 0)
+            tok = torch.where(active, emit, pad)
+            com = com + m + 1
+            rounds += 1
+        if self.side:
+            self._merge(cache, lived)
+        self.cache, self.draft_cache = cache, d_cache
+        self._tok, self._active, self._remaining = tok, active, remaining
+        emits = torch.cat([self._first[:, None], E[:, :width]], dim=1)
+        corrupt = torch.zeros((B,), dtype=torch.bool, device=dev)
+        return emits, corrupt, (emitted, rounds, acc, act)
 
     def _merge(self, cache: list[dict], lived: torch.Tensor) -> None:
         """End of segment: write each layer's side buffer into the main
@@ -552,10 +832,7 @@ class ServeLoop:
         read in place, never rewritten), selected on the host so no other
         owner's block can be hit."""
         if self.pool is None:
-            for big, small in zip(self.cache, cache1):
-                big["cached_key"][slot].copy_(small["cached_key"][0])
-                big["cached_value"][slot].copy_(small["cached_value"][0])
-                big["cache_index"][slot] = true_len
+            _insert_dense(self.cache, cache1, slot, true_len)
             return
         bs = self.kv_block_size
         m = pages.shape[0]
@@ -620,7 +897,20 @@ class ServeLoop:
         last = logits[0, L - 1 - (padded.shape[1] - logits.shape[1])]
         first = self._select(last[None, :], self._generator)[0]
         self._insert(cache1, slot, L, pages)
+        if self.decode_mode == "speculative":
+            self._draft_prefill(padded, chunk, slot, L)
         self._stamp_lane(slot, first, max_new)
+
+    @torch.no_grad()
+    def _draft_prefill(self, padded: np.ndarray, chunk: int, slot: int,
+                       true_len: int) -> None:
+        """The draft's half of a speculative admission: prefill the same
+        padded prompt (K1) into a batch-1 draft cache and insert it into
+        the draft cache's row ``slot``."""
+        d1 = _blank_cache(self.draft_model, 1)
+        d1, _ = _prefill(self.draft_model, d1,
+                         torch.as_tensor(padded, device=self.device), chunk)
+        _insert_dense(self.draft_cache, d1, slot, true_len)
 
     @torch.no_grad()
     def _prefill_chunk(self, cache1: list[dict], toks: np.ndarray,
@@ -664,6 +954,15 @@ class ServeLoop:
             raise ValueError(
                 f"request needs {prompt.size + req.max_new_tokens} cache "
                 f"slots > max_seq_len {self.cfg.max_seq_len}")
+        if (self.decode_mode == "speculative"
+                and prompt.size + req.max_new_tokens + self._k_max - 1
+                > self.cfg.max_seq_len):
+            raise ValueError(
+                f"speculative serving needs prompt + max_new + "
+                f"num_draft - 1 <= max_seq_len "
+                f"({prompt.size + req.max_new_tokens + self._k_max - 1} "
+                f"> {self.cfg.max_seq_len}): the verify chunk writes up "
+                "to num_draft slots past the last emitted token")
         if self.pool is not None:
             need = self.pool.request_blocks(prompt.size, req.max_new_tokens)
             if need > self.pool.num_blocks:
@@ -718,6 +1017,14 @@ class ServeLoop:
             self._affinity_recent[int(req.prefix_hash)] = None
             while len(self._affinity_recent) > 128:
                 self._affinity_recent.pop(next(iter(self._affinity_recent)))
+        if (req.kv_handoff is not None and self.pool is not None
+                and self.role != "prefill"):
+            # adopt the migrated pages (no prefill) unless a gate fails;
+            # then fall through to an ordinary admission of the prompt
+            st = self._admit_adopt(slot, req, prompt, L)
+            if st is not None:
+                return st
+            self.stats.handoff_fallbacks += 1
         if self.chunked:
             return self._admit_start(slot, req, prompt, L, max_new)
         self.prefix_stats["prefill_tokens"] += L
@@ -776,6 +1083,155 @@ class ServeLoop:
                             "L": L, "max_new": max_new, "pages": pages,
                             "write_block": write_block}}
 
+    # -- KV handoff and migration ------------------------------------------
+
+    def _gather_layers(self, pages) -> list[dict]:
+        """The pool blocks ``pages`` of every layer, in tpudist's layer
+        order, on the host (one sync)."""
+        idx = torch.as_tensor(np.asarray(pages, np.int64),
+                              device=self.device)
+        return [{"k": _host_array(layer["paged_key"][idx]),
+                 "v": _host_array(layer["paged_value"][idx])}
+                for layer in self.cache]
+
+    def _build_handoff(self, slot: int, req: Request, pf: dict) -> dict:
+        """Export ``slot``'s finished prefill as a handoff payload (its
+        pool pages and the sampled first token) and free the slot; the
+        export freeze guarantees the pages read are this slot's."""
+        manifest = self.pool.export_slot(slot)
+        prompt = np.asarray(req.prompt, np.int32)
+        payload = {
+            "key": None,
+            "rid": req.rid,
+            "prompt": [int(t) for t in prompt],
+            "max_new_tokens": int(req.max_new_tokens),
+            # the exporter's first token rides along: the adopter emits
+            # it instead of re-running the prompt's last logit
+            "first": int(self._first[slot]),
+            "true_len": int(pf["L"]),
+            "block_size": int(self.kv_block_size),
+            "chain": chain_hashes(prompt, self.kv_block_size),
+            "published_at": time.time(),
+            "layers": self._gather_layers(manifest["blocks"]),
+        }
+        self.pool.complete_export(slot)
+        return payload
+
+    def _build_migration(self, slot: int, st: dict) -> dict:
+        """Export an IN-FLIGHT decode lane as a migration payload and free
+        the slot.  The caller has drained every segment in flight (the
+        host token list is final, no merge can touch the pages) and frozen
+        the lane.  ``generated`` carries every emitted token but the last,
+        which travels as ``first`` (the adopter's deferred first token
+        re-emits it); the pages cover prompt + generated; ``version``
+        keeps a weight roll from mixing KV across versions."""
+        req = st["req"]
+        tokens = st["tokens"]
+        prompt = np.asarray(req.prompt, np.int32)
+        if st.get("pending_first") or not tokens:
+            # the first token is still on the device (a fresh admission,
+            # or an adoption whose seeded tokens ride ``generated``)
+            first = int(self._first[slot])
+            generated = [int(t) for t in tokens]
+        else:
+            first = int(tokens[-1])
+            generated = [int(t) for t in tokens[:-1]]
+        prompt_eff = (np.concatenate([prompt, np.asarray(generated,
+                                                         np.int32)])
+                      if generated else prompt)
+        true_len = int(prompt.size) + len(generated)
+        manifest = self.pool.export_slot(slot)
+        # the pool grows lanes a segment ahead; the adopter allocates
+        # exactly ceil(true_len / block), so only those pages go
+        n_used = -(-true_len // self.kv_block_size)
+        payload = {
+            "key": None,
+            "rid": req.rid,
+            "prompt": [int(t) for t in prompt],
+            "max_new_tokens": int(req.max_new_tokens),
+            "first": first,
+            "generated": generated,
+            "true_len": true_len,
+            "block_size": int(self.kv_block_size),
+            "chain": chain_hashes(prompt_eff, self.kv_block_size),
+            "published_at": time.time(),
+            "version": int(self.weights_version),
+            "layers": self._gather_layers(manifest["blocks"][:n_used]),
+        }
+        self.pool.complete_export(slot)
+        return payload
+
+    @torch.no_grad()
+    def _admit_adopt(self, slot: int, req: Request, prompt: np.ndarray,
+                     L: int) -> dict | None:
+        """Admit ``req`` by ADOPTING its payload's pages into freshly
+        allocated blocks and stamping the lane with the carried ``first``
+        (no prefill).  ``None`` when a gate fails — structure, lengths,
+        block size, hash chain, layer count and shape, weights version —
+        and the caller prefills instead.  A mid-decode payload's
+        ``generated`` tokens seed the slot's output and shrink its budget,
+        so the completion carries the whole sequence."""
+        payload = req.kv_handoff
+        try:
+            first = int(payload["first"])
+            true_len = int(payload["true_len"])
+            bs = int(payload["block_size"])
+            chain = [int(h) for h in payload["chain"]]
+            generated = [int(t) for t in payload.get("generated", ())]
+            layers = payload["layers"]
+        except (KeyError, TypeError, ValueError):
+            return None
+        if "version" in payload:
+            # KV computed under one weights version never continues under
+            # another: refuse and re-prefill under this loop's weights
+            try:
+                if int(payload["version"]) != self.weights_version:
+                    return None
+            except (TypeError, ValueError):
+                return None
+        prompt_eff = (np.concatenate([prompt, np.asarray(generated,
+                                                         np.int32)])
+                      if generated else prompt)
+        L_eff = L + len(generated)
+        max_new = int(req.max_new_tokens) - len(generated)
+        if (true_len != L_eff or bs != self.kv_block_size or max_new < 1
+                or chain != chain_hashes(prompt_eff, self.kv_block_size)
+                or len(layers) != len(self.cache)):
+            return None
+        flat = self.cache[0]["paged_key"].shape[2]
+        blocks = self.pool.adopt_blocks(slot, L_eff, max_new)
+        kv = []
+        for layer in layers:
+            try:
+                k = _payload_tensor(layer["k"])
+                v = _payload_tensor(layer["v"])
+            except (KeyError, TypeError, ValueError):
+                k = v = None
+            if (k is None or k.dim() != 3
+                    or tuple(k.shape) != (len(blocks), bs, flat)
+                    or v.shape != k.shape):
+                # shape lies past the chain check: un-admit, and the
+                # fallback prefill takes the slot instead
+                self.pool.free_slot(slot)
+                return None
+            kv.append((k, v))
+        dev = self.device
+        pages = torch.as_tensor(blocks, dtype=torch.long, device=dev)
+        row = torch.as_tensor(self.pool.table[slot], dtype=torch.int32,
+                              device=dev)
+        for node, (k, v) in zip(self.cache, kv):
+            for name, t in (("paged_key", k), ("paged_value", v)):
+                node[name][pages] = t.to(device=dev, dtype=node[name].dtype)
+            node["page_table"][slot] = row
+            node["cache_index"][slot] = L_eff
+        if self.decode_mode == "speculative":
+            padded, chunk = self._pad_prompt(prompt_eff)
+            self._draft_prefill(padded, chunk, slot, L_eff)
+        self._stamp_lane(slot, torch.tensor(first, device=dev), max_new)
+        self.stats.adoptions += 1
+        return {"req": req, "tokens": list(generated),
+                "pending_first": True}
+
     def _fits(self, req: Request) -> bool:
         """Whether the pool can take ``req`` now: its full reservation,
         less the blocks a cached prefix lends it, plus the copy-on-write
@@ -819,6 +1275,28 @@ class ServeLoop:
         loop is single-threaded); the latest request wins."""
         self._pending_swap = {"fn": params_fn, "version": version,
                               "on_swapped": on_swapped}
+
+    def request_migrate(self, rids) -> None:
+        """Ask the loop to hand the named requests OUT at the next safe
+        point (service mode): each leaves as a ``reason="migrate"``
+        completion carrying its exported KV (a lane) or nothing (queued).
+        Unknown rids are ignored: the request finished first."""
+        self._migrate_rids.update(str(r) for r in rids)
+
+    def request_evacuate(self) -> None:
+        """Ask the loop to hand EVERYTHING out (queued, parked and in
+        flight) at the next safe point (service mode; a drain); the flag
+        clears after one pass."""
+        self._evacuate = True
+
+    def _spec_k(self, live: int) -> int:
+        """The segment's draft length: the fixed ``num_draft``, or the
+        adaptive policy's pick at the live-lane count (never 0: inside a
+        speculative segment there is no plain round)."""
+        if self._spec_policy is None:
+            return self._spec_ladder[0]
+        return int(self._spec_policy.best_k(batch=max(live, 1),
+                                            allow_plain=False))
 
     def _apply_swap(self, swap: dict) -> None:
         tree = swap["fn"]()
@@ -875,7 +1353,7 @@ class ServeLoop:
             return
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
-        shape = (self.B, 1 + self.steps)
+        shape = (self.B, 1 + self._emit_width)
         while len(self._ring) < self.pipeline_depth:
             self._ring.append({
                 "emits": torch.empty(shape, dtype=torch.long,
@@ -913,14 +1391,20 @@ class ServeLoop:
         recycled block would be written by their merge.  It is parked as
         a ZOMBIE (finalized for the caller, not admittable, blocks held)
         until the drain passes the kill point; segments dispatched after
-        the kill see the lane frozen on the device."""
+        the kill see the lane frozen on the device.
+
+        ``preempt="migrate"``, roles and migration intents are served
+        here too: a prefill-role loop ends each request at its handoff;
+        before any lane is exported (parked, migrated out) every segment
+        in flight is drained, so the host token list is final and no
+        merge can write the exported pages."""
         for req in requests:  # fail BEFORE any slot is touched, not mid-run
             self._validate(req)
         self._ready_ring()
         pending: deque[Request] = deque()
         slot_state: list[dict | None] = [None] * self.B
         done: list[Completion] = []
-        # (seq, fetched emits, n_steps, t_dispatch)
+        # (seq, fetched emits, n_steps, K, speculative stats, t_dispatch)
         inflight: deque[tuple] = deque()
         seq = 0   # segments dispatched so far == index of the next one
         closed = source is None
@@ -1038,13 +1522,20 @@ class ServeLoop:
                 return  # the swap barrier: no admissions until it lands
             for slot in range(self.B):
                 if slot_state[slot] is None and pending:
-                    if self.pool is not None and not self._fits(pending[0]):
+                    # preempt="migrate" admits the best waiting class
+                    # first (FIFO within a class)
+                    sel = (max(range(len(pending)),
+                               key=lambda i: (pending[i].priority, -i))
+                           if self.preempt == "migrate" else 0)
+                    req = pending[sel]
+                    if self.pool is not None and not self._fits(req):
                         # capacity gate: QUEUE instead of overrunning the
                         # pool, FIFO (a smaller request behind the head
                         # never jumps it, which would starve long prompts)
                         break
-                    req = pending.popleft()
-                    if (self._degraded and req.priority <= 0
+                    del pending[sel]
+                    if (self.preempt != "migrate" and self._degraded
+                            and req.priority <= 0
                             and req.max_new_tokens > self.degrade_max_new):
                         # degraded mode: best-effort traffic gets a short
                         # answer instead of (later) no answer; a copy, the
@@ -1092,7 +1583,7 @@ class ServeLoop:
             token + lane stamps) so it joins the next segment, its drain
             gated on that segment's index."""
             t0 = time.perf_counter()
-            worked = False
+            worked = handed = False
             for slot in range(self.B):
                 st = slot_state[slot]
                 if st is None or "prefill" not in st:
@@ -1114,11 +1605,28 @@ class ServeLoop:
                         pf["padded"][0, :pf["L"]],
                         self.pool._slot_blocks[slot])
                 del st["prefill"]
+                if self.role == "prefill":
+                    # the prefill role's job ends here: the lane never
+                    # decodes; its pages and first token leave as the
+                    # handoff, and the slot frees at once
+                    self._active[slot] = False
+                    emit(Completion(
+                        rid=st["req"].rid,
+                        prompt=np.asarray(st["req"].prompt),
+                        tokens=np.zeros((0,), np.int32), reason="handoff",
+                        handoff=self._build_handoff(slot, st["req"], pf)))
+                    slot_state[slot] = None
+                    handed = True
+                    continue
                 st["seq"] = seq
             if worked:
                 if synced:
                     self._sync()
                 stats.prefill_seconds += time.perf_counter() - t0
+            if handed:
+                # no decode dispatch will come to refill the freed lanes
+                admit_free()
+                shed()
 
         def busy_decode() -> bool:
             """Lanes a segment could advance (zombies and prefill-phase
@@ -1132,6 +1640,8 @@ class ServeLoop:
             while lanes are still prefilling, and the drain that refunds a
             zombie's blocks), except behind a swap barrier, which keeps it
             out of every lane."""
+            if self.role == "prefill":
+                return False
             return busy_decode() or (bool(pending)
                                      and self._pending_swap is None)
 
@@ -1151,6 +1661,11 @@ class ServeLoop:
             copy to the host; no host wait at depth >= 2."""
             nonlocal seq
             n = self._plan_steps(slot_state)
+            k = 0
+            if self.decode_mode == "speculative":
+                k = self._spec_k(sum(1 for st in slot_state
+                                     if st is not None
+                                     and not st.get("zombie")))
             if self.pool is not None:
                 # grow-on-decode-boundary: every decoding lane's pages
                 # cover the segment's worst case (drawn from its admit-time
@@ -1159,12 +1674,20 @@ class ServeLoop:
                 for slot, st in enumerate(slot_state):
                     if (st is not None and not st.get("zombie")
                             and "prefill" not in st):
-                        self.pool.grow(slot, n)
+                        # a speculative segment's last round may emit a
+                        # whole K+1 window past n - 1
+                        self.pool.grow(slot, n + k)
                 self._stamp_table()
             t0 = time.perf_counter()
-            emits_dev, corrupt_dev = self._segment(n)
+            spec = None
+            if k:
+                emits_dev, corrupt_dev, spec = self._segment_spec(n, k)
+                stats.spec_k = k
+            else:
+                emits_dev, corrupt_dev = self._segment(n)
             inflight.append((seq, self._fetch_start(seq, emits_dev,
-                                                    corrupt_dev), n, t0))
+                                                    corrupt_dev),
+                             n, k, spec, t0))
             seq += 1
             stats.segments += 1
 
@@ -1172,16 +1695,32 @@ class ServeLoop:
             """Resolve the oldest segment in flight: wait for its copy,
             then feed every lane whose stamp says this segment carries its
             tokens, and refund the zombies it was the last to hold."""
-            s_idx, fetched, n, t_disp = inflight.popleft()
+            s_idx, fetched, n, k, spec, t_disp = inflight.popleft()
             t0 = time.perf_counter()
             emits, corrupt = self._fetch_wait(fetched)
             now = time.perf_counter()
             stats.host_wait_seconds += now - t0
             dt = now - t_disp
             stats.decode_seconds += dt
-            per = dt / n
-            self._step_ema = (per if self._step_ema is None
-                              else 0.7 * self._step_ema + 0.3 * per)
+            if spec is not None:
+                n, rounds, acc, act = spec   # n: tokens the segment emitted
+                stats.spec_rounds += rounds
+                stats.spec_draft_steps += rounds * (k + 1)
+                stats.spec_accepted += acc
+                stats.spec_row_rounds += act
+                policy = self._spec_policy
+                if policy is not None and act > 0:
+                    policy.update({"rounds": act, "draft_accepted": acc},
+                                  batch=1, num_draft=k)
+                if policy is not None and rounds > 0:
+                    # each K's first dispatch stays out of the cost model
+                    if self._spec_uses.get(k, 0) >= 1:
+                        policy.observe_round_cost(k, dt / rounds)
+                    self._spec_uses[k] = self._spec_uses.get(k, 0) + 1
+            if n > 0:
+                per = dt / n
+                self._step_ema = (per if self._step_ema is None
+                                  else 0.7 * self._step_ema + 0.3 * per)
             for slot in range(self.B):
                 st = slot_state[slot]
                 if (st is None or st.get("zombie") or "seq" not in st
@@ -1204,6 +1743,152 @@ class ServeLoop:
                     self.pool.free_slot(slot)
                     slot_state[slot] = None
 
+        # -- live KV migration (preemption, rebalance, drain) -------------
+
+        def quiesce() -> None:
+            """Drain EVERY segment in flight: each lane's host token list
+            is then final, zombies are refunded, and no merge can touch
+            the pages an export reads."""
+            while inflight:
+                drain_oldest()
+
+        def export_lane(slot: int) -> dict:
+            """Freeze ``slot`` on the device, export it as a migration
+            payload and release the lane (no completion: the caller parks
+            it or hands it out)."""
+            self._active[slot] = False
+            payload = self._build_migration(slot, slot_state[slot])
+            slot_state[slot] = None
+            return payload
+
+        def park(slot: int) -> None:
+            """Export ``slot`` and park it here, its payload whole in host
+            RAM, to resume through the adopt path."""
+            req = slot_state[slot]["req"]
+            self._parked[req.rid] = {"req": req, "payload": export_lane(slot)}
+            stats.preempted += 1
+
+        def migrate_out(req: Request, payload: dict | None) -> None:
+            """Hand a request out as a ``reason="migrate"`` completion,
+            with its lane's payload or none (it never held a lane, or was
+            mid-prefill: a re-prefill elsewhere gives the same bytes)."""
+            stats.migrated_out += 1
+            emit(Completion(rid=req.rid, prompt=np.asarray(req.prompt),
+                            tokens=np.zeros((0,), np.int32),
+                            reason="migrate", handoff=payload))
+
+        def do_migrates() -> bool:
+            """Serve the migration intents: everything (evacuate) or the
+            named requests, queued, parked or in a lane.  Batch mode has
+            no one to resume a migrated request, so there the intents
+            are dropped."""
+            nonlocal pending
+            if not (self._evacuate or self._migrate_rids):
+                return False
+            evac, wanted = self._evacuate, set(self._migrate_rids)
+            self._migrate_rids.clear()
+            self._evacuate = False
+            if sink is None and source is None:
+                return False
+
+            def chosen(req) -> bool:
+                return evac or str(req.rid) in wanted
+
+            moved = False
+            kept: deque[Request] = deque()
+            for req in pending:
+                if chosen(req):
+                    migrate_out(req, None)
+                    moved = True
+                else:
+                    kept.append(req)
+            pending = kept
+            for rid in list(self._parked):
+                if chosen(self._parked[rid]["req"]):
+                    entry = self._parked.pop(rid)
+                    migrate_out(entry["req"], entry["payload"])
+                    moved = True
+            lanes = [slot for slot, st in enumerate(slot_state)
+                     if st is not None and not st.get("zombie")
+                     and chosen(st["req"])]
+            if self.pool is not None and lanes:
+                quiesce()
+                for slot in lanes:
+                    st = slot_state[slot]
+                    if st is None or st.get("zombie"):
+                        continue     # it finished during the quiesce
+                    if "prefill" in st:
+                        # mid-prefill: no finished prefix to export
+                        self.pool.free_slot(slot)
+                        slot_state[slot] = None
+                        migrate_out(st["req"], None)
+                    else:
+                        migrate_out(st["req"], export_lane(slot))
+                    moved = True
+            return moved
+
+        def maybe_preempt() -> bool:
+            """Priority preemption (``preempt="migrate"``): when the loop
+            is degraded, or the best waiting request is blocked (no free
+            lane, or the pool cannot take it) while a strictly lower
+            priority lane decodes, quiesce and PARK the lowest-priority
+            lane (of those, the one with the most tokens) instead of
+            clamping it."""
+            if (self.preempt != "migrate" or self.pool is None
+                    or self.role == "prefill" or not pending):
+                return False
+
+            def victims() -> list[tuple[int, int, int]]:
+                top = max(r.priority for r in pending)
+                return sorted(
+                    (st["req"].priority, -len(st["tokens"]), slot)
+                    for slot, st in enumerate(slot_state)
+                    if st is not None and not st.get("zombie")
+                    and "prefill" not in st and st["req"].priority < top)
+
+            if not victims():
+                return False
+            if not self._degraded:
+                top_req = max(pending, key=lambda r: r.priority)
+                blocked = not any(st is None for st in slot_state)
+                if not blocked:
+                    blocked = not self.pool.can_admit(
+                        int(np.asarray(top_req.prompt).size),
+                        int(top_req.max_new_tokens))
+                if not blocked:
+                    return False
+            quiesce()   # drains may finalize lanes: pick again after
+            vs = victims()
+            if not vs:
+                return False
+            park(vs[0][2])
+            return True
+
+        def maybe_resume() -> bool:
+            """Put the oldest parked request back at the FRONT of the
+            queue, carrying its payload, once pressure clears (or intake
+            has closed); one past its deadline completes "timeout"."""
+            if not self._parked or self._pending_swap is not None:
+                return False
+            if not closed and self._degraded:
+                return False
+            rid = next(iter(self._parked))
+            req = self._parked[rid]["req"]
+            if req.deadline_s is not None and self._clock() > req.deadline_s:
+                del self._parked[rid]
+                complete_unadmitted(req, "timeout")
+                return True
+            if not any(st is None for st in slot_state):
+                return False
+            if not self.pool.can_admit(int(np.asarray(req.prompt).size),
+                                       int(req.max_new_tokens)):
+                return False
+            entry = self._parked.pop(rid)
+            pending.appendleft(dataclasses.replace(
+                req, kv_handoff=entry["payload"]))
+            stats.resumed += 1
+            return True
+
         intake(requests, strict=True)
         admit_free()
         shed()
@@ -1217,6 +1902,14 @@ class ServeLoop:
                     admit_free()
                     shed()
             expire_inflight()
+            if (self.preempt == "migrate" and self._pending_swap is not None
+                    and source is not None):
+                # fast swap: hand in-flight work to peers so the barrier
+                # drains in about one handoff instead of the longest decode
+                self._evacuate = True
+            if do_migrates() | maybe_preempt() | maybe_resume():
+                admit_free()
+                shed()
             advance_admissions()
             if can_work():
                 dispatch()
@@ -1227,7 +1920,7 @@ class ServeLoop:
                 drain_oldest()
                 admit_free()
             maybe_swap()
-            if not (pending or inflight
+            if not (pending or inflight or self._parked
                     or any(st is not None for st in slot_state)):
                 if closed:
                     break

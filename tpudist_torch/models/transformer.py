@@ -66,9 +66,8 @@ issues every collective.  Weights cross with
 :func:`~tpudist_torch.models.convert.from_flax_tp_params`.
 
 Not ported yet: sharded decode (``decode_shard``, and a cache on a
-tensor-parallel model: ``tp_generate``) and the per-row speculative verify
-chunk without side buffers.  Each raises ``NotImplementedError`` naming
-its ROADMAP item.
+tensor-parallel model: ``tp_generate``).  Each raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -91,9 +90,6 @@ AttentionFn = Callable[..., torch.Tensor]
 
 _SHARD_TODO = ("sharded decode (decode_shard) is not ported yet (ROADMAP "
                "Queue A: serving breadth, sharded decode)")
-_VERIFY_TODO = ("a per-row multi-token verify chunk without side buffers is "
-                "not ported yet (ROADMAP Queue A: speculative decoding, "
-                "roles and preemption)")
 _TP_DECODE_TODO = ("a cache on a tensor-parallel model (tpudist's "
                    "tp_generate) is not ported yet (ROADMAP Queue A 9); "
                    "gather the parameters and decode on one card")
@@ -386,31 +382,39 @@ class CausalSelfAttention(nn.Module):
         instead (:meth:`_serve_attend_sided`).  A sliding-window model
         takes the plain banded mask here: the per-row kernel has no
         per-row window trim, in the JAX package either, so the ServeLoop
-        warns and serves such a model without side buffers."""
+        warns and serves such a model without side buffers.
+
+        ``s > 1`` is the speculative VERIFY CHUNK of such a model: row
+        ``r``'s ``s`` tokens land at ``idx[r]..idx[r]+s-1`` (the write
+        clamped at ``S - s``), the index advances by ``s``, and query
+        ``j`` attends over the row's first ``idx[r] + j + 1`` positions
+        (and its window) through the same banded mask; the ServeLoop
+        rolls the index back to the accepted prefix afterwards."""
         if self.serve_side_slots > 0:
             return self._serve_attend_sided(q, k, v, cache)
         cfg = self.cfg
         b, s, _, d = q.shape
-        if s > 1:
-            raise NotImplementedError(_VERIFY_TODO)
         h_kv = k.shape[2]
         flat = h_kv * d
         S = cfg.max_seq_len
         ck, cv, idx = (cache["cached_key"], cache["cached_value"],
                        cache["cache_index"])
-        rows = torch.arange(b, device=q.device)
-        at = idx.clamp(max=S - 1).long()
-        ck[rows, at] = k.reshape(b, flat).to(ck.dtype)
-        cv[rows, at] = v.reshape(b, flat).to(cv.dtype)
-        cache["cache_index"] = idx + 1
-        if cfg.attention_window is None:
+        steps = torch.arange(s, device=q.device)
+        at = idx.clamp(max=S - s).long()[:, None] + steps[None, :]  # [B, s]
+        rows = torch.arange(b, device=q.device)[:, None]
+        ck[rows, at] = k.reshape(b, s, flat).to(ck.dtype)
+        cv[rows, at] = v.reshape(b, s, flat).to(cv.dtype)
+        cache["cache_index"] = idx + s
+        if s == 1 and cfg.attention_window is None:
             return flash_decode(q, ck, cv, idx + 1, packed_kv_heads=h_kv)
-        pos = torch.arange(S, device=q.device)[None, :]
-        mask = (pos <= idx[:, None]) & (idx[:, None] - pos
-                                        < cfg.attention_window)  # [B, S]
+        pos = torch.arange(S, device=q.device)[None, None, :]
+        q_pos = (idx[:, None] + steps[None, :])[..., None]        # [B, s, 1]
+        mask = pos <= q_pos                                         # [B, s, S]
+        if cfg.attention_window is not None:
+            mask = mask & (q_pos - pos < cfg.attention_window)
         k_rep, v_rep = repeat_kv(q, ck.view(b, S, h_kv, d),
                                  cv.view(b, S, h_kv, d))
-        return _masked_attend(q, k_rep, v_rep, mask[:, None, None, :])
+        return _masked_attend(q, k_rep, v_rep, mask[:, None])
 
     def _serve_attend_sided(self, q, k, v, cache):
         """The side-buffer serve step: ``cache_index`` stays the MAIN-cache

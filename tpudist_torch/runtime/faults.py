@@ -3,7 +3,7 @@
 as the same code: the port reads the same ``TPUDIST_FAULT_*`` knobs).
 The coordination, heartbeat and collective hooks are used by the port's
 runtime today; the serving, router and hand-off hooks wait for the
-modules that call them (ROADMAP Queue A 4 and A 10).
+modules that call them (ROADMAP Queue A 10: the fleet's fault seams).
 
 Robustness code that is only exercised by real hardware failures is
 robustness code that has never run.  This module is the harness that
