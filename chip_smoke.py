@@ -231,7 +231,25 @@ Phases, each printing one JSON line and each fatal on failure:
    handoffs adopted by a decode-role loop (equal to the unified loop, no
    fallback), a corrupted chain falling back exactly, priority preemption
    with every lane busy (exact, preempted == resumed >= 1), an
-   evacuation adopted by a peer; handoff bytes and ms.
+   evacuation adopted by a peer; handoff bytes and ms;
+42. sp_decode (after kernels_paged) — K2 and K6 at a global pos_offset
+   over 4 virtual sequence shards of the serve rows' 8k cache, f32 and
+   bf16 (per-row lengths, a window starting mid-shard, three shards all
+   masked): each shard against its plain version, a dead shard exactly
+   0 with LSE -1e30, the in-process LSE merge against the unsharded K2;
+   each shard's time beside its bound, the merged step beside the
+   unsharded K2, its plain version and SDPA;
+43. sharded_generate (after serve_roles) — the serve width, 8 layers,
+   f32, over one-rank NCCL groups: tp_generate, sp_generate,
+   tp_sp_generate (flash), sample_generate at top_k=1 and
+   tp_speculative_generate with bench.py's draft equal to
+   greedy_generate; beam search (width 4) through K1/K2 equal to its
+   plain versions; K1/K2 launches exact, ms a token;
+44. kv_tier — serve_prefix's model and prefix under a 40-block pool, the
+   host tier off and on: completions identical, spilled and re-admitted
+   blocks and bytes, re-admit ms, prefill tokens saved; serve_roles'
+   preemption with the tier off and on, the parked lane's pages through
+   the tier, exact.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -272,6 +290,20 @@ SPEC_PARITY = {"lens": [1100, 37, 600, 513], "new": 24, "gen_prompt": 300,
 SERVE_ROLES = {"lens": [1024, 2048, 512, 1024, 512, 2048], "new": 256,
                "block": 128, "slots": 4, "steps": 32, "vip": (512, 64),
                "vip_at": 3, "evacuate_at": 6}
+# sp_decode: K2/K6 over this many virtual sequence shards of the 8k cache
+SP_DECODE = {"shards": 4}
+# sharded_generate: the serve width at this depth, f32, 2 rows of 1,000
+# prompt tokens (prefilled in chunks of 512), 32 new; beams of 4.  Beam
+# scores through K1/K2 within BEAM_SCORE_ATOL of the plain versions' (sums
+# of 32 f32 log-softmax terms over 32,000 logits, in other orders)
+SHARDED_GEN = {"layers": 8, "batch": 2, "prompt": 1000, "new": 32,
+               "chunk": 512, "beam": 4}
+BEAM_SCORE_ATOL = 1e-3
+# kv_tier: a 40-block pool (block 32) under the 1,024-token prefix (32
+# blocks cached), 3 rounds of a prefix request then 2 fillers of 16 prompt
+# tokens and 192 new (7 blocks each: their reservations evict 6 cached
+# prefix blocks)
+KV_TIER = {"blocks": 40, "rounds": 3, "filler_new": 192}
 # host seconds idled at each end of a decode kernel's profile window, so
 # that a device clock running apart from the host's cuts no call off it
 PROFILE_PAD_S = 0.05
@@ -1850,6 +1882,481 @@ def phase_serve_prefix(torch, dev, seed):
         del arm["sig"]
     emit({"phase": "serve_prefix", "requests": len(reqs), "exact": exact,
           "speedup": off["wall_s"] / on["wall_s"], "off": off, "on": on})
+
+
+def phase_sharded_generate(torch, dev, seed):
+    """The sharded rollouts at the serve model's full width (vocab 32000,
+    8 heads over 2 KV heads, embed 512, 8k context; SHARDED_GEN's depth,
+    batch and lengths), f32, over one-rank NCCL groups of a model 1 x seq
+    1 mesh: tp_generate, sp_generate and tp_sp_generate with
+    decode_attention="flash", sample_generate at top_k=1, and
+    tp_speculative_generate with bench.py's draft must give
+    greedy_generate's tokens on the card; beam search at width 4 through
+    K1/K2 must give the plain versions' beams and scores.  Each run's
+    launches are counted (K1 = prefill chunks x layers and K2 = decode
+    steps x layers, exactly), with its ms a token on the host clock (the
+    second of two runs)."""
+    import numpy as np
+
+    from tpudist_torch.models.beam import beam_search_generate
+    from tpudist_torch.models.generate import (
+        greedy_generate,
+        sample_generate,
+        sp_generate,
+        tp_generate,
+        tp_sp_generate,
+    )
+    from tpudist_torch.models.speculative import tp_speculative_generate
+    from tpudist_torch.runtime import make_mesh, shutdown
+
+    G = SHARDED_GEN
+    cfg = serve_config(torch, G["layers"], torch.float32)
+    sd = random_model(torch, cfg, dev, seed + 19).state_dict()
+    dcfg = spec_draft_config(torch, torch.float32)
+    dsd = random_model(torch, dcfg, dev, seed + 20).state_dict()
+    rng = np.random.default_rng(seed + 19)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (G["batch"], G["prompt"])).astype(np.int32))
+    new, chunk, L = G["new"], G["chunk"], cfg.num_layers
+    chunks = -(-G["prompt"] // chunk)
+    want = {"K1": chunks * L, "K2": (new - 1) * L}
+    runs = {}
+
+    def timed(name, fn, expect=None):
+        fn()                # warm-up: a new group's first NCCL call
+        reset_launches()    # sets its communicator up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        runs[name] = {"ms_per_token": wall / new * 1e3, "wall_s": wall,
+                      "launches": launches}
+        if expect is not None:
+            check(all(launches[k] == n for k, n in expect.items()),
+                  f"sharded_generate: {name} launches {launches}, "
+                  f"expected {expect}")
+        return out
+
+    greedy = timed("greedy_generate", lambda: greedy_generate(
+        cfg, sd, prompt, new, prefill_chunk=chunk, device=dev), want).cpu()
+    _one_rank_group(torch, dev)
+    try:
+        mesh = make_mesh({"model": 1, "seq": 1})
+        for name, fn in (("tp_generate", tp_generate),
+                         ("sp_generate", sp_generate),
+                         ("tp_sp_generate", tp_sp_generate)):
+            got = timed(name, lambda: fn(
+                cfg, sd, prompt, new, mesh, prefill_chunk=chunk,
+                decode_attention="flash", device=dev), want).cpu()
+            check(torch.equal(got, greedy),
+                  f"sharded_generate: {name} differs from greedy_generate")
+        got = timed("sample_generate_top_k1", lambda: sample_generate(
+            cfg, sd, prompt, new, torch.Generator(dev).manual_seed(seed),
+            top_k=1, prefill_chunk=chunk, decode_attention="flash",
+            device=dev), want).cpu()
+        check(torch.equal(got, greedy), "sharded_generate: sample_generate "
+              "at top_k=1 differs from greedy_generate")
+        toks, st = timed("tp_speculative_generate",
+                         lambda: tp_speculative_generate(
+                             cfg, sd, dcfg, dsd, prompt, new, mesh,
+                             num_draft=4, prefill_chunk=chunk,
+                             decode_attention="flash", return_stats=True,
+                             device=dev))
+        runs["tp_speculative_generate"].update(st)
+        check(torch.equal(toks.cpu(), greedy), "sharded_generate: "
+              "tp_speculative_generate differs from greedy_generate")
+        spec_l = runs["tp_speculative_generate"]["launches"]
+        check(spec_l["K1"] > 0 and spec_l["K2"] > 0,
+              f"sharded_generate: tp_speculative_generate launches {spec_l}")
+    finally:
+        shutdown()
+    w = G["beam"]
+    beam, scores = timed("beam_search_generate", lambda: beam_search_generate(
+        cfg, sd, prompt, new, beam_size=w, prefill_chunk=chunk,
+        decode_attention="flash", return_scores=True, device=dev), want)
+    plain, pscores = beam_search_generate(
+        cfg, sd, prompt, new, beam_size=w, prefill_chunk=chunk,
+        decode_attention="dense", return_scores=True, device=dev)
+    check(torch.equal(beam.cpu(), plain.cpu()),
+          "sharded_generate: beam search through K1/K2 differs from the "
+          "plain versions' beams")
+    score_err = (scores - pscores).abs().max().item()
+    check(score_err <= BEAM_SCORE_ATOL,
+          f"sharded_generate: beam scores {score_err} from the plain ones")
+    check(torch.equal(beam[:, 0, :G["prompt"]].cpu(), prompt.to(
+        torch.int32)), "sharded_generate: beams lost the prompt")
+    totals = {k: sum(r["launches"][k] for r in runs.values())
+              for k in runs["greedy_generate"]["launches"]}
+    emit({"phase": "sharded_generate", "exact": True, "config": G,
+          "beam_score_err": score_err, "runs": runs, "launches": totals})
+    torch.cuda.empty_cache()
+    return totals
+
+
+class _tier_env:
+    """``TPUDIST_KV_HOST_TIER_BYTES`` set to ``nbytes`` while a ServeLoop
+    is built (it reads the budget once)."""
+
+    def __init__(self, nbytes: int) -> None:
+        self.nbytes = nbytes
+
+    def __enter__(self):
+        import os
+
+        self.old = os.environ.get("TPUDIST_KV_HOST_TIER_BYTES")
+        os.environ["TPUDIST_KV_HOST_TIER_BYTES"] = str(int(self.nbytes))
+
+    def __exit__(self, *exc):
+        import os
+
+        if self.old is None:
+            os.environ.pop("TPUDIST_KV_HOST_TIER_BYTES", None)
+        else:
+            os.environ["TPUDIST_KV_HOST_TIER_BYTES"] = self.old
+        return False
+
+
+def phase_kv_tier(torch, dev, seed):
+    """The host-RAM KV tier on serve_prefix's model (8 layers, bf16, 2k
+    context, block 32) and its 1,024-token shared prefix, with a pool
+    (KV_TIER["blocks"]) too small to keep the prefix cached: each round
+    serves one prefix request (1,024 + 8 tokens, 32 new), then short
+    prompts with long budgets whose reservations evict part of the cached
+    prefix.  Once with the tier off (the evicted blocks re-prefill) and
+    once on (they spill to pinned host memory and re-admit): completions
+    identical; re-admits, spilled and re-admitted bytes, re-admit ms and
+    the prefill tokens saved; pool and tier drained.  Then serve_roles'
+    preemption (a priority-1 arrival with every lane busy) with the tier
+    off and on: the parked lane's pages spill block by block into the
+    tier and resume exactly."""
+    import numpy as np
+
+    from tpudist_torch.models.kv_pages import blocks_for
+    from tpudist_torch.models.serving import Request, ServeLoop
+    from tpudist_torch.models.transformer import TransformerConfig
+
+    T = KV_TIER
+    cfg = TransformerConfig(vocab_size=32000, num_layers=8, num_heads=8,
+                            num_kv_heads=2, embed_dim=512, max_seq_len=2048,
+                            compute_dtype=torch.bfloat16)
+    sd = random_model(torch, cfg, dev, seed + 8).state_dict()
+    rng = np.random.default_rng(seed + 21)
+    prefix = rng.integers(0, cfg.vocab_size, 1024).astype(np.int32)
+    script = []
+    for r in range(T["rounds"]):
+        script.append([Request(np.concatenate([prefix, rng.integers(
+            0, cfg.vocab_size, 8).astype(np.int32)]), 32, rid=f"p{r}")])
+        script.append([Request(rng.integers(0, cfg.vocab_size, 16).astype(
+            np.int32), T["filler_new"], rid=f"f{r}.{j}") for j in range(2)])
+    arms = {}
+    for name, budget in (("off", 0), ("on", 256 << 20)):
+        with _tier_env(budget):
+            loop = ServeLoop(cfg, sd, num_slots=2, steps_per_sync=8,
+                             prefill_chunk=256, cache_layout="paged",
+                             kv_block_size=32, kv_num_blocks=T["blocks"],
+                             pipeline_depth=1, device=dev)
+        check((loop._tier is not None) == (budget > 0),
+              f"kv_tier: tier {loop._tier} with budget {budget}")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comps = [c for reqs in script for c in loop.run(reqs)]
+        torch.cuda.synchronize()
+        arm = {"sig": {c.rid: (tuple(int(t) for t in c.tokens), c.reason)
+                       for c in comps},
+               "wall_s": time.perf_counter() - t0,
+               "launches": read_launches(),
+               "prefix_stats": dict(loop.prefix_stats)}
+        tier = loop._tier
+        if tier is not None:
+            arm.update(spilled_blocks=tier.spills,
+                       spilled_bytes=tier.spilled_bytes,
+                       readmitted_blocks=tier.readmits,
+                       readmitted_bytes=tier.readmitted_bytes,
+                       evictions=tier.evictions,
+                       readmit_ms=loop.tier_stats["readmit_seconds"] * 1e3,
+                       readmit_ms_per_block=(
+                           loop.tier_stats["readmit_seconds"] * 1e3
+                           / max(tier.readmits, 1)))
+        loop.pool.check()
+        loop.flush_prefix_cache()
+        arm["drained"] = (loop.pool.free_blocks == loop.pool.num_blocks
+                          and loop.tier_drained() in (True, None))
+        arms[name] = arm
+        del loop
+    off, on = arms["off"], arms["on"]
+    check(off["sig"] == on["sig"],
+          "kv_tier: completions differ with the tier on")
+    saved = (off["prefix_stats"]["prefill_tokens"]
+             - on["prefix_stats"]["prefill_tokens"])
+    check(on["readmitted_blocks"] > 0 and on["spilled_bytes"] > 0
+          and saved > 0, f"kv_tier: nothing re-admitted ({on}, saved "
+          f"{saved} prefill tokens)")
+    check(off["drained"] and on["drained"],
+          "kv_tier: a pool or the tier did not drain")
+    check(on["launches"]["K5"] > 0 and on["launches"]["K1"] > 0,
+          f"kv_tier: launches {on['launches']}")
+    for arm in arms.values():
+        del arm["sig"]
+
+    # serve_roles' preemption with the tier off and on
+    R = SERVE_ROLES
+    rcfg = serve_config(torch, 8, torch.bfloat16)
+    rsd = random_model(torch, rcfg, dev, seed + 7).state_dict()
+    rrng = np.random.default_rng(seed + 7)
+    v = rcfg.vocab_size
+    reqs = [Request(rrng.integers(0, v, n).astype(np.int32), R["new"],
+                    rid=i) for i, n in enumerate(R["lens"])]
+    vip = Request(rrng.integers(0, v, R["vip"][0]).astype(np.int32),
+                  R["vip"][1], rid="vip", priority=1)
+    kw = dict(num_slots=R["slots"], steps_per_sync=R["steps"],
+              prefill_chunk=512, cache_layout="paged",
+              kv_block_size=R["block"], preempt="migrate",
+              kv_num_blocks=R["slots"] * blocks_for(
+                  max(R["lens"]) + R["new"], R["block"]), device=dev)
+    park = {}
+    for name, budget in (("off", 0), ("on", 256 << 20)):
+        with _tier_env(budget):
+            loop = ServeLoop(rcfg, rsd, **kw)
+        polls, done = [0], []
+
+        def source():
+            polls[0] += 1
+            if polls[0] == 1:
+                return reqs
+            if polls[0] == R["vip_at"]:
+                return [vip]
+            return None if len(done) == len(reqs) + 1 else []
+
+        spills0 = loop._tier.spills if loop._tier is not None else 0
+        got = {c.rid: tuple(int(t) for t in c.tokens)
+               for c in loop.run(source=source, sink=done.append,
+                                 idle_wait_s=0.0)}
+        st = loop.stats
+        park[name] = {"tokens": got, "preempted": st.preempted,
+                      "resumed": st.resumed, "adoptions": st.adoptions,
+                      "fallbacks": st.handoff_fallbacks}
+        if loop._tier is not None:
+            park[name]["tier_blocks_parked"] = loop._tier.spills - spills0
+            park[name]["tier_bytes_spilled"] = loop._tier.spilled_bytes
+        loop.pool.check()
+        loop.flush_prefix_cache()
+        check(loop.pool.free_blocks == loop.pool.num_blocks,
+              f"kv_tier: preemption ({name}): pool not drained")
+        del loop
+    check(park["on"]["tokens"] == park["off"]["tokens"],
+          "kv_tier: a preempted run through the tier differs")
+    for arm in park.values():
+        check(arm["preempted"] >= 1 and arm["resumed"] == arm["preempted"]
+              and arm["fallbacks"] == 0,
+              f"kv_tier: preemption {arm}")
+        del arm["tokens"]
+    check(park["on"]["tier_blocks_parked"] > 0,
+          f"kv_tier: the parked lane did not go through the tier "
+          f"({park['on']})")
+    torch.cuda.empty_cache()
+    emit({"phase": "kv_tier", "exact": True, "config": T,
+          "prefill_tokens_saved": saved, "off": off, "on": on,
+          "preempt": park})
+    return on["launches"]
+
+
+def sp_summary(rows: list) -> dict:
+    """The sp_decode rows of one kernel for the kernels line: the worst
+    error over every shard and case, and the bf16 rows' times a shard
+    (K2 also the merged step and the unsharded call beside it)."""
+    out = {"sp_max_abs_err": max(r["max_abs_err"] for r in rows),
+           "sp_tol_ratio": max(r["tol_ratio"] for r in rows)}
+    for r in rows:
+        if r["dtype"] != "bfloat16":
+            continue
+        key = f"sp_{r['case']}"
+        if "shards" in r:
+            out[key] = {"shard_ms": [s["ms"] for s in r["shards"]],
+                        "shard_bound_ms": [s["bound_ms"]
+                                           for s in r["shards"]],
+                        **{k: r[k] for k in ("merged_ms", "ms", "plain_ms",
+                                             "library_ms", "bound_ms",
+                                             "bound_by")}}
+        else:
+            out[key] = {"shard_ms": r["shard_ms"],
+                        "shard_bound_ms": r["shard_bound_ms"]}
+    return out
+
+
+def _merge_virtual(torch, parts):
+    """The LSE merge of ``[(out [B, 1, H, D], lse [B, H])]`` partials of
+    virtual ranks in this process: :func:`lse_merge`'s arithmetic (f32
+    weights ``exp(lse_i - logsumexp)``, the weighted sum, the cast back)
+    with the all-gather and the all-reduce done as a stack and a sum."""
+    lse = torch.stack([p[1] for p in parts])
+    w = torch.exp(lse - torch.logsumexp(lse, 0))[:, :, None, :, None]
+    out = (torch.stack([p[0] for p in parts]).float() * w).sum(0)
+    return out.to(parts[0][0].dtype), torch.logsumexp(lse, 0)
+
+
+def phase_sp_decode(torch, dev, seed):
+    """K2 and K6 at ``pos_offset`` over SP_DECODE["shards"] virtual shards
+    of the serve rows' 8k cache (H=8, Hkv=2, D=64; 4 rows at 7680/5120/
+    2560/300, a scalar length with a window starting mid-shard, a length
+    that leaves 3 shards all masked), in f32 and bf16: each shard's out
+    and LSE against the plain version by ``compare``, a dead shard exactly
+    0 with LSE -1e30, the in-process LSE merge of the shards against the
+    unsharded K2.  bf16 times: each shard's K2 beside its bound, the
+    merged step (the shards' K2 calls and the merge) beside the unsharded
+    K2 and SDPA.  Returns ``{"K2": rows, "K6": rows}``."""
+    import torch.nn.functional as F
+
+    from tpudist_torch.ops import flash_decode as fd
+
+    g = torch.Generator(device=dev).manual_seed(seed + 18)
+    flush_buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    H, HKV, D, S, B = 8, 2, 64, 8192, 4
+    n = SP_DECODE["shards"]
+    s_loc = S // n
+    cases = (("per_row", torch.tensor([7680, 5120, 2560, 300],
+                                      dtype=torch.int32, device=dev), None),
+             ("window_mid_shard", torch.tensor(7000, dtype=torch.int32,
+                                               device=dev), 3000),
+             ("three_shards_masked", torch.tensor(1500, dtype=torch.int32,
+                                                  device=dev), None))
+    rows = {"K2": [], "K6": []}
+    for dt in (torch.float32, torch.bfloat16):
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+        q, kc, vc = rnd(B, 1, H, D), rnd(B, S, HKV * D), rnd(B, S, HKV * D)
+        q8 = fd.quantize_kv(kc.view(B, S, HKV, D), vc.view(B, S, HKV, D))
+        for name, lens, window in cases:
+            kw = dict(window=window, return_lse=True)
+            live = (lens.long().expand(B) if lens.dim() == 0
+                    else lens.long())
+            lo = (live - window).clamp_min(0) if window else 0 * live
+            parts, worst, worst8 = [], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+            shard_rows = []
+            for i in range(n):
+                sl = slice(i * s_loc, (i + 1) * s_loc)
+                k_i, v_i = kc[:, sl], vc[:, sl]
+                off = torch.tensor(i * s_loc, dtype=torch.int32, device=dev)
+                o, lse = fd.flash_decode(q, k_i, v_i, lens, pos_offset=off,
+                                         packed_kv_heads=HKV, **kw)
+                po, plse = fd.flash_decode_plain(
+                    q, k_i, v_i, lens, pos_offset=off, packed_kv_heads=HKV,
+                    **kw)
+                err = compare(o, lse, po, plse)
+                check(err[2] <= 1.0 and err[1] <= LSE_ATOL,
+                      f"K2 at pos_offset {i * s_loc} ({name}, {dt}) "
+                      f"disagrees with its plain version: {err}")
+                q8_i = tuple(t[:, sl] for t in q8)
+                o8, lse8 = fd.flash_decode_q8(q, *q8_i, lens, pos_offset=off,
+                                              **kw)
+                po8, plse8 = fd.flash_decode_q8_plain(q, *q8_i, lens,
+                                                      pos_offset=off, **kw)
+                err8 = compare(o8, lse8, po8, plse8)
+                check(err8[2] <= 1.0 and err8[1] <= LSE_ATOL,
+                      f"K6 at pos_offset {i * s_loc} ({name}, {dt}) "
+                      f"disagrees with its plain version: {err8}")
+                shard_live = ((live.clamp(max=(i + 1) * s_loc)
+                               - lo.clamp(min=i * s_loc)).clamp_min(0))
+                if int(shard_live.max()) == 0:
+                    dead = (bool((o == 0).all()) and bool((o8 == 0).all())
+                            and bool((lse == -1e30).all())
+                            and bool((lse8 == -1e30).all()))
+                    check(dead, f"shard {i} ({name}, {dt}) has no live key "
+                          f"but K2/K6 gave out != 0 or LSE != -1e30")
+                worst = [max(a, b) for a, b in zip(worst, err)]
+                worst8 = [max(a, b) for a, b in zip(worst8, err8)]
+                parts.append((o, lse))
+                n_live = int(shard_live.sum())
+                row = {"shard": i, "pos_offset": i * s_loc,
+                       "live_keys": n_live}
+                if dt == torch.bfloat16:
+                    nbytes = 2 * n_live * HKV * D * 2 + 2 * q.numel() * 2
+                    b_ms, b_by = bound(nbytes, 4.0 * n_live * H * D)
+                    # K6: int8 K and V, an f32 scale each per (token, head)
+                    b8_ms, _ = bound(2 * n_live * HKV * D
+                                     + 2 * n_live * HKV * 4
+                                     + 2 * q.numel() * 2,
+                                     4.0 * n_live * H * D)
+                    row.update(
+                        ms=timed_ms(lambda: fd.flash_decode(
+                            q, k_i, v_i, lens, pos_offset=off,
+                            packed_kv_heads=HKV, **kw), 50, flush),
+                        q8_ms=timed_ms(lambda: fd.flash_decode_q8(
+                            q, *q8_i, lens, pos_offset=off, **kw), 50,
+                            flush),
+                        bound_ms=b_ms, bound_by=b_by, q8_bound_ms=b8_ms)
+                shard_rows.append(row)
+            merged, mlse = _merge_virtual(torch, parts)
+            whole, wlse = fd.flash_decode(q, kc, vc, lens,
+                                          packed_kv_heads=HKV, **kw)
+            merr = compare(merged, mlse, whole, wlse)
+            check(merr[2] <= 1.0 and merr[1] <= LSE_ATOL,
+                  f"the LSE merge of {n} shards ({name}, {dt}) disagrees "
+                  f"with the unsharded K2: {merr}")
+            row = {"case": name, "dtype": str(dt).split(".")[1],
+                   "shards": shard_rows, "max_abs_err": worst[0],
+                   "lse_err": worst[1], "tol_ratio": worst[2],
+                   "merge_vs_unsharded": {"max_abs_err": merr[0],
+                                          "lse_err": merr[1],
+                                          "tol_ratio": merr[2]}}
+            if dt == torch.bfloat16:
+                n_live = int((live - lo).sum())
+                nbytes = 2 * n_live * HKV * D * 2 + 2 * q.numel() * 2
+                b_ms, b_by = bound(nbytes, 4.0 * n_live * H * D)
+                offs = [torch.tensor(i * s_loc, dtype=torch.int32,
+                                     device=dev) for i in range(n)]
+
+                def sharded_step():
+                    return _merge_virtual(torch, [fd.flash_decode(
+                        q, kc[:, i * s_loc:(i + 1) * s_loc],
+                        vc[:, i * s_loc:(i + 1) * s_loc], lens,
+                        pos_offset=offs[i], packed_kv_heads=HKV, **kw)
+                        for i in range(n)])
+
+                pos = torch.arange(S, device=dev)
+                mask = ((pos < live[:, None]) & (pos >= lo[:, None]))[
+                    :, None, None, :]
+                qt = q.transpose(1, 2)
+                kt = kc.view(B, S, HKV, D).transpose(1, 2)
+                vt = vc.view(B, S, HKV, D).transpose(1, 2)
+                row.update(
+                    merged_ms=timed_ms(sharded_step, 20, flush),
+                    ms=timed_ms(lambda: fd.flash_decode(
+                        q, kc, vc, lens, packed_kv_heads=HKV, **kw), 50,
+                        flush),
+                    plain_ms=timed_ms(lambda: fd.flash_decode_plain(
+                        q, kc, vc, lens, packed_kv_heads=HKV, **kw), 10,
+                        flush),
+                    library_ms=timed_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                        50, flush),
+                    bound_ms=b_ms, bound_by=b_by)
+            rows["K2"].append(row)
+            rows["K6"].append({"case": name, "dtype": row["dtype"],
+                               "max_abs_err": worst8[0],
+                               "lse_err": worst8[1],
+                               "tol_ratio": worst8[2],
+                               "shard_ms": [r.get("q8_ms")
+                                            for r in shard_rows],
+                               "shard_bound_ms": [r.get("q8_bound_ms")
+                                                  for r in shard_rows],
+                               "library_ms": None})
+        del kc, vc, q8
+    del flush_buf
+    torch.cuda.empty_cache()
+    emit({"phase": "sp_decode", "shards": n, "K2": rows["K2"],
+          "K6": rows["K6"],
+          "tolerance": {"o_atol": O_ATOL, "o_rtol": O_RTOL,
+                        "lse_atol": LSE_ATOL}})
+    return rows
 
 
 def phase_decode_q8(torch, dev, seed):
@@ -6254,6 +6761,7 @@ def main(argv=None) -> int:
 
     k1, k2 = phase_kernels(torch, dev, args.seed)
     paged_rows = phase_paged_kernels(torch, dev, args.seed)
+    sp_rows = phase_sp_decode(torch, dev, args.seed)
     phase_parity(torch, dev, args.seed)
     phase_paged_parity(torch, dev, args.seed)
     launches, loop = phase_serve(torch, dev, args.seed)
@@ -6273,6 +6781,9 @@ def main(argv=None) -> int:
     spec_launches = {"spec_parity": spec_parity_launches,
                      "spec_serve": phase_spec_serve(torch, dev, args.seed),
                      "serve_roles": phase_serve_roles(torch, dev, args.seed)}
+    spec_launches["sharded_generate"] = phase_sharded_generate(
+        torch, dev, args.seed)
+    spec_launches["kv_tier"] = phase_kv_tier(torch, dev, args.seed)
     q8_launches = phase_decode_q8(torch, dev, args.seed)
     bwd_rows, k1_train = phase_backward_kernels(torch, dev, args.seed)
     phase_train_parity(torch, dev, args.seed)
@@ -6355,7 +6866,8 @@ def main(argv=None) -> int:
                           + [spec_worst["K2"]["tol_ratio"]]),
          **{k: main_k2[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "partial_ms",
-                                    "merge_ms")}},
+                                    "merge_ms")},
+         **sp_summary(sp_rows["K2"])},
     ]
     main_bwd = next(r for r in bwd_rows if r["case"] == "train")
     tp_bwd = tp_rows[0]
@@ -6410,6 +6922,8 @@ def main(argv=None) -> int:
             ("K6", "flash_decode_q8 (K6)", q8_launches["K6"], "per_row")):
         rows = paged_rows[key] + ([spec_worst["K5"]] if key == "K5" else [])
         main_row = next(r for r in rows if r.get("case") == main_case)
+        sp_extra = sp_summary(sp_rows["K6"]) if key == "K6" else {}
+        rows = rows + (sp_rows["K6"] if key == "K6" else [])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "tpudist_torch/csrc/flash_decode.cu",
@@ -6424,7 +6938,8 @@ def main(argv=None) -> int:
             "tol_ratio": max(r["tol_ratio"] for r in rows),
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
-                                        "partial_ms", "merge_ms")}})
+                                        "partial_ms", "merge_ms")},
+            **sp_extra})
     main_k7 = next(r for r in moe_rows if r["case"] == "train")
     kernels.append({
         "name": "moe_gmm (K7)", "route": "cuda",

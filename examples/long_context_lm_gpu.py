@@ -11,9 +11,13 @@ sequence split over N processes through ring, ring flash (K1 forward,
 K8/K4 backward) or Ulysses attention and ``make_sp_train_step`` over a
 ``data × seq`` mesh.  Weights are random, drawn from a fixed seed; the
 token stream is made with numpy from the same seed.  ``--generate N``
-then greedy-decodes N tokens past a prompt cut from the stream; under
-``--tp`` the parameters are gathered and decoded on one device
-(tpudist's sharded ``tp_generate`` is ROADMAP Queue A 9).
+then greedy-decodes N tokens past a prompt cut from the stream, through
+the layout the run trained in: under ``--tp`` ``tp_generate`` (the
+Megatron weights and a head-sharded cache, each process its own heads),
+under ``--sp`` ``sp_generate`` (a sequence-sharded cache, partial
+softmaxes merged by log-sum-exp), both with ``decode_attention="flash"``
+(K1 and K2 at the shard's heads and offsets), else ``greedy_generate``
+on one device.
 
 Run (one card):  python3 examples/long_context_lm_gpu.py --bf16
 Run (N cards, sequence-parallel):
@@ -236,35 +240,46 @@ def main(argv=None) -> float:
 
 def generate(args, cfg, state, mesh, specs, tokens, device, log,
              gather_tree) -> None:
-    """Greedy decoding past a prompt cut from the stream, on one device:
-    under ``--tp`` the blocks are gathered (every process joins) and
-    process 0 decodes the whole parameters."""
+    """Greedy decoding past a prompt cut from the stream, through the
+    run's layout: ``tp_generate`` under ``--tp`` (the whole weights are
+    gathered from the blocks, then each process keeps its block of them
+    and caches its own heads), ``sp_generate`` under ``--sp`` (each
+    process owns a slice of the cache), else ``greedy_generate``.  Every
+    process decodes; the coordinator prints."""
     import torch
 
-    from tpudist_torch.models.generate import greedy_generate
-    from tpudist_torch.runtime.distributed import process_index
+    from tpudist_torch.models.generate import (
+        greedy_generate,
+        sp_generate,
+        tp_generate,
+    )
 
     if args.generate >= cfg.max_seq_len:
         raise SystemExit(f"--generate must be < max_seq_len "
                          f"({cfg.max_seq_len}); got {args.generate}")
     params = dict(state.model.named_parameters())
-    serve = "single-program flash"
     if specs is not None:
         params = gather_tree(params, mesh, specs)
-        # be loud about the layout change: tpudist serves the tp layout
-        # itself (tp_generate); the port decodes the gathered weights
-        serve += (f" (tp{args.tp} serving unavailable: tp_generate waits "
-                  "for ROADMAP A9 — decoding the gathered parameters on "
-                  "one device instead)")
-    if process_index() != 0:
-        return
+    params = {k: v.detach() for k, v in params.items()}
     prompt_len = max(1, min(args.seq_len // 4,
                             cfg.max_seq_len - args.generate))
     prompt = tokens[:2, :prompt_len]
     t0 = time.perf_counter()
-    out, lengths = greedy_generate(
-        cfg, {k: v.detach() for k, v in params.items()}, prompt,
-        args.generate, stop_tokens=[0], device=device)
+    if args.tp > 1 and cfg.kv_heads % args.tp == 0:
+        out, lengths = tp_generate(
+            cfg, params, prompt, args.generate, mesh,
+            decode_attention="flash", stop_tokens=[0], device=device)
+        serve = f"tp{args.tp} flash"
+    elif args.sp > 1 and cfg.max_seq_len % args.sp == 0:
+        out, lengths = sp_generate(
+            cfg, params, prompt, args.generate, mesh,
+            decode_attention="flash", stop_tokens=[0], device=device)
+        serve = f"sp{args.sp} flash"
+    else:
+        out, lengths = greedy_generate(
+            cfg, params, prompt, args.generate, stop_tokens=[0],
+            device=device)
+        serve = "single-program flash"
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     log(f"generated {args.generate} tokens/seq via {serve} (prompt "

@@ -212,9 +212,18 @@ def test_elastic_rendezvous_restart_cycle(server):
     def worker(wid, dies):
         c = CoordClient("127.0.0.1", server.port)
         rdzv = Rendezvous(c)
-        mon = ElasticMonitor(c, f"w{wid}", ttl_s=0.4, interval_s=0.1)
-        rank = rdzv.join(0, 3, timeout_s=10.0)
+        # Under a loaded runner two races let a survivor see a world of 1
+        # (it then re-formed alone: results {1: (1, 0, 1)}): a worker
+        # starved between the barrier and its first heartbeat had no
+        # lease yet when a peer first checked, and a 0.4 s lease lapsed
+        # under a starved heartbeat thread.  So each worker takes its
+        # lease BEFORE the rendezvous (the barrier then guarantees all
+        # three exist before anyone checks), with the superseded-round
+        # test's lease; the preempted worker leaves gracefully, which no
+        # TTL delays.
+        mon = ElasticMonitor(c, f"w{wid}", ttl_s=2.0, interval_s=0.3)
         mon.start(expected_world=3)
+        rank = rdzv.join(0, 3, timeout_s=10.0)
         if dies:
             time.sleep(0.2)
             mon.stop(graceful=True)  # simulated preemption
@@ -242,9 +251,9 @@ def test_elastic_rendezvous_restart_cycle(server):
         t.start()
     for t in threads:
         t.join()
-    assert set(results) == {0, 1}
-    assert {r for _, r, _ in results.values()} == {0, 1}  # dense new ranks
-    assert all(w == 2 for _, _, w in results.values())
+    assert set(results) == {0, 1}, results
+    assert {r for _, r, _ in results.values()} == {0, 1}, results  # dense
+    assert all(w == 2 for _, _, w in results.values()), results
 
 
 def test_join_live_superseded_round_aborts(server):

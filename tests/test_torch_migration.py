@@ -8,8 +8,9 @@ the unified loop and to tpudist's, on the adopt path and on every fallback,
 payloads must cross between the two packages in both directions, and every
 pool must end drained and ``check()``-clean.  tpudist runs its own tests'
 ``decode_attention="flash"`` (Pallas in interpret mode) with its host tier
-off (``TPUDIST_KV_HOST_TIER_BYTES=0``: the port has none), at depth 1 where
-its schedule is compared.
+off (``TPUDIST_KV_HOST_TIER_BYTES=0``, the port's too:
+``tests/test_torch_kv_tier.py`` runs both with it), at depth 1 where its
+schedule is compared.
 """
 
 import jax

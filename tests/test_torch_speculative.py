@@ -220,15 +220,6 @@ def test_validation_errors_match(case):
     assert str(got.value) == str(want.value)
 
 
-def test_sharded_hooks_raise():
-    for kw in ({"decode_shard": ("mesh", "model")},
-               {"cache_constraint": lambda leaf: None}):
-        with pytest.raises(NotImplementedError, match="Queue A 9"):
-            spec.speculative_generate(TC, None, DC, None,
-                                      np.ones((1, 2), np.int32), 4,
-                                      device="cpu", **kw)
-
-
 # ---- the adaptive-K policy ----------------------------------------------
 
 def _policy_script(mod):

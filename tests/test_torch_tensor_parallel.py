@@ -318,8 +318,8 @@ def test_example_tp2_under_torchrun(capsys):
     """``examples/long_context_lm_gpu.py --tp 2`` on two CPU processes
     under ``torch.distributed.run`` trains like the one-process run (its
     printed losses within the loss tolerance above) and, with
-    ``--generate``, decodes the gathered parameters on one process, saying
-    so, to the one-process run's tokens."""
+    ``--generate``, decodes through ``tp_generate`` (each process its own
+    heads, flash) to the one-process run's tokens."""
     import os
     import subprocess
     import sys
@@ -349,6 +349,6 @@ def test_example_tp2_under_torchrun(capsys):
     assert len(losses[0]) == 2
     np.testing.assert_allclose(losses[0], losses[1], atol=LOSS_ATOL, rtol=0)
     assert "dp1×tp2 (flash)" in runs[0]
-    assert "tp_generate waits for ROADMAP A9" in runs[0]
+    assert "via tp2 flash" in runs[0]
     sample = [out.split("sample:")[1].strip() for out in runs]
     assert sample[0] == sample[1]

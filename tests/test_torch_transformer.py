@@ -180,8 +180,15 @@ def test_unported_paths_raise():
                       kv_num_blocks=8, device="cpu")
     with pytest.raises(ValueError, match="kv_num_blocks > 0"):
         TransformerLM(cfg, cache_layout="paged", device="cpu")
-    with pytest.raises(NotImplementedError, match="sharded decode"):
-        TransformerLM(cfg, decode_shard=("mesh", "model"), device="cpu")
+    # sharded decode is ported (tests/test_torch_sharded_generate.py holds
+    # the sharded rollouts against tpudist's): a sequence-sharded model
+    # over no mesh is one process owning the whole cache, and decodes
+    sharded = TransformerLM(cfg, decode_shard=(None, "seq", "seq"),
+                            device="cpu")
+    assert sharded.cache_seq_len == cfg.max_seq_len
+    logits, _ = sharded(torch.ones((2, 3), dtype=torch.long),
+                        cache=blank_cache(cfg, 2, device="cpu"))
+    assert logits.shape == (2, 3, cfg.vocab_size)
     # scan_layers is accepted now (the port runs the unrolled stack); a
     # sharded train state is laid out over a mesh of processes, so it
     # needs a process group (tests/test_torch_mesh_compose.py builds one)

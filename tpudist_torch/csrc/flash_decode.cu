@@ -44,6 +44,14 @@
 // columns of D.  Splits with m_i = -inf (dead chunks, which write no
 // acc) are skipped.  No atomics: two calls agree bit for bit.
 //
+// Sequence-sharded decode (K2 and K6): the buffer may be one rank's slice
+// of a longer cache, its slot j holding global position off + j, as the
+// Pallas metadata's offset does.  Validity (p < cache_len) and the window
+// (p >= cache_len - window) are taken on global positions, so a split
+// wholly past cache_len or wholly before the window is dead, and a slice
+// with no live key writes out = 0 and lse = -1e30 (the merge's floor):
+// its weight in an LSE merge across ranks is exactly zero.
+//
 // K5's one difference: key p of row b is pool[table[b, p / bs], p % bs].
 // The block's threads first read one table entry per page that the
 // chunk's live keys cover into shared memory (at bs = 16 one 128-key
@@ -93,6 +101,8 @@ struct DecArgs {
   int len_stride, len_val;
   const int* side_len_ptr;
   int side_len_val;
+  const int* off_ptr;   // K2/K6: a device scalar, or null (off_val)
+  int off_val;          // this buffer's first global position
   int window;           // <= 0: none
   float scale;
   const int* table;     // kPaged: [B, M] int32 pool indices
@@ -175,7 +185,11 @@ __global__ void __launch_bounds__(kThreads)
   int lo, hi;
   const bool main_split = split < a.n_main;
   if (main_split) {
-    const int len = a.len_ptr ? a.len_ptr[b * a.len_stride] : a.len_val;
+    // slot j holds global position off + j: the causal limit and the
+    // window are global, so both move into slot terms by -off
+    const int off = a.off_ptr ? *a.off_ptr : a.off_val;
+    const int len =
+        (a.len_ptr ? a.len_ptr[b * a.len_stride] : a.len_val) - off;
     lo = split * kCK;
     hi = min(lo + kCK, min(len, a.S));
     if (a.window > 0) lo = max(lo, len - a.window);
@@ -436,7 +450,9 @@ int run(int dtype, int d, const DecArgs& a, void* out, float* lse,
 extern "C" int tpudist_flash_decode_split_keys(void) { return kCK; }
 
 // K2.  Strides in elements (head_dim stride 1).  len_ptr: per-row [B]
-// int32 (len_stride 1), a device scalar (len_stride 0) or null (len_val).
+// int32 (len_stride 1), a device scalar (len_stride 0) or null (len_val);
+// off_ptr (a device scalar) or off_val: the global position of slot 0
+// (sequence-sharded decode), which len and window are measured in.
 // side_k null: no side buffer.  lse may be null.  Returns
 // cudaGetLastError() after the two launches.
 extern "C" int tpudist_flash_decode(
@@ -451,14 +467,14 @@ extern "C" int tpudist_flash_decode(
     long long sv_sb, long long sv_ss, long long sv_sh,
     long long o_sb, long long o_sh,
     const int* len_ptr, int len_stride, int len_val,
-    const int* side_len_ptr, int side_len_val, int window, float scale,
-    void* stream) {
+    const int* side_len_ptr, int side_len_val, const int* off_ptr,
+    int off_val, int window, float scale, void* stream) {
   DecArgs a{q, k, v, side_k, side_v, m_part, l_part, acc_part,
             B, H, Hkv, S, cap, n_main, n_split,
             q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
             sk_sb, sk_ss, sk_sh, sv_sb, sv_ss, sv_sh,
             len_ptr, len_stride, len_val, side_len_ptr, side_len_val,
-            window, scale,
+            off_ptr, off_val, window, scale,
             nullptr, 0, 0, nullptr, nullptr, 0, 0, 0, 0, 0, 0};
   return run<kStrided>(dtype, D, a, out, lse, o_sb, o_sh, stream);
 }
@@ -483,13 +499,14 @@ extern "C" int tpudist_paged_flash_decode(
             B, H, Hkv, M * bs, cap, n_main, n_split,
             q_sb, q_sh, k_sn, k_ss, k_sh, v_sn, v_ss, v_sh,
             sk_sb, sk_ss, sk_sh, sv_sb, sv_ss, sv_sh,
-            len_ptr, 1, 0, side_len_ptr, side_len_val, 0, scale,
+            len_ptr, 1, 0, side_len_ptr, side_len_val, nullptr, 0, 0,
+            scale,
             table, M, bs, nullptr, nullptr, 0, 0, 0, 0, 0, 0};
   return run<kPaged>(dtype, D, a, out, lse, o_sb, o_sh, stream);
 }
 
 // K6.  int8 caches [B, S, Hkv, D] and f32 scales [B, S, Hkv] through
-// strides; lengths and window as in K2; no side buffer.
+// strides; lengths, offset and window as in K2; no side buffer.
 extern "C" int tpudist_flash_decode_q8(
     int dtype, const void* q, const void* k, const float* k_scale,
     const void* v, const float* v_scale, void* out, float* lse,
@@ -501,13 +518,14 @@ extern "C" int tpudist_flash_decode_q8(
     long long ks_sb, long long ks_ss, long long ks_sh,
     long long vs_sb, long long vs_ss, long long vs_sh,
     long long o_sb, long long o_sh,
-    const int* len_ptr, int len_stride, int len_val, int window,
-    float scale, void* stream) {
+    const int* len_ptr, int len_stride, int len_val, const int* off_ptr,
+    int off_val, int window, float scale, void* stream) {
   DecArgs a{q, k, v, nullptr, nullptr, m_part, l_part, acc_part,
             B, H, Hkv, S, 0, n_split, n_split,
             q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
             0, 0, 0, 0, 0, 0,
-            len_ptr, len_stride, len_val, nullptr, 0, window, scale,
+            len_ptr, len_stride, len_val, nullptr, 0, off_ptr, off_val,
+            window, scale,
             nullptr, 0, 0, k_scale, v_scale,
             ks_sb, ks_ss, ks_sh, vs_sb, vs_ss, vs_sh};
   return run<kInt8>(dtype, D, a, out, lse, o_sb, o_sh, stream);

@@ -8,6 +8,14 @@ decode steps kernel K2 (the JAX package's ``decode_attention="flash"``).
 
 Sampling draws from an explicit ``torch.Generator``; it does not reproduce
 ``jax.random``'s bits (greedy decoding is exact either way).
+
+The sharded rollouts (:func:`tp_generate`, :func:`sp_generate`,
+:func:`tp_sp_generate`) run one process a shard over a
+``torch.distributed`` mesh: every process of the mesh calls them with
+the same arguments and gets the same tokens.  Each holds its block of the
+Megatron weights (``tp``) and its shard of every cache leaf, cut by the
+cache constraint (:func:`apply_cache_constraint`): its KV heads, its
+sequence slots, or both.  No process holds another's shard at any step.
 """
 
 from __future__ import annotations
@@ -76,18 +84,78 @@ def sequence_lengths(generated: torch.Tensor, stop_arr: torch.Tensor,
     return prompt_len + (strictly_after == 0).sum(dim=-1)
 
 
+def apply_cache_constraint(cache: list[dict], constraint, mesh=None
+                           ) -> list[dict]:
+    """Cut each cache leaf to this process's shard: ``constraint`` maps a
+    leaf to its spec (a tuple of mesh axes or None per dimension, as
+    :func:`~tpudist_torch.parallel.tensor_parallel.cut_leaf` reads it; the
+    twin of a ``PartitionSpec``) or to None, which leaves the leaf whole.
+    Raises where a spec cannot be applied (no ``mesh``, more entries than
+    the leaf has dimensions, a dimension the axes do not divide); it
+    never ignores one.  ``constraint=None`` returns ``cache``."""
+    if constraint is None:
+        return cache
+    from tpudist_torch.parallel.tensor_parallel import cut_leaf
+
+    out = []
+    for layer in cache:
+        new = {}
+        for name, x in layer.items():
+            spec = constraint(x)
+            if spec is None or all(e is None for e in spec):
+                new[name] = x
+                continue
+            if mesh is None:
+                raise ValueError(f"cache_constraint shards {name} by "
+                                 f"{tuple(spec)} but no mesh was given")
+            if len(spec) > x.dim():
+                raise ValueError(f"cache_constraint's spec {tuple(spec)} "
+                                 f"has more entries than {name} "
+                                 f"{tuple(x.shape)} has dimensions")
+            new[name] = cut_leaf(x, spec, mesh)
+        out.append(new)
+    return out
+
+
 def _blank_cache(model: TransformerLM, batch: int, *, per_row: bool = False,
-                 side_slots: int = 0, paged: bool = False) -> list[dict]:
+                 side_slots: int = 0, paged: bool = False,
+                 constraint=None, mesh=None) -> list[dict]:
     """Fresh zeroed KV cache for ``model`` (cache_index 0, empty slots),
-    allocated from its config on its device.  ``paged``: the slot cache
-    of a ``cache_layout="paged"`` model, one block pool per layer sized
-    by its ``kv_num_blocks`` / ``kv_block_size``, with a page table."""
+    allocated from its config on its device: this process's shard of a
+    sharded model's cache (its KV heads and slots).  ``paged``: the slot
+    cache of a ``cache_layout="paged"`` model, one block pool per layer
+    sized by its ``kv_num_blocks`` / ``kv_block_size``, with a page
+    table.  With ``constraint`` the whole cache's shapes (on the ``meta``
+    device: nothing is allocated) are cut by
+    :func:`apply_cache_constraint`, and the shards must be the ones the
+    model decodes."""
     pool = {}
     if paged:
         pool = dict(kv_block_size=model.kv_block_size,
                     kv_num_blocks=model.kv_num_blocks)
-    return blank_cache(model.cfg, batch, device=model.device,
-                       per_row=per_row, side_slots=side_slots, **pool)
+    if constraint is None:
+        return blank_cache(model.cfg, batch, device=model.device,
+                           per_row=per_row, side_slots=side_slots,
+                           kv_heads=model.cache_kv_heads,
+                           seq_len=model.cache_seq_len, **pool)
+    whole = blank_cache(model.cfg, batch, device=torch.device("meta"),
+                        per_row=per_row, side_slots=side_slots, **pool)
+    cache = [{k: torch.zeros(v.shape, dtype=v.dtype, device=model.device)
+              for k, v in layer.items()}
+             for layer in apply_cache_constraint(whole, constraint, mesh)]
+    want = blank_cache(model.cfg, batch, device=torch.device("meta"),
+                       per_row=per_row, side_slots=side_slots,
+                       kv_heads=model.cache_kv_heads,
+                       seq_len=model.cache_seq_len, **pool)
+    for got, exp in zip(cache, want):
+        for name in exp:
+            if got[name].shape != exp[name].shape:
+                raise ValueError(
+                    f"cache_constraint cuts {name} to "
+                    f"{tuple(got[name].shape)}, but the model decodes a "
+                    f"shard of {tuple(exp[name].shape)} (its decode_shard "
+                    f"and tp_axis)")
+    return cache
 
 
 def _prefill(model: TransformerLM, cache: list[dict], prompt: torch.Tensor,
@@ -113,11 +181,13 @@ def _rollout(model: TransformerLM, prompt: torch.Tensor,
              generator: torch.Generator | None = None,
              prefill_chunk: int | None = None,
              stop_tokens: Sequence[int] | None = None,
-             pad_token: int = 0):
+             pad_token: int = 0, cache_constraint=None, mesh=None):
     """Shared KV-cached decode loop; ``select`` picks the next token from
     each step's last-position logits.  With ``stop_tokens`` every position
     after a sequence's first stop token is frozen to ``pad_token`` and the
-    return is ``(tokens, lengths)``."""
+    return is ``(tokens, lengths)``.  ``cache_constraint`` (leaf -> spec
+    or None) cuts the cache to this process's shard over ``mesh``
+    (:func:`apply_cache_constraint`)."""
     cfg = model.cfg
     dev = model.device
     if not isinstance(prompt, torch.Tensor):
@@ -135,7 +205,7 @@ def _rollout(model: TransformerLM, prompt: torch.Tensor,
         raise ValueError(
             f"prompt_len + max_new_tokens = {total} exceeds "
             f"max_seq_len {cfg.max_seq_len}")
-    cache = _blank_cache(model, b)
+    cache = _blank_cache(model, b, constraint=cache_constraint, mesh=mesh)
     cache, logits = _prefill(model, cache, prompt, prefill_chunk)
     tok = select(logits[:, -1], generator)
     done = (_is_stop(tok, stop_arr) if stop_arr is not None
@@ -167,6 +237,7 @@ def greedy_generate(
     stop_tokens: Sequence[int] | None = None,
     pad_token: int = 0,
     *,
+    decode_attention: str = "flash",
     device=None,
 ):
     """Greedy-decode ``max_new_tokens`` past ``prompt``.
@@ -180,12 +251,15 @@ def greedy_generate(
       stop_tokens: optional EOS set; positions past a sequence's first
         stop token freeze to ``pad_token`` and per-sequence lengths are
         returned alongside the tokens.
+      decode_attention: ``"flash"`` (K1 and K2) or ``"dense"`` (their
+        plain versions).
       device: where to run (default ``cuda``; raises if there is none).
 
     Returns ``[batch, prompt_len + max_new_tokens]`` int32 on the device
     (plus ``[batch]`` lengths when ``stop_tokens`` is given).
     """
-    model = build_model(cfg, params, device=device)
+    model = build_model(cfg, params, device=device,
+                        decode_attention=decode_attention)
     return _rollout(model, prompt, max_new_tokens, _make_select(0.0, None,
                                                                None),
                     prefill_chunk=prefill_chunk, stop_tokens=stop_tokens,
@@ -252,3 +326,220 @@ def _make_select(temperature: float, top_k: Optional[int],
         return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
     return select
+
+
+def sample_generate(
+    cfg: TransformerConfig,
+    params: Mapping[str, Any],
+    prompt,
+    max_new_tokens: int,
+    generator: torch.Generator | None = None,
+    *,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    decode_attention: str = "dense",
+    prefill_chunk: int | None = None,
+    stop_tokens: Sequence[int] | None = None,
+    pad_token: int = 0,
+    device=None,
+):
+    """Sample ``max_new_tokens`` past ``prompt`` with the standard
+    controls: ``temperature`` scales the logits (0: greedy argmax),
+    ``top_k`` keeps the k most probable tokens, ``top_p`` the smallest
+    nucleus whose probability reaches p (after ``top_k`` when both are
+    set); ``stop_tokens`` freezes a sequence at its first stop token and
+    adds the ``[batch]`` lengths to the return.  Draws come from
+    ``generator`` (on the model's device), in place of tpudist's
+    ``key``."""
+    model = build_model(cfg, params, device=device,
+                        decode_attention=decode_attention)
+    return _rollout(model, prompt, max_new_tokens,
+                    _make_select(temperature, top_k, top_p), generator,
+                    prefill_chunk=prefill_chunk, stop_tokens=stop_tokens,
+                    pad_token=pad_token)
+
+
+def _axis_size(mesh, axis: str) -> int:
+    from tpudist_torch.runtime.mesh import axis_size
+
+    return axis_size(mesh, axis)
+
+
+def _sharded_layout(params, mesh, tp_axis, seq_axis, rules):
+    """The ``decode_shard`` of a rollout sharded over ``tp_axis`` and/or
+    ``seq_axis``, and this process's block of the whole ``params`` (the
+    Megatron block over ``tp_axis`` by ``rules``; whole without it)."""
+    if tp_axis and seq_axis:
+        decode_shard = (mesh, (tp_axis, seq_axis), "heads_seq")
+    elif seq_axis:
+        decode_shard = (mesh, seq_axis, "seq")
+    else:
+        decode_shard = (mesh, tp_axis)
+    if tp_axis:
+        from tpudist_torch.parallel.tensor_parallel import (
+            shard_tree,
+            spec_tree_from_rules,
+            transformer_tp_rules,
+        )
+
+        specs = spec_tree_from_rules(params,
+                                     rules or transformer_tp_rules(tp_axis))
+        params = shard_tree(params, mesh, specs)
+    return decode_shard, params
+
+
+def _sharded_generate(cfg, params, prompt, max_new_tokens, mesh, *,
+                      tp_axis, seq_axis, cache_spec, rules, decode_attention,
+                      prefill_chunk, generator, temperature, top_k, top_p,
+                      stop_tokens, pad_token, device):
+    """The common tail of :func:`tp_generate`, :func:`sp_generate` and
+    :func:`tp_sp_generate`: this process's model (the Megatron layout over
+    ``tp_axis``, its cache sharded as ``decode_shard`` says), its block of
+    the weights, and :func:`_rollout` with the packed K/V buffers cut by
+    ``cache_spec`` and the indices whole."""
+    select = _make_select(temperature, top_k, top_p)
+    decode_shard, params = _sharded_layout(params, mesh, tp_axis, seq_axis,
+                                           rules)
+    model = TransformerLM(cfg, tp_axis=tp_axis, mesh=mesh,
+                          decode_shard=decode_shard,
+                          decode_attention=decode_attention,
+                          device=resolve_device(device))
+    model.load_state_dict(params)
+    model.eval()
+    return _rollout(model, prompt, max_new_tokens, select, generator,
+                    prefill_chunk=prefill_chunk, stop_tokens=stop_tokens,
+                    pad_token=pad_token,
+                    cache_constraint=lambda leaf: (cache_spec
+                                                   if leaf.dim() == 3
+                                                   else None),
+                    mesh=mesh)
+
+
+def tp_generate(
+    cfg: TransformerConfig,
+    params: Mapping[str, Any],
+    prompt,
+    max_new_tokens: int,
+    mesh,
+    axis: str = "model",
+    rules=None,
+    decode_attention: str = "dense",
+    prefill_chunk: int | None = 512,
+    generator: torch.Generator | None = None,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    stop_tokens: Sequence[int] | None = None,
+    pad_token: int = 0,
+    *,
+    device=None,
+):
+    """Tensor-parallel decode (greedy by default; ``temperature`` /
+    ``top_k`` / ``top_p`` with ``generator`` sample): each process of
+    ``axis`` holds its block of the Megatron weights (``rules``, default
+    :func:`~tpudist_torch.parallel.tensor_parallel.transformer_tp_rules`)
+    and caches its own KV heads, so weight and cache memory scale 1/tp.
+    Attention runs on the local heads (K1, K2 with ``"flash"``) with no
+    collective; ``proj``/``down`` all-reduce and the logits are
+    all-gathered as in training.  ``params`` is the whole model (a
+    ``state_dict`` or a flax tree), the same on every process.  Requires
+    ``kv_heads % tp == 0``.  Returns the same tokens as
+    :func:`greedy_generate`, on every process."""
+    cfg, params = serving_layout(cfg, params)
+    tp = _axis_size(mesh, axis)
+    if cfg.kv_heads % tp:
+        raise ValueError(
+            f"kv_heads {cfg.kv_heads} not divisible by {axis!r} size {tp}")
+    return _sharded_generate(
+        cfg, params, prompt, max_new_tokens, mesh, tp_axis=axis,
+        seq_axis=None, cache_spec=(None, None, axis), rules=rules,
+        decode_attention=decode_attention, prefill_chunk=prefill_chunk,
+        generator=generator, temperature=temperature, top_k=top_k,
+        top_p=top_p, stop_tokens=stop_tokens, pad_token=pad_token,
+        device=device)
+
+
+def sp_generate(
+    cfg: TransformerConfig,
+    params: Mapping[str, Any],
+    prompt,
+    max_new_tokens: int,
+    mesh,
+    axis: str = "seq",
+    prefill_chunk: int | None = 512,
+    generator: torch.Generator | None = None,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    stop_tokens: Sequence[int] | None = None,
+    pad_token: int = 0,
+    decode_attention: str = "dense",
+    *,
+    device=None,
+):
+    """Sequence-sharded-cache decode: the KV cache's sequence dim is split
+    over ``axis`` (process ``i`` owns slots ``[i·S_loc, (i+1)·S_loc)``),
+    so cache memory per process is 1/sp; the weights are replicated.  A
+    token's K/V are written by the owner of its slot alone; each decode
+    step is :func:`~tpudist_torch.ops.flash_decode.sp_flash_decode` and
+    each prefill chunk attends to every slice in place, merged by LSE: no
+    cache bytes move.  Requires ``max_seq_len % sp == 0``.  Returns the
+    same tokens as :func:`greedy_generate`, on every process."""
+    cfg, params = serving_layout(cfg, params)
+    sp = _axis_size(mesh, axis)
+    if cfg.max_seq_len % sp:
+        raise ValueError(
+            f"max_seq_len {cfg.max_seq_len} not divisible by {axis!r} "
+            f"size {sp}")
+    return _sharded_generate(
+        cfg, params, prompt, max_new_tokens, mesh, tp_axis=None,
+        seq_axis=axis, cache_spec=(None, axis, None), rules=None,
+        decode_attention=decode_attention, prefill_chunk=prefill_chunk,
+        generator=generator, temperature=temperature, top_k=top_k,
+        top_p=top_p, stop_tokens=stop_tokens, pad_token=pad_token,
+        device=device)
+
+
+def tp_sp_generate(
+    cfg: TransformerConfig,
+    params: Mapping[str, Any],
+    prompt,
+    max_new_tokens: int,
+    mesh,
+    axis: str = "model",
+    seq_axis: str = "seq",
+    rules=None,
+    decode_attention: str = "flash",
+    prefill_chunk: int | None = 512,
+    generator: torch.Generator | None = None,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    stop_tokens: Sequence[int] | None = None,
+    pad_token: int = 0,
+    *,
+    device=None,
+):
+    """2-D sharded decode: the Megatron weights over ``axis`` and the KV
+    cache over both its heads (``axis``) and its sequence
+    (``seq_axis``), so cache memory per process is 1/(tp·sp).  Each
+    process attends its (head block × cache slice); the partial softmaxes
+    merge over ``seq_axis`` only.  Same tokens as
+    :func:`greedy_generate`, on every process."""
+    cfg, params = serving_layout(cfg, params)
+    tp, sp = _axis_size(mesh, axis), _axis_size(mesh, seq_axis)
+    if cfg.kv_heads % tp:
+        raise ValueError(
+            f"kv_heads {cfg.kv_heads} not divisible by {axis!r} size {tp}")
+    if cfg.max_seq_len % sp:
+        raise ValueError(
+            f"max_seq_len {cfg.max_seq_len} not divisible by "
+            f"{seq_axis!r} size {sp}")
+    return _sharded_generate(
+        cfg, params, prompt, max_new_tokens, mesh, tp_axis=axis,
+        seq_axis=seq_axis, cache_spec=(None, seq_axis, axis), rules=rules,
+        decode_attention=decode_attention, prefill_chunk=prefill_chunk,
+        generator=generator, temperature=temperature, top_k=top_k,
+        top_p=top_p, stop_tokens=stop_tokens, pad_token=pad_token,
+        device=device)

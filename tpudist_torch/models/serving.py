@@ -93,16 +93,22 @@ hand lanes out as ``reason="migrate"`` completions in service mode.  Every
 export first drains the segments in flight, so no zombie's blocks and no
 half-merged segment are ever exported.
 
-Not ported yet: the paged layout's host-RAM tier (ROADMAP Queue A 9; the
-prefix cache evicts without spilling, and parked payloads stay whole in
-host RAM).  The overload ladder is ported: past ``degrade_queue`` waiting
+The host-RAM tier (:mod:`tpudist_torch.models.kv_tier`, budget
+``TPUDIST_KV_HOST_TIER_BYTES``) backs the prefix cache: a block it evicts
+is copied to pinned host memory under its chain hash, an admission whose
+chain walk runs past the pool-resident prefix re-admits the spilled
+blocks (a copy on a side stream) instead of re-prefilling them, a parked
+lane's pages spill into it block by block, and a weight swap flushes it.
+The overload ladder is ported: past ``degrade_queue`` waiting
 requests best-effort budgets are clamped, past ``max_queue`` the overflow
 is shed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import time
 import warnings
 from collections import deque
@@ -120,6 +126,7 @@ from tpudist_torch.models.generate import (
     serving_layout,
 )
 from tpudist_torch.models.kv_pages import BlockPool, PrefixCache, chain_hashes
+from tpudist_torch.models.kv_tier import HostTier, tier_budget_from_env
 from tpudist_torch.models.speculative import (
     AdaptiveDraftPolicy,
     _accept_and_next,
@@ -128,6 +135,14 @@ from tpudist_torch.models.speculative import (
 )
 from tpudist_torch.models.transformer import TransformerConfig
 from tpudist_torch.utils.device import resolve_device
+
+
+def _park_hash(rid, i: int) -> int:
+    """The host-tier key of a parked lane's ``i``-th KV block: a 63-bit
+    blake2b digest of ``(rid, i)``, disjoint from prefix chain hashes
+    with overwhelming probability (tpudist's key, bit for bit)."""
+    d = hashlib.blake2b(f"park:{rid}:{i}".encode(), digest_size=8)
+    return int.from_bytes(d.digest(), "big") >> 1
 
 
 @dataclasses.dataclass
@@ -215,6 +230,12 @@ def _host_array(t: torch.Tensor):
     types numpy lacks (bf16)."""
     t = t.detach().cpu()
     return t.numpy() if t.dtype == torch.float32 else t
+
+
+def _pinned(t: torch.Tensor, stream) -> torch.Tensor:
+    """``t`` (a host tensor) in pinned memory when the loop runs on a card
+    (``stream`` set), else as it is."""
+    return t.contiguous().pin_memory() if stream is not None else t
 
 
 def _payload_tensor(x) -> torch.Tensor:
@@ -464,6 +485,20 @@ class ServeLoop:
         self._prefix_cache = (PrefixCache(self.pool)
                               if prefix_sharing and self.chunked and paged
                               else None)
+        # the host-RAM spill tier under the prefix cache: its evictions
+        # land there instead of vanishing (TPUDIST_KV_HOST_TIER_BYTES,
+        # 0 disables); copies to and from it run on a side stream
+        self._tier: HostTier | None = None
+        self._tier_stream = None
+        self.tier_stats = {"readmit_seconds": 0.0, "readmit_blocks": 0,
+                           "saved_prefill_tokens": 0}
+        if self._prefix_cache is not None:
+            budget = tier_budget_from_env()
+            if budget > 0:
+                self._tier = HostTier(budget)
+                self._prefix_cache.spill_hook = self._spill_block
+                if self.pool is not None and self.model.device.type == "cuda":
+                    self._tier_stream = torch.cuda.Stream(self.model.device)
         # recently admitted Request.prefix_hash values, LRU-bounded
         self._affinity_recent: dict[int, None] = {}
         # prompt_tokens: every admitted prompt position; prefill_tokens:
@@ -977,8 +1012,14 @@ class ServeLoop:
         suffix_start, cow)``.  ``suffix_start`` is the first position
         prefill must compute; a FULL-prompt hit still recomputes position
         ``L - 1`` (the first output logit has to come from somewhere), a
-        write into the last shared block — the ``cow`` split."""
+        write into the last shared block — the ``cow`` split.  With a host
+        tier the chain walk continues past the pool-resident run: spilled
+        blocks extending the match are re-admitted into freshly pinned
+        cached pages and shared like blocks that never left."""
         blocks = self._prefix_cache.match(prompt)
+        if self._tier is not None and len(self._tier):
+            chain = chain_hashes(prompt, self.kv_block_size)
+            blocks = blocks + self._readmit_tiered(chain, len(blocks))
         if not blocks:
             return [], 0, False
         matched = len(blocks) * self.kv_block_size
@@ -994,10 +1035,239 @@ class ServeLoop:
 
     def flush_prefix_cache(self) -> None:
         """Drop every cached prefix: idle blocks return to the free list
-        (the pool then drains to fully free once no slot is live)."""
+        (the pool then drains to fully free once no slot is live), and
+        every host-tier entry."""
         if self._prefix_cache is not None:
             self._prefix_cache.flush()
+        if self._tier is not None:
+            self._tier.flush()
         self._affinity_recent.clear()
+
+    # -- the host-RAM tier (tpudist_torch.models.kv_tier) -----------------
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t``: pinned, and on the tier's side stream,
+        when ``t`` lives on a card (the caller waits on the stream)."""
+        if self._tier_stream is None:
+            return t.detach().to("cpu", copy=True)
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t, non_blocking=True)
+        return out
+
+    @torch.no_grad()
+    def _page_blocks(self, blocks) -> list[list[dict]]:
+        """Host copies of the pool blocks ``blocks``, one per block, each
+        ``[{"k": [bs, F], "v": [bs, F]}]`` a layer.  On a card the copies
+        run on the side stream after the work queued so far, and are
+        complete on return (a spilled page is recycled next)."""
+        side = self._tier_stream
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(self.device))
+        with (torch.cuda.stream(side) if side is not None
+              else contextlib.nullcontext()):
+            out = [[{"k": self._to_host(node["paged_key"][blk]),
+                     "v": self._to_host(node["paged_value"][blk])}
+                    for node in self.cache] for blk in blocks]
+        if side is not None:
+            side.synchronize()
+        return out
+
+    def _spill_block(self, h: int, blk: int, parent: int | None) -> None:
+        """PrefixCache spill hook: copy an evicted idle block's pages to
+        the host tier before its pin (and page) drop; the block is
+        refcount 0 and still pinned, so its bytes are stable."""
+        self._tier.put(h, self._page_blocks([blk])[0], parent=parent,
+                       version=self.weights_version)
+
+    def _readmit_tiered(self, chain: list[int], start: int) -> list[int]:
+        """Re-admit the longest run of tiered blocks extending a chain
+        match at ``start``: take each entry (version-checked), land it in
+        a freshly pinned cached page, and index it back into the prefix
+        cache.  Allocation never evicts (paging one block in must not page
+        another out), so when only reclaimable cached pages are left the
+        walk stops and the rest re-prefills.  Returns the installed pool
+        blocks in chain order."""
+        t0 = time.perf_counter()
+        taken: list[tuple[int, int | None, int, list]] = []
+        j = start
+        while j < len(chain):
+            if not self._tier.has(chain[j], version=self.weights_version):
+                break
+            blk = self.pool.alloc_cached_block()
+            if blk is None:
+                break
+            layers = self._tier.take(chain[j], version=self.weights_version)
+            if layers is None:
+                self.pool.cache_unpin(blk)
+                break
+            taken.append((chain[j], chain[j - 1] if j else None, blk,
+                          layers))
+            j += 1
+        n = self._scatter_install(taken)
+        if n:
+            self.tier_stats["readmit_blocks"] += n
+            self.tier_stats["readmit_seconds"] += time.perf_counter() - t0
+        return [t[2] for t in taken]
+
+    @torch.no_grad()
+    def _scatter_install(self, taken: list[tuple[int, int | None, int,
+                                                 list]]) -> int:
+        """Write ``taken``'s block bytes (``(hash, parent, pool_block,
+        layers)`` each) into their pages — on a card one host-to-device
+        copy a layer and side on the tier's stream, which the serving
+        stream then waits for — and index each block in the prefix
+        cache after the write."""
+        if not taken:
+            return 0
+        dev = self.device
+        pages = torch.as_tensor([t[2] for t in taken], dtype=torch.long,
+                                device=dev)
+        side = self._tier_stream
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(dev))
+        with (torch.cuda.stream(side) if side is not None
+              else contextlib.nullcontext()):
+            for li, node in enumerate(self.cache):
+                for name, key in (("paged_key", "k"), ("paged_value", "v")):
+                    parts = [_payload_tensor(t[3][li][key])
+                             for t in taken]
+                    src = torch.empty((len(parts), *parts[0].shape),
+                                      dtype=parts[0].dtype,
+                                      pin_memory=side is not None)
+                    torch.stack(parts, out=src)
+                    node[name][pages] = src.to(
+                        dev, dtype=node[name].dtype,
+                        non_blocking=side is not None)
+        if side is not None:
+            torch.cuda.current_stream(dev).wait_stream(side)
+            side.synchronize()
+        for h, parent, blk, _ in taken:
+            self._prefix_cache.install(h, blk, parent)
+        return len(taken)
+
+    def prefix_residency(self, limit: int = 256) -> dict:
+        """Resident prefix chain hashes for a fleet directory:
+        ``{"chains": [...], "tiered": [...]}``, the prefix cache's entries
+        and then the host tier's (``tiered`` the subset in the tier), most
+        recently used last, at most ``limit``."""
+        if self._prefix_cache is None:
+            return {"chains": [], "tiered": []}
+        hbm = list(self._prefix_cache._entries)
+        tiered = self._tier.hashes() if self._tier is not None else []
+        chains = (hbm + tiered)[-int(limit):]
+        tset = set(tiered)
+        return {"chains": chains,
+                "tiered": [h for h in chains if h in tset]}
+
+    def export_prefix(self, chain: Sequence[int]) -> dict | None:
+        """The owner's half of a prefix pull: the longest leading run of
+        ``chain`` resident here — pool pages read from the device, host
+        tier entries read in place (peeked, not taken) — as a
+        migration-style payload a peer installs with
+        :meth:`install_prefix`; None when the first link is not
+        resident."""
+        if self._prefix_cache is None or self.pool is None:
+            return None
+        chain = [int(h) for h in chain]
+        hbm_blocks: list[int] = []
+        for h in chain:
+            blk = self._prefix_cache._entries.get(h)
+            if blk is None:
+                break
+            hbm_blocks.append(blk)
+        tier_layers: list[list] = []
+        if self._tier is not None:
+            while len(hbm_blocks) + len(tier_layers) < len(chain):
+                layers = self._tier.peek_layers(
+                    chain[len(hbm_blocks) + len(tier_layers)],
+                    version=self.weights_version)
+                if layers is None:
+                    break
+                tier_layers.append(layers)
+        n = len(hbm_blocks) + len(tier_layers)
+        if not n:
+            return None
+        pool_layers = (self._gather_layers(hbm_blocks) if hbm_blocks
+                       else None)
+        layers_out = []
+        for li in range(len(self.cache)):
+            out = {}
+            for key in ("k", "v"):
+                parts = ([_payload_tensor(pool_layers[li][key])]
+                         if pool_layers else [])
+                parts += [_payload_tensor(tl[li][key])[None]
+                          for tl in tier_layers]
+                out[key] = _host_array(torch.cat(parts, dim=0))
+            layers_out.append(out)
+        return {"key": None, "rid": None, "prompt": [],
+                "chain": chain[:n], "block_size": int(self.kv_block_size),
+                "version": int(self.weights_version), "layers": layers_out}
+
+    def install_prefix(self, prompt, payload: dict) -> int:
+        """The requester's half of a prefix pull: verify ``payload``
+        against ``prompt``'s own chain (block size, version, links, layer
+        shapes) and install its blocks as cached idle pages, so the next
+        admission of ``prompt`` shares them.  Returns the blocks
+        installed (0 when a gate fails or nothing fits)."""
+        if self._prefix_cache is None or self.pool is None:
+            return 0
+        try:
+            bs = int(payload["block_size"])
+            version = int(payload["version"])
+            chain = [int(h) for h in payload["chain"]]
+            layers = payload["layers"]
+        except (KeyError, TypeError, ValueError):
+            return 0
+        want = chain_hashes(np.asarray(prompt, np.int64), self.kv_block_size)
+        n = len(chain)
+        if (bs != self.kv_block_size or version != self.weights_version
+                or n == 0 or chain != want[:n]
+                or len(layers) != len(self.cache)):
+            return 0
+        flat = self.cache[0]["paged_key"].shape[2]
+        arrs = []
+        for layer in layers:
+            try:
+                k = _payload_tensor(layer["k"])
+                v = _payload_tensor(layer["v"])
+            except (KeyError, TypeError, ValueError):
+                return 0
+            if k.dim() != 3 or tuple(k.shape) != (n, bs, flat) \
+                    or v.shape != k.shape:
+                return 0
+            arrs.append((k, v))
+        taken: list[tuple[int, int | None, int, list]] = []
+        try:
+            for j in range(n):
+                if chain[j] in self._prefix_cache._entries:
+                    continue   # the local copy wins (first-wins install)
+                blk = self.pool.alloc_cached_block()
+                if blk is None:
+                    break
+                taken.append((chain[j], want[j - 1] if j else None, blk,
+                              [{"k": arrs[li][0][j], "v": arrs[li][1][j]}
+                               for li in range(len(self.cache))]))
+            installed = self._scatter_install(taken)
+            if self._tier is not None:
+                # a pulled link also spilled here is pool-resident now
+                for h, _, _, _ in taken:
+                    self._tier.discard(h)
+            return installed
+        except Exception:
+            for _, _, blk, _ in taken:
+                if blk not in self._prefix_cache._entries.values():
+                    self.pool.cache_unpin(blk)
+            raise
+
+    def tier_drained(self) -> bool | None:
+        """The tier's invariants (no hash both tiered and pool-resident)
+        and whether it is empty; None without a tier."""
+        if self._tier is None:
+            return None
+        resident = (self._prefix_cache._entries.keys()
+                    if self._prefix_cache is not None else ())
+        self._tier.check(resident)
+        return len(self._tier) == 0
 
     def _admit(self, slot: int, req: Request) -> dict:
         """Admit ``req`` into ``slot``: the one-shot path dispatches the
@@ -1604,6 +1874,13 @@ class ServeLoop:
                     self._prefix_cache.register(
                         pf["padded"][0, :pf["L"]],
                         self.pool._slot_blocks[slot])
+                    if self._tier is not None and len(self._tier):
+                        # every full block of the prompt is pool-resident
+                        # now: drop a surviving tier copy (a re-admit that
+                        # stopped early left deeper links spilled)
+                        for h in chain_hashes(pf["padded"][0, :pf["L"]],
+                                              self.kv_block_size):
+                            self._tier.discard(h)
                 del st["prefill"]
                 if self.role == "prefill":
                     # the prefill role's job ends here: the lane never
@@ -1762,11 +2039,66 @@ class ServeLoop:
             return payload
 
         def park(slot: int) -> None:
-            """Export ``slot`` and park it here, its payload whole in host
-            RAM, to resume through the adopt path."""
+            """Export ``slot`` and park it here, to resume through the
+            adopt path: with a host tier its pages spill into the tier
+            block by block (pinned; an eviction of any of them downgrades
+            the resume to a re-prefill, byte-identical), else the payload
+            stays whole in host RAM."""
             req = slot_state[slot]["req"]
-            self._parked[req.rid] = {"req": req, "payload": export_lane(slot)}
+            payload = export_lane(slot)
+            entry: dict = {"req": req}
+            keys: list[int] = []
+            if self._tier is not None and payload["layers"]:
+                parent = None
+                n_blk = int(_payload_tensor(payload["layers"][0]["k"])
+                            .shape[0])
+                for i in range(n_blk):
+                    h = _park_hash(req.rid, i)
+                    blk = [{"k": _pinned(_payload_tensor(l["k"])[i],
+                                         self._tier_stream),
+                            "v": _pinned(_payload_tensor(l["v"])[i],
+                                         self._tier_stream)}
+                           for l in payload["layers"]]
+                    if not self._tier.put(h, blk, parent=parent,
+                                          version=self.weights_version):
+                        # refused (budget): keep the payload whole
+                        for k in keys:
+                            self._tier.discard(k)
+                        keys = []
+                        break
+                    keys.append(h)
+                    parent = h
+            if keys:
+                entry["meta"] = {k: v for k, v in payload.items()
+                                 if k != "layers"}
+                entry["keys"] = keys
+            else:
+                entry["payload"] = payload
+            self._parked[req.rid] = entry
             stats.preempted += 1
+
+        def unpark(entry: dict) -> dict | None:
+            """A parked lane's payload, its tiered blocks taken back; None
+            when any was evicted or flushed (the resume re-prefills)."""
+            if "payload" in entry:
+                return entry["payload"]
+            blocks = []
+            for h in entry["keys"]:
+                blk = self._tier.take(h, version=self.weights_version)
+                if blk is None:
+                    drop_parked(entry)
+                    return None
+                blocks.append(blk)
+            layers = [{key: _host_array(torch.stack(
+                [b[li][key] for b in blocks])) for key in ("k", "v")}
+                for li in range(len(blocks[0]) if blocks else 0)]
+            return {**entry["meta"], "layers": layers}
+
+        def drop_parked(entry: dict) -> None:
+            for h in entry.get("keys", ()):
+                self._tier.discard(h)
+            entry.pop("keys", None)
+            entry.pop("payload", None)
 
         def migrate_out(req: Request, payload: dict | None) -> None:
             """Hand a request out as a ``reason="migrate"`` completion,
@@ -1806,7 +2138,7 @@ class ServeLoop:
             for rid in list(self._parked):
                 if chosen(self._parked[rid]["req"]):
                     entry = self._parked.pop(rid)
-                    migrate_out(entry["req"], entry["payload"])
+                    migrate_out(entry["req"], unpark(entry))
                     moved = True
             lanes = [slot for slot, st in enumerate(slot_state)
                      if st is not None and not st.get("zombie")
@@ -1875,7 +2207,7 @@ class ServeLoop:
             rid = next(iter(self._parked))
             req = self._parked[rid]["req"]
             if req.deadline_s is not None and self._clock() > req.deadline_s:
-                del self._parked[rid]
+                drop_parked(self._parked.pop(rid))
                 complete_unadmitted(req, "timeout")
                 return True
             if not any(st is None for st in slot_state):
@@ -1883,9 +2215,9 @@ class ServeLoop:
             if not self.pool.can_admit(int(np.asarray(req.prompt).size),
                                        int(req.max_new_tokens)):
                 return False
-            entry = self._parked.pop(rid)
-            pending.appendleft(dataclasses.replace(
-                req, kv_handoff=entry["payload"]))
+            payload = unpark(self._parked.pop(rid))
+            pending.appendleft(dataclasses.replace(req, kv_handoff=payload)
+                               if payload is not None else req)
             stats.resumed += 1
             return True
 

@@ -22,10 +22,14 @@ LOCKSTEP by the batch-min ``m + 1``, as in tpudist.
 Sampling draws from an explicit ``torch.Generator``; it does not reproduce
 ``jax.random``'s bits (greedy decoding is exact either way).
 
-Not ported yet (ROADMAP Queue A 9): the sharded rollouts
-(``tp_speculative_generate``, ``sp_speculative_generate``,
-``tp_sp_speculative_generate``), and the ``decode_shard`` /
-cache-constraint hooks of :func:`speculative_generate`, which raise.
+The sharded rollouts (:func:`tp_speculative_generate`,
+:func:`sp_speculative_generate`, :func:`tp_sp_speculative_generate`) run
+one process a shard over a ``torch.distributed`` mesh, as the sharded
+rollouts of :mod:`tpudist_torch.models.generate` do: the TARGET in the
+Megatron layout and/or with a sequence-sharded cache (its verify chunk
+attends each process's slice in place and merges by LSE), the small
+DRAFT replicated on every process, so each drafts locally and every
+process emits the same tokens.
 """
 
 from __future__ import annotations
@@ -37,22 +41,24 @@ import numpy as np
 import torch
 
 from tpudist_torch.models.generate import (
+    _axis_size,
     _blank_cache,
     _filtered_logits,
     _is_stop,
     _make_select,
     _prefill,
     _rollout,
+    _sharded_layout,
     _stop_array,
     build_model,
     sequence_lengths,
+    serving_layout,
 )
-from tpudist_torch.models.transformer import TransformerConfig
+from tpudist_torch.models.transformer import (
+    TransformerConfig,
+    decode_shard_axes,
+)
 from tpudist_torch.utils.device import resolve_device
-
-_SHARDED_TODO = ("sharded speculative decoding (decode_shard, "
-                 "cache_constraint, draft_cache_constraint) is not ported "
-                 "yet (ROADMAP Queue A 9)")
 
 
 def _filtered_probs(logits: torch.Tensor, temperature: float,
@@ -182,6 +188,8 @@ def speculative_generate(
     stop_tokens: Sequence[int] | None = None,
     pad_token: int = 0,
     return_stats: bool = False,
+    decode_attention: str = "flash",
+    draft_decode_attention: str = "flash",
     decode_shard: Any = None,
     cache_constraint: Any = None,
     draft_cache_constraint: Any = None,
@@ -208,14 +216,24 @@ def speculative_generate(
       return_stats: also return ``{"rounds", "draft_accepted"}``
         (accepted draft tokens summed over rounds and rows; ``rounds`` is
         0 when ``max_new_tokens == 1``).
+      decode_attention / draft_decode_attention: each model's cached
+        attention, ``"flash"`` (K1 and K2) or ``"dense"`` (their plain
+        versions).
+      decode_shard: shards the TARGET (``(mesh, axis[, kind])``, as on
+        :class:`~tpudist_torch.models.transformer.TransformerLM`); a kind
+        that shards heads builds it in the Megatron layout over that axis,
+        and ``target_params`` is then this process's block of the weights
+        (as :func:`tp_speculative_generate` cuts them).
+      cache_constraint / draft_cache_constraint: leaf -> spec (or None)
+        cutting each model's cache to this process's shard over the
+        mesh of ``decode_shard``
+        (:func:`~tpudist_torch.models.generate.apply_cache_constraint`);
+        a shard that is not the one the model decodes raises.
       device: where to run (default ``cuda``; raises if there is none).
 
     Returns ``[B, prompt_len + max_new_tokens]`` int32 tokens, with
     ``(tokens, lengths)`` when ``stop_tokens`` is given and the stats dict
     appended when ``return_stats`` is set."""
-    if decode_shard is not None or cache_constraint is not None \
-            or draft_cache_constraint is not None:
-        raise NotImplementedError(_SHARDED_TODO)
     dev = resolve_device(device)
     prompt = _as_prompt(prompt, dev)
     b, prompt_len = prompt.shape
@@ -224,14 +242,22 @@ def speculative_generate(
     k = num_draft
     stop_arr = _stop_array(stop_tokens, dev)
     select = _make_select(temperature, top_k, top_p)
-    target = build_model(target_cfg, target_params, device=dev)
-    draft = build_model(draft_cfg, draft_params, device=dev)
+    mesh = None if decode_shard is None else decode_shard[0]
+    head_axis, _ = decode_shard_axes(decode_shard)
+    target = build_model(target_cfg, target_params, device=dev,
+                         decode_attention=decode_attention,
+                         decode_shard=decode_shard, tp_axis=head_axis,
+                         mesh=mesh if head_axis else None)
+    draft = build_model(draft_cfg, draft_params, device=dev,
+                        decode_attention=draft_decode_attention)
 
     # PREFILL both models on the prompt (K1)
-    t_cache, t_logits = _prefill(target, _blank_cache(target, b), prompt,
-                                 prefill_chunk)
-    d_cache, _ = _prefill(draft, _blank_cache(draft, b), prompt,
-                          prefill_chunk)
+    t_cache, t_logits = _prefill(
+        target, _blank_cache(target, b, constraint=cache_constraint,
+                             mesh=mesh), prompt, prefill_chunk)
+    d_cache, _ = _prefill(
+        draft, _blank_cache(draft, b, constraint=draft_cache_constraint,
+                            mesh=mesh), prompt, prefill_chunk)
     first = select(t_logits[:, -1], generator)
     out = torch.zeros((b, max_new_tokens + k + 1), dtype=torch.long,
                       device=dev)
@@ -292,6 +318,164 @@ def speculative_generate(
         result = result + ({"rounds": rounds,
                             "draft_accepted": int(acc_total)},)
     return result[0] if len(result) == 1 else result
+
+
+def _sharded_speculative(target_cfg, target_params, draft_cfg, draft_params,
+                         prompt, max_new_tokens, mesh, *, tp_axis, seq_axis,
+                         cache_spec, rules, **kw):
+    """The common tail of the sharded speculative entry points: both
+    models in the serving layout, the target's weights cut to this
+    process's block (``tp_axis``), its cache by ``cache_spec``, the
+    draft's whole, then :func:`speculative_generate`."""
+    target_cfg, target_params = serving_layout(target_cfg, target_params)
+    draft_cfg, draft_params = serving_layout(draft_cfg, draft_params)
+    decode_shard, target_params = _sharded_layout(
+        target_params, mesh, tp_axis, seq_axis, rules)
+    return speculative_generate(
+        target_cfg, target_params, draft_cfg, draft_params, prompt,
+        max_new_tokens, decode_shard=decode_shard,
+        cache_constraint=lambda leaf: (cache_spec if leaf.dim() == 3
+                                       else None),
+        draft_cache_constraint=lambda leaf: None, **kw)
+
+
+def tp_speculative_generate(
+    target_cfg: TransformerConfig,
+    target_params: Mapping[str, Any],
+    draft_cfg: TransformerConfig,
+    draft_params: Mapping[str, Any],
+    prompt,
+    max_new_tokens: int,
+    mesh,
+    axis: str = "model",
+    rules=None,
+    *,
+    num_draft: int = 4,
+    generator: torch.Generator | None = None,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    decode_attention: str = "dense",
+    prefill_chunk: int | None = 512,
+    stop_tokens: Sequence[int] | None = None,
+    pad_token: int = 0,
+    return_stats: bool = False,
+    device=None,
+):
+    """Tensor-parallel speculative decoding: the TARGET in the Megatron
+    layout over ``axis`` (weights and KV cache 1/tp a process, the
+    :func:`~tpudist_torch.models.generate.tp_generate` layout), the DRAFT
+    replicated, so every process drafts locally and the verify chunks are
+    the only sharded compute.  Both models' cached attention follow
+    ``decode_attention``.  ``target_params`` is the whole model, the same
+    on every process.  Requires ``target_cfg.kv_heads % tp == 0``.  Same
+    output contract as :func:`speculative_generate`, on every process."""
+    tp = _axis_size(mesh, axis)
+    if target_cfg.kv_heads % tp:
+        raise ValueError(
+            f"target kv_heads {target_cfg.kv_heads} not divisible by "
+            f"{axis!r} size {tp}")
+    return _sharded_speculative(
+        target_cfg, target_params, draft_cfg, draft_params, prompt,
+        max_new_tokens, mesh, tp_axis=axis, seq_axis=None,
+        cache_spec=(None, None, axis), rules=rules, num_draft=num_draft,
+        generator=generator, temperature=temperature, top_k=top_k,
+        top_p=top_p, decode_attention=decode_attention,
+        draft_decode_attention=decode_attention,
+        prefill_chunk=prefill_chunk, stop_tokens=stop_tokens,
+        pad_token=pad_token, return_stats=return_stats, device=device)
+
+
+def tp_sp_speculative_generate(
+    target_cfg: TransformerConfig,
+    target_params: Mapping[str, Any],
+    draft_cfg: TransformerConfig,
+    draft_params: Mapping[str, Any],
+    prompt,
+    max_new_tokens: int,
+    mesh,
+    axis: str = "model",
+    seq_axis: str = "seq",
+    rules=None,
+    *,
+    num_draft: int = 4,
+    generator: torch.Generator | None = None,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    prefill_chunk: int | None = 512,
+    stop_tokens: Sequence[int] | None = None,
+    pad_token: int = 0,
+    return_stats: bool = False,
+    decode_attention: str = "dense",
+    device=None,
+):
+    """2-D sharded speculative decoding: the TARGET's weights Megatron-
+    sharded over ``axis`` and its KV cache over heads (``axis``) and
+    sequence (``seq_axis``), 1/(tp·sp) a process; the DRAFT replicated.
+    Same output contract as :func:`speculative_generate`."""
+    tp = _axis_size(mesh, axis)
+    sp = _axis_size(mesh, seq_axis)
+    if target_cfg.kv_heads % tp:
+        raise ValueError(
+            f"target kv_heads {target_cfg.kv_heads} not divisible by "
+            f"{axis!r} size {tp}")
+    if target_cfg.max_seq_len % sp:
+        raise ValueError(
+            f"target max_seq_len {target_cfg.max_seq_len} not divisible "
+            f"by {seq_axis!r} size {sp}")
+    return _sharded_speculative(
+        target_cfg, target_params, draft_cfg, draft_params, prompt,
+        max_new_tokens, mesh, tp_axis=axis, seq_axis=seq_axis,
+        cache_spec=(None, seq_axis, axis), rules=rules,
+        num_draft=num_draft, generator=generator, temperature=temperature,
+        top_k=top_k, top_p=top_p, decode_attention=decode_attention,
+        draft_decode_attention=decode_attention,
+        prefill_chunk=prefill_chunk, stop_tokens=stop_tokens,
+        pad_token=pad_token, return_stats=return_stats, device=device)
+
+
+def sp_speculative_generate(
+    target_cfg: TransformerConfig,
+    target_params: Mapping[str, Any],
+    draft_cfg: TransformerConfig,
+    draft_params: Mapping[str, Any],
+    prompt,
+    max_new_tokens: int,
+    mesh,
+    axis: str = "seq",
+    *,
+    num_draft: int = 4,
+    generator: torch.Generator | None = None,
+    temperature: float = 0.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    prefill_chunk: int | None = 512,
+    stop_tokens: Sequence[int] | None = None,
+    pad_token: int = 0,
+    return_stats: bool = False,
+    decode_attention: str = "dense",
+    device=None,
+):
+    """Sequence-sharded speculative decoding: the TARGET's KV cache split
+    over ``axis`` on its sequence dimension (1/sp a process; weights
+    replicated), the DRAFT replicated.  Each verify chunk attends every
+    process's slice in place and merges by LSE; no cache bytes move.
+    Same output contract as :func:`speculative_generate`."""
+    sp = _axis_size(mesh, axis)
+    if target_cfg.max_seq_len % sp:
+        raise ValueError(
+            f"target max_seq_len {target_cfg.max_seq_len} not divisible "
+            f"by {axis!r} size {sp}")
+    return _sharded_speculative(
+        target_cfg, target_params, draft_cfg, draft_params, prompt,
+        max_new_tokens, mesh, tp_axis=None, seq_axis=axis,
+        cache_spec=(None, axis, None), rules=None, num_draft=num_draft,
+        generator=generator, temperature=temperature, top_k=top_k,
+        top_p=top_p, decode_attention=decode_attention,
+        draft_decode_attention=decode_attention,
+        prefill_chunk=prefill_chunk, stop_tokens=stop_tokens,
+        pad_token=pad_token, return_stats=return_stats, device=device)
 
 
 class AdaptiveDraftPolicy:

@@ -65,9 +65,25 @@ issues every collective.  Weights cross with
 :func:`~tpudist_torch.parallel.tensor_parallel.make_tp_state` or
 :func:`~tpudist_torch.models.convert.from_flax_tp_params`.
 
-Not ported yet: sharded decode (``decode_shard``, and a cache on a
-tensor-parallel model: ``tp_generate``).  Each raises
-``NotImplementedError`` naming its ROADMAP item.
+Sharded decode (``decode_shard=(mesh, axis[, kind])``; each process
+holds its own shard of every cache leaf, and :func:`blank_cache` sizes it
+from ``kv_heads`` and ``seq_len``):
+
+* ``"heads"`` (the default kind): ``axis`` is the model's tensor-parallel
+  axis, and each process caches and attends its own ``Hkv/tp`` KV heads
+  (K1 and K2 on them, no collective in attention);
+* ``"seq"``: each process of ``axis`` owns the cache slots ``[i·S_loc,
+  (i+1)·S_loc)``.  A token's K/V are written only by the owner of its
+  slot; a decode step is :func:`~tpudist_torch.ops.flash_decode.
+  sp_flash_decode` (K2 at ``pos_offset = i·S_loc``, then the LSE merge);
+  a prefill chunk attends its queries to each process's own slice through
+  K1 at ``q_offset``/``k_offset`` and merges the partials by LSE the same
+  way, so no process ever holds another's slice;
+* ``"heads_seq"``: ``axis`` is the pair ``(head_axis, seq_axis)``, both
+  at once; the merge runs over the sequence axis only.
+
+``decode_attention="dense"`` runs the plain versions of the kernels in
+the same places (the JAX package's dense cached attention).
 """
 
 from __future__ import annotations
@@ -81,18 +97,22 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from tpudist_torch.ops.flash_attention import _flash_forward
-from tpudist_torch.ops.flash_decode import flash_decode, paged_flash_decode
+from tpudist_torch.ops.flash_attention import (
+    _flash_forward,
+    _flash_forward_plain,
+)
+from tpudist_torch.ops.flash_decode import (
+    flash_decode,
+    flash_decode_plain,
+    lse_merge,
+    paged_flash_decode,
+    sp_flash_decode,
+)
 from tpudist_torch.utils.device import resolve_device
 
 # (q, k, v, *, causal, window=None) on [batch, seq, heads, head_dim] tensors
 AttentionFn = Callable[..., torch.Tensor]
 
-_SHARD_TODO = ("sharded decode (decode_shard) is not ported yet (ROADMAP "
-               "Queue A: serving breadth, sharded decode)")
-_TP_DECODE_TODO = ("a cache on a tensor-parallel model (tpudist's "
-                   "tp_generate) is not ported yet (ROADMAP Queue A 9); "
-                   "gather the parameters and decode on one card")
 _PAGED_WINDOW = ("the paged cache has no sliding-window trim yet; use "
                  "cache_layout='dense' for windowed models")
 
@@ -177,18 +197,22 @@ class TransformerConfig:
 def blank_cache(cfg: TransformerConfig, batch: int, *,
                 device: torch.device, per_row: bool = False,
                 side_slots: int = 0, kv_block_size: int = 0,
-                kv_num_blocks: int = 0) -> list[dict[str, torch.Tensor]]:
+                kv_num_blocks: int = 0, kv_heads: int | None = None,
+                seq_len: int | None = None) -> list[dict[str, torch.Tensor]]:
     """A fresh zeroed KV cache: one dict per layer with the packed
     ``[batch, max_seq_len, Hkv·D]`` K/V buffers and a 0-D ``cache_index``
     (``per_row``: a ``[batch]`` vector, the serve mode), plus
     ``[batch, side_slots, Hkv·D]`` side buffers and a 0-D ``side_index``
-    when ``side_slots > 0``.  With ``kv_num_blocks > 0`` the layer is
+    when ``side_slots > 0``.  ``kv_heads`` and ``seq_len`` (default: the
+    config's) size one process's shard of a sharded cache: its KV heads
+    and its slots.  With ``kv_num_blocks > 0`` the layer is
     PAGED instead: ``[kv_num_blocks, kv_block_size, Hkv·D]`` pools, a
     ``[batch, ceil(max_seq_len / kv_block_size)]`` int32 ``page_table``
     (0 is a valid pool index) and a ``[batch]`` ``cache_index``.  Zeros,
     not empty: masked positions are never attended, but a NaN bit pattern
     times a zero probability would still poison a sum."""
-    flat = cfg.kv_heads * cfg.head_dim
+    flat = (kv_heads or cfg.kv_heads) * cfg.head_dim
+    seq_len = seq_len or cfg.max_seq_len
     layers = []
     for _ in range(cfg.num_layers):
         if kv_num_blocks > 0:
@@ -206,10 +230,10 @@ def blank_cache(cfg: TransformerConfig, batch: int, *,
             }
         else:
             layer = {
-                "cached_key": torch.zeros((batch, cfg.max_seq_len, flat),
+                "cached_key": torch.zeros((batch, seq_len, flat),
                                           dtype=cfg.compute_dtype,
                                           device=device),
-                "cached_value": torch.zeros((batch, cfg.max_seq_len, flat),
+                "cached_value": torch.zeros((batch, seq_len, flat),
                                             dtype=cfg.compute_dtype,
                                             device=device),
                 "cache_index": torch.zeros((batch,) if per_row else (),
@@ -296,8 +320,9 @@ class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, attention_fn: AttentionFn = sdpa,
                  *, serve_side_slots: int = 0, cache_layout: str = "dense",
                  kv_block_size: int = 0, kv_num_blocks: int = 0,
-                 decode_shard: Any = None, param_dtype=None,
-                 device=None, tp: "TensorParallel | None" = None) -> None:
+                 decode_shard: Any = None, decode_attention: str = "flash",
+                 param_dtype=None, device=None,
+                 tp: "TensorParallel | None" = None) -> None:
         super().__init__()
         # cfg is the single source of truth for the sliding window: a
         # factory built with its own window that disagrees is rejected
@@ -309,12 +334,15 @@ class CausalSelfAttention(nn.Module):
                 "window on TransformerConfig (the single source of "
                 "truth) or make the two agree")
         check_cache_layout(cfg, cache_layout, kv_block_size, kv_num_blocks)
-        if decode_shard is not None:
-            raise NotImplementedError(_SHARD_TODO)
+        if decode_attention not in ("dense", "flash"):
+            raise ValueError(f"decode_attention must be 'dense' or 'flash', "
+                             f"got {decode_attention!r}")
+        self.plain = decode_attention == "dense"
+        self.tp = tp or TensorParallel()
+        self.seq = _seq_axis(decode_shard, self.tp)
         self.cfg = cfg
         self.attention_fn = attention_fn
         self.serve_side_slots = serve_side_slots
-        self.tp = tp or TensorParallel()
         n = self.tp.size
         self.tp.check(cfg.num_heads, "num_heads")
         self.tp.check(cfg.kv_heads, "kv_heads")
@@ -360,19 +388,37 @@ class CausalSelfAttention(nn.Module):
         ck, cv, idx = (cache["cached_key"], cache["cached_value"],
                        cache["cache_index"])
         if idx.dim() == 1:
+            if self.seq is not None:
+                raise NotImplementedError(
+                    "sharded decode with per-row cache positions is not "
+                    "wired yet; serve through the replicated path")
             return self._serve_attend(q, k, v, cache)
         S = cfg.max_seq_len
         # the JAX dynamic_update_slice clamps its start to S - s; so does
         # this write (queries still sit at the unclamped idx)
-        at = idx.clamp(max=S - s).long() + torch.arange(s, device=q.device)
-        ck.index_copy_(1, at, k.reshape(b, s, flat).to(ck.dtype))
-        cv.index_copy_(1, at, v.reshape(b, s, flat).to(cv.dtype))
+        at = idx.clamp(max=S - s).long()
+        kf = k.reshape(b, s, flat).to(ck.dtype)
+        vf = v.reshape(b, s, flat).to(cv.dtype)
+        s_loc = ck.shape[1]
+        off = 0 if self.seq is None else self.seq.index * s_loc
+        if self.seq is None:
+            pos = at + torch.arange(s, device=q.device)
+            ck.index_copy_(1, pos, kf)
+            cv.index_copy_(1, pos, vf)
+        else:
+            _write_owned(ck, kf, at, off)
+            _write_owned(cv, vf, at, off)
         cache["cache_index"] = idx + s
-        k4, v4 = ck.view(b, S, h_kv, d), cv.view(b, S, h_kv, d)
+        k4, v4 = ck.view(b, s_loc, h_kv, d), cv.view(b, s_loc, h_kv, d)
         if s > 1:
-            return self._prefill_attend(q, k4, v4, idx)
-        return flash_decode(q, ck, cv, idx + 1, window=cfg.attention_window,
-                            packed_kv_heads=h_kv)
+            return self._prefill_attend(q, k4, v4, idx, off)
+        if self.seq is not None:
+            return sp_flash_decode(q, ck, cv, idx + 1, self.seq.group,
+                                   window=cfg.attention_window,
+                                   packed_kv_heads=h_kv, plain=self.plain)
+        attend = flash_decode_plain if self.plain else flash_decode
+        return attend(q, ck, cv, idx + 1, window=cfg.attention_window,
+                      packed_kv_heads=h_kv)
 
     def _serve_attend(self, q, k, v, cache):
         """One decode step with PER-ROW cache positions: row ``r``'s K/V
@@ -469,15 +515,78 @@ class CausalSelfAttention(nn.Module):
             side_k=cache["side_key"], side_v=cache["side_value"],
             side_len=cache["side_index"])
 
-    def _prefill_attend(self, q, k_all, v_all, idx):
+    def _prefill_attend(self, q, k_all, v_all, idx, k_offset=0):
         """Chunk prefill: queries at global positions ``[idx, idx + s)``
         attend over the cache's first ``idx + s`` slots, causally, through
         kernel K1 at ``q_offset = idx`` (its causal limit also skips the
         not-yet-written slots; no query padding is needed — the kernel
-        masks its ragged edge)."""
-        out, _ = _flash_forward(q, k_all, v_all, True, q_offset=idx,
-                                window=self.cfg.attention_window)
-        return out
+        masks its ragged edge).  On a sequence-sharded cache the keys are
+        this process's slice at ``k_offset``, and the partials of every
+        slice merge by LSE (a slice wholly after the chunk contributes
+        nothing)."""
+        fwd = _flash_forward_plain if self.plain else _flash_forward
+        out, lse = fwd(q, k_all, v_all, True, q_offset=idx,
+                       k_offset=k_offset, window=self.cfg.attention_window)
+        if self.seq is None:
+            return out
+        return lse_merge(out, lse, self.seq.group)
+
+
+def _write_owned(buf: torch.Tensor, x: torch.Tensor, at: torch.Tensor,
+                 off: int) -> None:
+    """Write the ``s`` rows of ``x [B, s, F]`` (global positions ``at +
+    j``, ``at`` a 0-D device tensor) into ``buf [B, S_loc, F]``, one
+    process's slice of a sequence-sharded cache starting at global
+    position ``off``: only the rows whose slot this slice owns, with no
+    host read.  One token reads and writes its one slot (a no-op write
+    off the owner); a chunk rewrites the slice, each slot taking its row
+    of the chunk where the chunk covers it."""
+    s_loc, s = buf.shape[1], x.shape[1]
+    if s == 1:
+        local = at - off
+        slot = local.clamp(0, s_loc - 1).reshape(1)
+        owned = (local >= 0) & (local < s_loc)
+        buf.index_copy_(1, slot, torch.where(owned, x,
+                                             buf.index_select(1, slot)))
+        return
+    j = torch.arange(s_loc, device=buf.device) + off - at
+    rows = x.index_select(1, j.clamp(0, s - 1))
+    buf.copy_(torch.where(((j >= 0) & (j < s))[None, :, None], rows, buf))
+
+
+def decode_shard_axes(decode_shard) -> tuple[str | None, str | None]:
+    """``(head_axis, seq_axis)`` of ``decode_shard=(mesh, axis[, kind])``
+    (None where the kind does not shard that dimension)."""
+    if decode_shard is None:
+        return None, None
+    axis = decode_shard[1]
+    kind = decode_shard[2] if len(decode_shard) > 2 else "heads"
+    if kind == "heads":
+        return axis, None
+    if kind == "seq":
+        return None, axis
+    if kind != "heads_seq":
+        raise ValueError(f"decode_shard kind must be 'heads', 'seq' or "
+                         f"'heads_seq', got {kind!r}")
+    if not isinstance(axis, (tuple, list)) or len(axis) != 2:
+        raise ValueError("decode_shard kind 'heads_seq' takes the axis "
+                         "pair (head_axis, seq_axis)")
+    return tuple(axis)
+
+
+def _seq_axis(decode_shard, tp: "TensorParallel"):
+    """The sequence axis of ``decode_shard`` as a :class:`TensorParallel`
+    (its group, size and this process's index), or None.  The head axis
+    of ``"heads"``/``"heads_seq"`` must be the model's tensor-parallel
+    axis: its processes hold their own heads."""
+    head_axis, seq_axis = decode_shard_axes(decode_shard)
+    if head_axis is not None and head_axis != tp.axis:
+        raise ValueError(
+            f"decode_shard shards KV heads over {head_axis!r}, but the "
+            f"model's tensor-parallel axis is {tp.axis!r}: build it with "
+            f"tp_axis={head_axis!r} so each process holds its own heads")
+    return (None if seq_axis is None
+            else TensorParallel(seq_axis, decode_shard[0]))
 
 
 class TensorParallel:
@@ -598,15 +707,18 @@ class TransformerLM(nn.Module):
     ``serve_side_slots > 0``, are then required).  ``tp_axis`` over
     ``mesh`` builds this process's shard of the Megatron layout (the
     module docstring): parameters at the shard's shapes, the logits
-    whole on every process of the axis."""
+    whole on every process of the axis.  ``decode_shard`` shards the
+    cache (the module docstring); ``decode_attention="dense"`` runs the
+    kernels' plain versions in cached attention."""
 
     def __init__(self, cfg: TransformerConfig, *,
                  attention_fn: AttentionFn = sdpa, remat: bool = False,
                  param_dtype: torch.dtype | None = None,
                  serve_side_slots: int = 0, cache_layout: str = "dense",
                  kv_block_size: int = 0, kv_num_blocks: int = 0,
-                 decode_shard: Any = None, tp_axis: str | None = None,
-                 mesh=None, device=None) -> None:
+                 decode_shard: Any = None, decode_attention: str = "flash",
+                 tp_axis: str | None = None, mesh=None,
+                 device=None) -> None:
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -628,8 +740,17 @@ class TransformerLM(nn.Module):
                          cache_layout=cache_layout,
                          kv_block_size=kv_block_size,
                          kv_num_blocks=kv_num_blocks,
-                         decode_shard=decode_shard)
+                         decode_shard=decode_shard,
+                         decode_attention=decode_attention)
             for _ in range(cfg.num_layers))
+        attn = self.blocks[0].attn
+        seq = attn.seq
+        if seq is not None and cfg.max_seq_len % seq.size:
+            raise ValueError(f"max_seq_len {cfg.max_seq_len} not divisible "
+                             f"by {seq.axis!r} size {seq.size}")
+        # this process's shard of the cache: its KV heads and its slots
+        self.cache_kv_heads = attn.h_kv
+        self.cache_seq_len = cfg.max_seq_len // (seq.size if seq else 1)
         self.ln_f = LayerNorm(cfg.embed_dim, dt, device)
         tp.check(cfg.vocab_size, "vocab_size")
         self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size // tp.size, cfg,
@@ -664,8 +785,6 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, *,
                 positions: torch.Tensor | None = None,
                 cache: list[dict] | None = None, causal: bool = True):
-        if cache is not None and self.tp.group is not None:
-            raise NotImplementedError(_TP_DECODE_TODO)
         if positions is None:
             positions = torch.arange(tokens.shape[1],
                                      device=tokens.device)[None, :]

@@ -7,7 +7,9 @@ caches ``[B, S, Hkv, D]`` or packed ``[B, S, Hkv·D]`` with
 side buffer whose first ``side_len`` positions are attended after the main
 cache in the same softmax; a sliding ``window`` (scalar length only);
 ``return_lse``; and the multi-query ``s_q > 1`` form as repeated
-single-query calls.
+single-query calls.  ``pos_offset`` makes the cache one slice of a
+longer, sequence-sharded one: slot ``j`` holds global position
+``pos_offset + j``, and ``cache_len`` and ``window`` stay global.
 
 On a CUDA tensor it launches kernel K2 (``csrc/flash_decode.cu``, the
 Hopper port of the Pallas ``_decode_kernel``: a split-K grid plus an LSE
@@ -19,8 +21,10 @@ read through a page table (kernel K5 on CUDA tensors,
 :func:`paged_flash_decode_plain` — :func:`paged_gather_kv` then
 :func:`flash_decode_plain` — on CPU tensors), and :func:`flash_decode_q8`
 the same step over an int8 cache from :func:`quantize_kv` (kernel K6,
-:func:`flash_decode_q8_plain`).  ``sp_flash_decode`` waits for sharded
-decode (ROADMAP Queue A item 9).
+:func:`flash_decode_q8_plain`).  :func:`sp_flash_decode` is the
+sequence-sharded step: each rank of a process group runs K2 on its slice
+at ``pos_offset = rank · S_loc`` and the partial softmaxes merge by
+log-sum-exp (one ``[B, H]`` all-gather, one all-reduce of the output).
 """
 
 from __future__ import annotations
@@ -39,8 +43,8 @@ FLASH_DECODE = _cuda.Kernel(
     [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
     + [_c_ll] * 16
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-       ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-       ctypes.c_void_p])
+       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+       ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 PAGED_FLASH_DECODE = _cuda.Kernel(
     "flash_decode", "tpudist_paged_flash_decode",
     [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
@@ -51,8 +55,8 @@ FLASH_DECODE_Q8 = _cuda.Kernel(
     "flash_decode", "tpudist_flash_decode_q8",
     [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
     + [_c_ll] * 16
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_float, ctypes.c_void_p])
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+       ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
@@ -78,7 +82,32 @@ def _as_4d(cache: torch.Tensor, packed_kv_heads: int | None, d: int):
     return cache.unflatten(2, (packed_kv_heads, d))
 
 
-def _validate(q, k_cache, cache_len, window, side_k, packed_kv_heads):
+def _check_offset(pos_offset) -> None:
+    """``pos_offset`` is one global position for the whole batch: an int
+    or a 0-D tensor (the Pallas metadata carries a single offset)."""
+    if isinstance(pos_offset, torch.Tensor) and pos_offset.dim() != 0:
+        raise ValueError(f"pos_offset must be an int or a 0-D tensor, got "
+                         f"shape {tuple(pos_offset.shape)}")
+
+
+def _global_keep(s, cache_len, window, pos_offset, dev):
+    """``[.., S]`` mask of the slots a query attends: slot ``j`` is global
+    position ``pos_offset + j``, live below ``cache_len`` and, with a
+    window, at or past ``cache_len - window``."""
+    lens = torch.as_tensor(cache_len, device=dev).to(torch.long)
+    lens = lens.reshape(-1, 1, 1, 1) if lens.dim() == 1 else lens
+    pos = torch.arange(s, device=dev) + (
+        pos_offset.to(device=dev, dtype=torch.long)
+        if isinstance(pos_offset, torch.Tensor) else int(pos_offset))
+    keep = pos < lens
+    if window is not None:
+        keep = keep & (pos >= lens - window)
+    return keep
+
+
+def _validate(q, k_cache, cache_len, window, side_k, packed_kv_heads,
+              pos_offset=0):
+    _check_offset(pos_offset)
     b, _, h, d = q.shape
     k4 = _as_4d(k_cache, packed_kv_heads, d)
     h_kv = k4.shape[2]
@@ -105,11 +134,12 @@ def _validate(q, k_cache, cache_len, window, side_k, packed_kv_heads):
 
 def flash_decode_plain(q, k_cache, v_cache, cache_len, *, window=None,
                        return_lse=False, side_k=None, side_v=None,
-                       side_len=0, packed_kv_heads=None):
+                       side_len=0, packed_kv_heads=None, pos_offset=0):
     """The plain version of single-query :func:`flash_decode`: every
     position's score at once, with the kernel's numerics (f32 scores,
     ``-inf`` masking, max floored at ``-1e30``, probabilities rounded to
-    the value dtype before ``P·V``)."""
+    the value dtype before ``P·V``).  A slice with no live position gives
+    ``out = 0`` and ``lse = -1e30``."""
     b, _, h, d = q.shape
     k4 = _as_4d(k_cache, packed_kv_heads, d)
     v4 = _as_4d(v_cache, packed_kv_heads, d)
@@ -118,12 +148,7 @@ def flash_decode_plain(q, k_cache, v_cache, cache_len, *, window=None,
     dev = q.device
     qf = q.float().reshape(b, h_kv, g, d)
     scale = d ** -0.5
-    lens = torch.as_tensor(cache_len, device=dev).to(torch.long)
-    lens = lens.reshape(-1, 1, 1, 1) if lens.dim() == 1 else lens
-    pos = torch.arange(s, device=dev)
-    keep = pos < lens
-    if window is not None:
-        keep = keep & (pos >= lens - window)
+    keep = _global_keep(s, cache_len, window, pos_offset, dev)
     sc = torch.einsum("bjgd,bsjd->bjgs", qf, k4.float()) * scale
     sc = sc.masked_fill(~keep, float("-inf"))
     vals = v4
@@ -182,7 +207,7 @@ def _length(x, name, dev):
 
 
 def _launch_kernel(q, k_cache, v_cache, cache_len, *, window, return_lse,
-                   side_k, side_v, side_len, packed_kv_heads):
+                   side_k, side_v, side_len, packed_kv_heads, pos_offset=0):
     """One K2 launch (split pass + merge) for single-query decode."""
     dev = q.device
     b, _, h, d = q.shape
@@ -221,6 +246,7 @@ def _launch_kernel(q, k_cache, v_cache, cache_len, *, window, return_lse,
 
     len_t, len_stride, len_val = _length(cache_len, "cache_len", dev)
     side_t, _, side_val = _length(side_len, "side_len", dev)
+    off_t, _, off_val = _length(pos_offset, "pos_offset", dev)
     zeros = (0, 0, 0)
     FLASH_DECODE(
         _DTYPES[q.dtype], _cuda.ptr(q), _cuda.ptr(k4), _cuda.ptr(v4),
@@ -232,6 +258,7 @@ def _launch_kernel(q, k_cache, v_cache, cache_len, *, window, return_lse,
         *(sv4.stride()[:3] if sv4 is not None else zeros),
         out.stride(0), out.stride(2),
         _cuda.ptr(len_t), len_stride, len_val, _cuda.ptr(side_t), side_val,
+        _cuda.ptr(off_t), off_val,
         int(window) if window is not None else 0, d ** -0.5,
         _cuda.stream_handle(dev))
     return (out, lse) if return_lse else out
@@ -239,7 +266,7 @@ def _launch_kernel(q, k_cache, v_cache, cache_len, *, window, return_lse,
 
 def flash_decode(q, k_cache, v_cache, cache_len, *, window=None,
                  return_lse=False, side_k=None, side_v=None, side_len=0,
-                 packed_kv_heads=None):
+                 packed_kv_heads=None, pos_offset=0):
     """One decode step of attention.
 
     Args:
@@ -256,6 +283,11 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, window=None,
         staging (same layout as the cache), whose first ``side_len``
         positions are attended after the main cache in the same softmax.
         Requires per-row ``cache_len`` and ``window=None``.
+      pos_offset: this buffer's first global position (an int or a 0-D
+        tensor): slot ``j`` holds position ``pos_offset + j`` — one rank's
+        slice of a sequence-sharded cache.  ``cache_len`` and ``window``
+        stay global; a slice with no live position returns ``out = 0``
+        and ``lse = -1e30``, which weighs nothing in an LSE merge.
 
     MULTI-QUERY (``s_q > 1``, side buffers required): query ``j`` sees the
     main cache at the per-row lengths plus side positions
@@ -267,7 +299,8 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, window=None,
         raise ValueError(f"flash_decode runs on cuda or cpu, got {q.device}")
     one = (_launch_kernel if q.device.type == "cuda"
            else flash_decode_plain)
-    _validate(q, k_cache, cache_len, window, side_k, packed_kv_heads)
+    _validate(q, k_cache, cache_len, window, side_k, packed_kv_heads,
+              pos_offset)
     s_q = q.shape[1]
     if s_q > 1:
         if side_k is None:
@@ -282,11 +315,12 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, window=None,
             one(q[:, j:j + 1], k_cache, v_cache, cache_len, window=window,
                 return_lse=False, side_k=side_k, side_v=side_v,
                 side_len=side_len - (s_q - 1 - j),
-                packed_kv_heads=packed_kv_heads)
+                packed_kv_heads=packed_kv_heads, pos_offset=pos_offset)
             for j in range(s_q)], dim=1)
     return one(q, k_cache, v_cache, cache_len, window=window,
                return_lse=return_lse, side_k=side_k, side_v=side_v,
-               side_len=side_len, packed_kv_heads=packed_kv_heads)
+               side_len=side_len, packed_kv_heads=packed_kv_heads,
+               pos_offset=pos_offset)
 
 
 # ---- paged KV: kernel K5 ----------------------------------------------------
@@ -470,10 +504,7 @@ def quantize_kv(k: torch.Tensor, v: torch.Tensor):
 
 def _validate_q8(q, k_q8, cache_len, window, pos_offset):
     b, s_q, h, d = q.shape
-    if not (isinstance(pos_offset, int) and pos_offset == 0):
-        raise NotImplementedError(
-            "flash_decode_q8 with pos_offset (a sequence-sharded cache) is "
-            "not ported yet (ROADMAP Queue A item 9: sharded decode)")
+    _check_offset(pos_offset)
     if s_q != 1:
         raise ValueError("flash_decode_q8 consumes one query token")
     if k_q8.dim() != 4:
@@ -492,7 +523,7 @@ def _validate_q8(q, k_q8, cache_len, window, pos_offset):
 
 
 def flash_decode_q8_plain(q, k_q8, k_scale, v_q8, v_scale, cache_len, *,
-                          window=None, return_lse=False):
+                          window=None, return_lse=False, pos_offset=0):
     """The plain version of :func:`flash_decode_q8`, with the Pallas int8
     numerics: q rounded to bf16; scores ``(q·k_int8) · (k_scale · D^-½)``
     in f32; ``p = exp(s - m)``; the value product over
@@ -503,12 +534,7 @@ def flash_decode_q8_plain(q, k_q8, k_scale, v_q8, v_scale, cache_len, *,
     g = h // h_kv
     dev = q.device
     qf = q.to(torch.bfloat16).float().reshape(b, h_kv, g, d)
-    lens = torch.as_tensor(cache_len, device=dev).to(torch.long)
-    lens = lens.reshape(-1, 1, 1, 1) if lens.dim() == 1 else lens
-    pos = torch.arange(s, device=dev)
-    keep = pos < lens
-    if window is not None:
-        keep = keep & (pos >= lens - window)
+    keep = _global_keep(s, cache_len, window, pos_offset, dev)
     ks = (k_scale[..., 0] * d ** -0.5).permute(0, 2, 1)[:, :, None, :]
     sc = torch.einsum("bjgd,bsjd->bjgs", qf, k_q8.float()) * ks
     sc = sc.masked_fill(~keep, float("-inf"))
@@ -525,7 +551,7 @@ def flash_decode_q8_plain(q, k_q8, k_scale, v_q8, v_scale, cache_len, *,
 
 
 def _launch_q8(q, k_q8, k_scale, v_q8, v_scale, cache_len, *, window,
-               return_lse):
+               return_lse, pos_offset=0):
     """One K6 launch (split pass over int8 tiles + merge)."""
     dev = q.device
     b, _, h, d = q.shape
@@ -553,6 +579,7 @@ def _launch_q8(q, k_q8, k_scale, v_q8, v_scale, cache_len, *, window,
     lse = (torch.empty((b, h), dtype=torch.float32, device=dev)
            if return_lse else None)
     len_t, len_stride, len_val = _length(cache_len, "cache_len", dev)
+    off_t, _, off_val = _length(pos_offset, "pos_offset", dev)
     FLASH_DECODE_Q8(
         _DTYPES[q.dtype], _cuda.ptr(q), _cuda.ptr(k_q8), _cuda.ptr(k_scale),
         _cuda.ptr(v_q8), _cuda.ptr(v_scale), _cuda.ptr(out), _cuda.ptr(lse),
@@ -561,7 +588,7 @@ def _launch_q8(q, k_q8, k_scale, v_q8, v_scale, cache_len, *, window,
         q.stride(0), q.stride(2), *k_q8.stride()[:3], *v_q8.stride()[:3],
         *k_scale.stride()[:3], *v_scale.stride()[:3],
         out.stride(0), out.stride(2),
-        _cuda.ptr(len_t), len_stride, len_val,
+        _cuda.ptr(len_t), len_stride, len_val, _cuda.ptr(off_t), off_val,
         int(window) if window is not None else 0, d ** -0.5,
         _cuda.stream_handle(dev))
     return (out, lse) if return_lse else out
@@ -577,7 +604,8 @@ def flash_decode_q8(q, k_cache_q8, k_scale, v_cache_q8, v_scale, cache_len,
       k_cache_q8 / v_cache_q8: ``[B, S, Hkv, D]`` int8.
       k_scale / v_scale: ``[B, S, Hkv, 1]`` f32 per-(token, head) scales.
       cache_len, window, return_lse: as on :func:`flash_decode`.
-      pos_offset: only 0 (sharded decode is not ported).
+      pos_offset: as on :func:`flash_decode` (a sequence-sharded int8
+        cache).
 
     On a CUDA tensor it launches kernel K6; on a CPU tensor it runs
     :func:`flash_decode_q8_plain`.  Returns ``[B, 1, H, D]`` in
@@ -589,4 +617,44 @@ def flash_decode_q8(q, k_cache_q8, k_scale, v_cache_q8, v_scale, cache_len,
     _validate_q8(q, k_cache_q8, cache_len, window, pos_offset)
     one = _launch_q8 if q.device.type == "cuda" else flash_decode_q8_plain
     return one(q, k_cache_q8, k_scale, v_cache_q8, v_scale, cache_len,
-               window=window, return_lse=return_lse)
+               window=window, return_lse=return_lse, pos_offset=pos_offset)
+
+
+# ---- sequence-sharded decode ------------------------------------------------
+
+def lse_merge(out: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """Merge attention partials computed over disjoint key slices, one a
+    process of ``group``, by log-sum-exp: ``out [B, s, H, D]`` with
+    ``lse [B, H]`` (one query) or ``[B, H, s]``.  One all-gather of the
+    LSE, one f32 all-reduce of the weighted outputs, then the cast back;
+    no key or value moves.  A slice with no live key (``lse = -1e30``)
+    weighs exactly zero; ``group=None`` is a group of one."""
+    from tpudist_torch.parallel.common import all_gather, psum
+
+    every = all_gather(lse[None], group, 0)              # [n, B, H(, s)]
+    w = torch.exp(lse - torch.logsumexp(every, dim=0))
+    w = w[:, None, :, None] if lse.dim() == 2 else w.transpose(1, 2)[
+        ..., None]
+    return psum(out.float() * w, group).to(out.dtype)
+
+
+def sp_flash_decode(q, k_shard, v_shard, cache_len, group, *, window=None,
+                    packed_kv_heads=None, plain=False):
+    """Sequence-parallel flash decode: the KV cache's sequence dim is
+    split over the processes of ``group`` (process ``i`` of ``n`` owns
+    global slots ``[i·S_loc, (i+1)·S_loc)``).  Each runs
+    :func:`flash_decode` (K2 on a CUDA tensor) on its slice at
+    ``pos_offset = i·S_loc`` with global masking, and :func:`lse_merge`
+    combines the partial softmaxes.  ``q`` is replicated; returns the
+    replicated ``[B, 1, H, D]``.  ``plain`` runs
+    :func:`flash_decode_plain` on the slice instead (the model's
+    ``decode_attention="dense"``).  ``group=None`` is one process owning
+    the whole cache."""
+    import torch.distributed as dist
+
+    rank = 0 if group is None else dist.get_rank(group)
+    attend = flash_decode_plain if plain else flash_decode
+    out, lse = attend(q, k_shard, v_shard, cache_len, window=window,
+                      return_lse=True, packed_kv_heads=packed_kv_heads,
+                      pos_offset=rank * k_shard.shape[1])
+    return lse_merge(out, lse, group)
