@@ -249,7 +249,15 @@ Phases, each printing one JSON line and each fatal on failure:
    host tier off and on: completions identical, spilled and re-admitted
    blocks and bytes, re-admit ms, prefill tokens saved; serve_roles'
    preemption with the tier off and on, the parked lane's pages through
-   the tier, exact.
+   the tier, exact;
+45. fleet (after kv_tier) — the serve fleet: the port's CoordServer and
+   Router over three replica processes on this card (the router's own
+   replica entry point, the serve width, f32), 12 prompts of 512-4,096
+   tokens: a unified dense fleet with one replica SIGKILLed mid-decode
+   and a disaggregated one (1 prefill + 2 decode, paged, KV over the
+   store), each request once and token-identical to one ServeLoop on the
+   card; each replica's K1/K2/K5 launches from the replica itself; wall,
+   requests/s, detection s, p50/p99 latency, handoff bytes.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -304,6 +312,15 @@ BEAM_SCORE_ATOL = 1e-3
 # tokens and 192 new (7 blocks each: their reservations evict 6 cached
 # prefix blocks)
 KV_TIER = {"blocks": 40, "rounds": 3, "filler_new": 192}
+# fleet: three replica processes on one card at the serve width (8 layers,
+# f32) through the router's model flags, 4 slots, prefill chunk 512,
+# segments of 16; 12 prompts of 512-4,096 tokens, 64 new each; r1 of the
+# unified fleet SIGKILLs itself after its 3rd segment; paged at block 128
+FLEET = {"vocab": 32000, "layers": 8, "heads": 8, "kv_heads": 2,
+         "embed": 512, "seq_len": 4224, "slots": 4, "chunk": 512,
+         "steps": 16, "ttl": 2.0, "block": 128, "requests": 12,
+         "min_prompt": 512, "max_prompt": 4096, "new": 64, "kill_after": 3,
+         "timeout_s": 300.0}
 # host seconds idled at each end of a decode kernel's profile window, so
 # that a device clock running apart from the host's cuts no call off it
 PROFILE_PAD_S = 0.05
@@ -2161,6 +2178,266 @@ def phase_kv_tier(torch, dev, seed):
           "prefill_tokens_saved": saved, "off": off, "on": on,
           "preempt": park})
     return on["launches"]
+
+
+def fleet_replica_main(argv) -> int:
+    """One fleet replica for the ``fleet`` phase: ``--launches-out PATH``
+    then the router's own replica arguments.  Runs
+    ``tpudist_torch.runtime.router.main()`` as ``python -m`` would, and
+    once it returns (the fleet's stop key) writes this process's kernel
+    launch counts and ``serve/*`` counters to PATH.  A SIGKILLed replica
+    writes nothing."""
+    from tpudist_torch import obs
+    from tpudist_torch.runtime import router
+
+    i = argv.index("--launches-out")
+    out = argv[i + 1]
+    reset_launches()
+    sys.argv = ["tpudist_torch.runtime.router", *argv[:i], *argv[i + 2:]]
+    router.main()
+    counters = obs.snapshot()["counters"]
+    with open(out, "w") as fh:
+        json.dump({"launches": read_launches(),
+                   "counters": {k: v["value"] for k, v in counters.items()
+                                if k.startswith("serve/")}}, fh)
+    return 0
+
+
+class _DeathClock:
+    """The router's store client, timestamping the death sweep: the first
+    delete of ``{ns}/replica/{rid}`` is the router's death decision."""
+
+    def __init__(self, client, ns: str):
+        self._client, self._prefix = client, f"{ns}/replica/"
+        self.swept: dict[str, float] = {}
+
+    def __getattr__(self, name):
+        return getattr(self._client, name)
+
+    def delete(self, key: str) -> None:
+        if key.startswith(self._prefix):
+            self.swept.setdefault(key[len(self._prefix):], time.time())
+        self._client.delete(key)
+
+
+def _fleet_run(dev, seed: int, tmp: str, ns: str, roles: list,
+               layout: list, reqs, kill: dict | None = None) -> dict:
+    """Start one replica a role (chip_smoke's replica mode, cuda:0), route
+    ``reqs`` through the port's Router, stop the fleet and read each
+    surviving replica's dump.  ``kill`` = {index: segments} arms
+    KILL_AFTER_SEGMENTS there; the parent watches that process to time
+    its exit."""
+    import os
+    import threading
+
+    from tpudist_torch import obs
+    from tpudist_torch.runtime import router as rt
+    from tpudist_torch.runtime.coord import CoordClient, CoordServer
+
+    W = FLEET
+    server = CoordServer(0)
+    addr = f"127.0.0.1:{server.port}"
+    client = CoordClient("127.0.0.1", server.port)
+    env = dict(os.environ, PYTHONPATH=_repo_root())
+    model = ["--vocab", str(W["vocab"]), "--layers", str(W["layers"]),
+             "--heads", str(W["heads"]), "--kv-heads", str(W["kv_heads"]),
+             "--embed", str(W["embed"]), "--seq-len", str(W["seq_len"]),
+             "--seed", str(seed), "--slots", str(W["slots"]),
+             "--prefill-chunk", str(W["chunk"]),
+             "--steps-per-sync", str(W["steps"]), "--ttl", str(W["ttl"]),
+             "--device", str(dev), *layout]
+    procs, outs = [], []
+    for i, role in enumerate(roles):
+        out = f"{tmp}/{ns}_r{i}.json"
+        outs.append(out)
+        extra = ({"TPUDIST_FAULT_KILL_AFTER_SEGMENTS": str(kill[i])}
+                 if kill and i in kill else {})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c",
+             "import sys, chip_smoke; "
+             "sys.exit(chip_smoke.fleet_replica_main(sys.argv[1:]))",
+             "--launches-out", out, "--coord", addr, "--replica-id",
+             f"r{i}", "--rank", str(i), "--namespace", ns, *model,
+             "--role", role],
+            cwd=_repo_root(), env={**env, **extra}))
+    exited: dict[int, float] = {}
+
+    def watch(i: int, p) -> None:
+        p.wait()
+        exited[i] = time.time()
+
+    watchers = [threading.Thread(target=watch, args=(i, procs[i]),
+                                 daemon=True) for i in (kill or {})]
+    for t in watchers:
+        t.start()
+    before = {k: v["value"] for k, v in obs.snapshot()["counters"].items()}
+    timed = _DeathClock(client, ns)
+    sent: dict[str, float] = {}
+    lat: list[float] = []
+    try:
+        t0 = time.time()
+        rt.wait_live(client, len(roles), namespace=ns, timeout_s=180.0,
+                     procs=procs)
+        live_s = time.time() - t0
+        router = rt.Router(timed, namespace=ns, lost_after_s=10.0)
+
+        def done(key, comp) -> None:
+            lat.append(time.time() - sent[str(comp.rid)])
+
+        t0 = time.time()
+        sent.update({str(r.rid): t0 for r in reqs})
+        comps = router.run(reqs, timeout_s=W["timeout_s"],
+                           on_complete=done)
+        wall = time.time() - t0
+        kv_left = client.keys(f"{ns}/kv/")
+    finally:
+        codes = rt.stop_fleet(client, procs, namespace=ns, timeout_s=60.0)
+    after = obs.snapshot()["counters"]
+    moved = {k: v["value"] - before.get(k, 0.0) for k, v in after.items()
+             if k.startswith("router/") and v["value"] - before.get(k, 0.0)}
+    dumps = {}
+    for i, out in enumerate(outs):
+        if os.path.exists(out):
+            with open(out) as fh:
+                dumps[f"r{i}"] = json.load(fh)
+    hist = obs.values_to_hist(lat, growth=2 ** 0.25)
+    detect = {f"r{i}": timed.swept.get(f"r{i}", float("nan")) - t
+              for i, t in exited.items()}
+    del server
+    return {"comps": comps, "codes": codes, "dumps": dumps,
+            "moved": moved, "wall_s": wall, "live_s": live_s,
+            "kv_left": kv_left, "detect_s": detect,
+            "latency_p50_s": obs.hist_quantile(hist, 0.5),
+            "latency_p99_s": obs.hist_quantile(hist, 0.99),
+            "latency_max_s": max(lat) if lat else float("nan")}
+
+
+def phase_fleet(torch, dev, seed):
+    """The serve fleet on the card: the port's CoordServer and Router over
+    three replica processes on cuda:0 at the serve width (FLEET: 8 layers,
+    f32, 4 slots, chunk 512), 12 seeded prompts of 512-4,096 tokens with
+    64 new each.  (a) Unified dense: replica r1 SIGKILLs itself after
+    FLEET["kill_after"] segments; every request completes exactly once,
+    token-identical to one port ServeLoop on the card with the same
+    weights, one death, at least one redispatch.  (b) Disaggregated: one
+    prefill and two decode replicas, paged at block 128, KV handed off
+    over CoordKVTransport; every request adopted (no fallback), tokens
+    identical to the paged loop, the payload refs swept.  Each surviving
+    replica's kernel launches come from the replica itself: K1 > 0 where
+    it prefills, K2 > 0 on dense and K5 > 0 on decode replicas, 0 of the
+    other.  Wall s, requests/s, the detection s from r1's exit to the
+    router's death sweep, p50/p99 of the router-side request latency,
+    the handoff bytes."""
+    import tempfile
+
+    import numpy as np
+
+    from tpudist_torch.models.serving import Request, ServeLoop
+    from tpudist_torch.runtime.router import build_tiny_lm
+
+    W = FLEET
+    cfg, sd = build_tiny_lm(W["vocab"], W["layers"], W["heads"],
+                            W["kv_heads"], W["embed"], W["seq_len"], seed)
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(W["min_prompt"], W["max_prompt"] + 1, W["requests"])
+    prompts = [rng.integers(0, W["vocab"], n).astype(np.int32)
+               for n in lens]
+
+    def reqs():
+        return [Request(p, W["new"], rid=f"f{i}")
+                for i, p in enumerate(prompts)]
+
+    paged = ["--cache-layout", "paged", "--kv-block-size", str(W["block"])]
+    want = {}
+    for name, kw in (("dense", {}),
+                     ("paged", {"cache_layout": "paged",
+                                "kv_block_size": W["block"]})):
+        loop = ServeLoop(cfg, sd, num_slots=W["slots"],
+                         steps_per_sync=W["steps"],
+                         prefill_chunk=W["chunk"], device=dev, **kw)
+        want[name] = {c.rid: c.tokens.tolist() for c in loop.run(reqs())}
+        del loop
+    torch.cuda.empty_cache()
+    launches = {"K1": 0, "K2": 0, "K5": 0}
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for case, roles, layout, kill in (
+                ("unified", ["both"] * 3, ["--cache-layout", "dense"],
+                 {1: W["kill_after"]}),
+                ("disagg", ["prefill", "decode", "decode"], paged, None)):
+            r = _fleet_run(dev, seed, tmp, f"fleet_{case}", roles, layout,
+                           reqs(), kill)
+            comps = r["comps"]
+            rids = sorted(str(c.rid) for c in comps)
+            check(rids == sorted(f"f{i}" for i in range(W["requests"])),
+                  f"fleet {case}: completions {rids}")
+            ref = want["dense" if case == "unified" else "paged"]
+            bad = [c.rid for c in comps if c.tokens.tolist() != ref[c.rid]]
+            check(not bad, f"fleet {case}: requests {bad} differ from one "
+                  "ServeLoop on the card")
+            row = {"wall_s": r["wall_s"],
+                   "requests_per_s": W["requests"] / r["wall_s"],
+                   "live_s": r["live_s"],
+                   "latency_p50_s": r["latency_p50_s"],
+                   "latency_p99_s": r["latency_p99_s"],
+                   "latency_max_s": r["latency_max_s"],
+                   "exit_codes": r["codes"], "router": r["moved"],
+                   "replicas": {
+                       rid: {**{k: d["launches"][k]
+                                for k in ("K1", "K2", "K5")},
+                             **{k.split("/")[1]: d["counters"].get(k, 0)
+                                for k in ("serve/requests", "serve/tokens",
+                                          "serve/segments",
+                                          "serve/adoptions")}}
+                       for rid, d in r["dumps"].items()}}
+            if case == "unified":
+                check(r["codes"][1] == -9 and r["codes"][0] == 0
+                      and r["codes"][2] == 0,
+                      f"fleet unified: exit codes {r['codes']}")
+                check(r["moved"].get("router/replica_deaths") == 1
+                      and r["moved"].get("router/redispatched", 0) >= 1,
+                      f"fleet unified: router {r['moved']}")
+                row["detection_s"] = r["detect_s"]["r1"]
+                check(0 < row["detection_s"] < 60,
+                      f"fleet unified: detection {r['detect_s']}")
+            else:
+                check(r["codes"] == [0, 0, 0],
+                      f"fleet disagg: exit codes {r['codes']}")
+                check(r["moved"].get("router/handoffs", 0)
+                      >= W["requests"] and not r["kv_left"],
+                      f"fleet disagg: handoffs {r['moved']}, payloads "
+                      f"left {r['kv_left']}")
+                pre = r["dumps"]["r0"]["counters"]
+                adopted = sum(d["counters"].get("serve/adoptions", 0)
+                              for k, d in r["dumps"].items() if k != "r0")
+                fallbacks = sum(d["counters"].get("serve/handoff_fallbacks",
+                                                  0)
+                                for d in r["dumps"].values())
+                check(adopted == W["requests"] and fallbacks == 0,
+                      f"fleet disagg: adopted {adopted}, fallbacks "
+                      f"{fallbacks}")
+                row["handoffs"] = pre.get("serve/handoffs", 0)
+                row["handoff_bytes"] = pre.get("serve/handoff_bytes", 0)
+                check(row["handoff_bytes"] > 0,
+                      "fleet disagg: no handoff bytes")
+            for rid, d in r["dumps"].items():
+                n = d["launches"]
+                role = roles[int(rid[1:])]
+                dense = case == "unified"
+                want_k = {"K1": role != "decode", "K2": dense,
+                          "K5": role == "decode"}
+                for k, on in want_k.items():
+                    check((n[k] > 0) == on,
+                          f"fleet {case}: {rid} ({role}) launched {k} "
+                          f"{n[k]} times")
+                    launches[k] += n[k]
+            check(set(r["dumps"]) == ({"r0", "r2"} if case == "unified"
+                                      else {"r0", "r1", "r2"}),
+                  f"fleet {case}: dumps from {sorted(r['dumps'])}")
+            rows[case] = row
+    emit({"phase": "fleet", "width": W, "prompt_tokens": int(lens.sum()),
+          **rows, "launches": launches})
+    return launches
 
 
 def sp_summary(rows: list) -> dict:
@@ -6784,6 +7061,7 @@ def main(argv=None) -> int:
     spec_launches["sharded_generate"] = phase_sharded_generate(
         torch, dev, args.seed)
     spec_launches["kv_tier"] = phase_kv_tier(torch, dev, args.seed)
+    spec_launches["fleet"] = phase_fleet(torch, dev, args.seed)
     q8_launches = phase_decode_q8(torch, dev, args.seed)
     bwd_rows, k1_train = phase_backward_kernels(torch, dev, args.seed)
     phase_train_parity(torch, dev, args.seed)

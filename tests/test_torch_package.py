@@ -120,6 +120,53 @@ def test_scan_covers_the_elastic_slice():
             "tpudist_torch/elastic/worker.py"} <= scanned
 
 
+def test_scan_covers_the_fleet_slice():
+    """The import scan reaches every module of the observability core and
+    the serve fleet, and the fleet example."""
+    scanned = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"examples/serve_fleet_gpu.py",
+            *(f"tpudist_torch/obs/{m}.py" for m in (
+                "__init__", "registry", "spans", "events", "aggregate",
+                "recorder", "health", "export")),
+            *(f"tpudist_torch/runtime/{m}.py" for m in (
+                "wire", "prefix_directory", "quarantine", "disagg",
+                "router"))} <= scanned
+
+
+def test_fleet_modules_import_with_jax_blocked():
+    """With jax, flax, tpudist and ml_dtypes made unimportable, the obs
+    core and the fleet import, a registry folds a tensor, a bf16 KV
+    payload round-trips the wire, and a router picks a replica."""
+    code = "\n".join([
+        "import sys",
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'tpudist',",
+        "          'ml_dtypes'):",
+        "    sys.modules[m] = None",
+        "import torch",
+        "from tpudist_torch import obs",
+        "from tpudist_torch.runtime import (wire, prefix_directory,",
+        "                                   quarantine, disagg, router)",
+        "obs.counter('c').inc(torch.tensor([1.0, 2.0]))",
+        "assert obs.snapshot()['counters']['c']['value'] == 3.0",
+        "layer = {'k': torch.ones(1, 8, 4, dtype=torch.bfloat16),",
+        "         'v': torch.zeros(1, 8, 4, dtype=torch.bfloat16)}",
+        "doc = disagg.encode_payload({'prompt': [1], 'chain': [2],",
+        "                             'layers': [layer]})",
+        "assert doc['layers'][0]['k']['dtype'] == 'bfloat16'",
+        "back = disagg.decode_payload(wire.decode_record(",
+        "    wire.encode_record('kv_migration', doc)))",
+        "assert torch.equal(back['layers'][0]['k'], layer['k'])",
+        "r = router.Router(None, use_health=False, quarantine=False)",
+        "assert r._pick(['a', 'b'], {}, {'a': 1}) == 'b'",
+        "print('ok')",
+    ])
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_store_collectives_run_with_jax_blocked():
     """With jax, flax and tpudist made unimportable, the coordination
     store, a two-rank host allreduce (bf16 on the wire) and an elastic

@@ -29,10 +29,13 @@ moved onto a private copy) and :class:`PrefixCache` (rolling blake2b
 hash chains to pool blocks, pinned so idle prefixes survive
 ``free_slot``, evicted LRU over refcount-0 entries on demand).
 
-The JAX module publishes its tallies as obs gauges and counters; here
-they are plain attributes: :attr:`BlockPool.cow_splits`,
+The tallies are plain attributes (:attr:`BlockPool.cow_splits`,
 :attr:`PrefixCache.hits` / ``hit_tokens`` / ``evictions``, and the
-``used_blocks`` / ``free_blocks`` / ``frag`` properties.
+``used_blocks`` / ``free_blocks`` / ``frag`` properties) and, under the
+JAX module's names, :mod:`tpudist_torch.obs` metrics: the
+``serve/kv_blocks_used`` / ``serve/kv_blocks_free`` / ``serve/kv_frag``
+gauges and ``serve/cow_splits``, and the ``serve/prefix_*`` counters and
+gauge.
 
 The device half lives in :mod:`tpudist_torch.models.transformer`
 (``CausalSelfAttention._paged_attend``) and
@@ -46,6 +49,8 @@ from collections import OrderedDict
 from collections.abc import Callable, Sequence
 
 import numpy as np
+
+from tpudist_torch import obs
 
 
 def blocks_for(tokens: int, block_size: int) -> int:
@@ -138,6 +143,11 @@ class BlockPool:
         self.table = np.zeros(
             (num_slots, self.max_blocks_per_slot), np.int32)
         self.cow_splits = 0       # copy-on-write splits (serve/cow_splits)
+        self._obs_used = obs.gauge("serve/kv_blocks_used", unit="blocks")
+        self._obs_free = obs.gauge("serve/kv_blocks_free", unit="blocks")
+        self._obs_frag = obs.gauge("serve/kv_frag", unit="fraction")
+        self._obs_cow = obs.counter("serve/cow_splits", unit="blocks")
+        self._publish()
 
     # -- accounting --------------------------------------------------------
 
@@ -169,6 +179,14 @@ class BlockPool:
         if not alloc_tokens:
             return 0.0
         return min(1.0, max(0.0, 1.0 - sum(self._watermark) / alloc_tokens))
+
+    def _publish(self) -> None:
+        """The occupancy gauges (free counts cached-but-idle blocks, as
+        the router's load signal wants)."""
+        evictable = self._evictable()
+        self._obs_used.set(self.num_blocks - len(self._free) - evictable)
+        self._obs_free.set(len(self._free) + evictable)
+        self._obs_frag.set(self.frag)
 
     def check(self) -> None:
         """Allocator invariants: refcounts match slot references, nothing
@@ -288,6 +306,7 @@ class BlockPool:
         self._grow_to(slot, now)
         self._watermark[slot] = prompt_len
         self._prompt_len[slot] = prompt_len
+        self._publish()
 
     def share(self, slot: int, blocks: Sequence[int]) -> None:
         """Alias ``blocks`` under ``slot``'s leading positions (refcount
@@ -330,6 +349,8 @@ class BlockPool:
         self.table[slot, block_idx] = new
         self._shared_upto[slot] = block_idx
         self.cow_splits += 1
+        self._obs_cow.inc()
+        self._publish()
         return new
 
     def grow(self, slot: int, steps: int) -> None:
@@ -346,6 +367,7 @@ class BlockPool:
             self._reserved_total -= need - have
             self._grow_to(slot, need)
         self._watermark[slot] = target
+        self._publish()
 
     def _grow_to(self, slot: int, count: int) -> None:
         blks = self._slot_blocks[slot]
@@ -378,6 +400,7 @@ class BlockPool:
         self._cap[slot] = 0
         self._shared_upto[slot] = 0
         self._prompt_len[slot] = 0
+        self._publish()
 
     # -- KV export and adoption --------------------------------------------
 
@@ -431,6 +454,7 @@ class BlockPool:
         self._pinned.discard(blk)
         if not self._refcount[blk]:
             self._free.append(blk)
+        self._publish()
 
     def alloc_cached_block(self) -> int | None:
         """A plain-free block, taken and PINNED as cached-idle (refcount
@@ -441,6 +465,7 @@ class BlockPool:
             return None
         blk = self._free.pop()
         self._pinned.add(blk)
+        self._publish()
         return blk
 
 
@@ -475,6 +500,13 @@ class PrefixCache:
         self.hits = 0
         self.hit_tokens = 0
         self.evictions = 0
+        self._obs_hits = obs.counter("serve/prefix_hits", unit="requests")
+        self._obs_hit_tokens = obs.counter(
+            "serve/prefix_hit_tokens", unit="tokens")
+        self._obs_evictions = obs.counter(
+            "serve/prefix_evictions", unit="blocks")
+        self._obs_cached = obs.gauge(
+            "serve/prefix_cached_blocks", unit="blocks")
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -493,6 +525,8 @@ class PrefixCache:
         if out:
             self.hits += 1
             self.hit_tokens += len(out) * self.pool.block_size
+            self._obs_hits.inc()
+            self._obs_hit_tokens.inc(len(out) * self.pool.block_size)
         return out
 
     def peek(self, tokens: Sequence[int]) -> int:
@@ -527,6 +561,8 @@ class PrefixCache:
             self._parent[h] = hashes[j - 1] if j else None
             self.pool.cache_pin(slot_blocks[j])
             added += 1
+        self._obs_cached.set(len(self._entries))
+        self.pool._publish()
         return added
 
     def install(self, h: int, blk: int, parent: int | None) -> None:
@@ -541,6 +577,8 @@ class PrefixCache:
                 "(use alloc_cached_block)")
         self._entries[h] = blk
         self._parent[h] = parent
+        self._obs_cached.set(len(self._entries))
+        self.pool._publish()
 
     def evict_one(self) -> bool:
         """Drop the least recently used entry whose block no live slot
@@ -553,6 +591,8 @@ class PrefixCache:
                     self.spill_hook(h, blk, parent)
                 self.pool.cache_unpin(blk)
                 self.evictions += 1
+                self._obs_evictions.inc()
+                self._obs_cached.set(len(self._entries))
                 return True
         return False
 
@@ -567,3 +607,4 @@ class PrefixCache:
             del self._entries[h]
             self.pool.cache_unpin(blk)
         self._parent.clear()
+        self._obs_cached.set(0)

@@ -28,7 +28,8 @@ the entry.
 The tier itself only files what it is given: the serve loop hands it
 host tensors (pinned when the pool lives on a card).  Its counters are
 plain attributes: ``hits``, ``spills``, ``evictions`` and ``readmits`` in
-blocks, ``spilled_bytes`` and ``readmitted_bytes``.
+blocks, ``spilled_bytes`` and ``readmitted_bytes``; under the JAX module's
+names they are also :mod:`tpudist_torch.obs` metrics (``serve/tier_*``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from collections import OrderedDict
 
 import numpy as np
 import torch
+
+from tpudist_torch import obs
 
 __all__ = ["HostTier", "tier_budget_from_env", "DEFAULT_TIER_BYTES"]
 
@@ -80,6 +83,18 @@ class HostTier:
         self._nbytes = 0
         self.hits = self.spills = self.evictions = self.readmits = 0
         self.spilled_bytes = self.readmitted_bytes = 0
+        self._obs_blocks = obs.gauge("serve/tier_blocks", unit="blocks")
+        self._obs_bytes = obs.gauge("serve/tier_bytes", unit="bytes")
+        self._obs_budget = obs.gauge("serve/tier_budget_bytes",
+                                     unit="bytes")
+        self._obs_hits = obs.counter("serve/tier_hits", unit="blocks")
+        self._obs_spills = obs.counter("serve/tier_spills", unit="blocks")
+        self._obs_evictions = obs.counter("serve/tier_evictions",
+                                          unit="blocks")
+        self._obs_readmits = obs.counter("serve/tier_readmits",
+                                         unit="blocks")
+        self._obs_budget.set(self.budget_bytes)
+        self._publish()
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -94,6 +109,10 @@ class HostTier:
     def hashes(self) -> list[int]:
         """Resident chain hashes, least recently used first."""
         return list(self._entries)
+
+    def _publish(self) -> None:
+        self._obs_blocks.set(len(self._entries))
+        self._obs_bytes.set(self._nbytes)
 
     @staticmethod
     def _layers_nbytes(layers: list[dict]) -> int:
@@ -127,6 +146,8 @@ class HostTier:
         self._nbytes += n
         self.spills += 1
         self.spilled_bytes += n
+        self._obs_spills.inc()
+        self._publish()
         return True
 
     def has(self, h: int, *, version: int | None = None) -> bool:
@@ -157,11 +178,15 @@ class HostTier:
             return None
         if version is not None and e["version"] != int(version):
             self._remove(h)
+            self._publish()
             return None
         self._remove(h)
         self.hits += 1
         self.readmits += 1
         self.readmitted_bytes += e["nbytes"]
+        self._obs_hits.inc()
+        self._obs_readmits.inc()
+        self._publish()
         return e["layers"]
 
     def peek_layers(self, h: int, *,
@@ -175,6 +200,7 @@ class HostTier:
             return None
         self._entries.move_to_end(int(h))
         self.hits += 1
+        self._obs_hits.inc()
         return e["layers"]
 
     def _remove(self, h: int) -> None:
@@ -193,6 +219,7 @@ class HostTier:
         it pool-resident again, and a hash is never in both."""
         if int(h) in self._entries:
             self._remove(int(h))
+            self._publish()
 
     def evict_one(self) -> bool:
         """Evict the least recently used chain leaf; False when the tier
@@ -201,6 +228,8 @@ class HostTier:
             if not self._children.get(h):
                 self._remove(h)
                 self.evictions += 1
+                self._obs_evictions.inc()
+                self._publish()
                 return True
         return False
 
@@ -209,6 +238,7 @@ class HostTier:
         self._entries.clear()
         self._children.clear()
         self._nbytes = 0
+        self._publish()
 
     def check(self, resident_hashes=()) -> None:
         """The tier's invariants: byte accounting exact, the budget kept,

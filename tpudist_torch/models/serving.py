@@ -49,7 +49,12 @@ at every depth (a lane's rows are its own).  The finish ORDER is too
 unless a lane frees while requests wait: deeper, the host learns of the
 finish a segment later, so the next admission lands a segment later and
 finishes close together may swap places (tpudist's loop alike).
-Counters are plain attributes (``stats``, ``prefix_stats``).
+Counters are plain attributes (``stats``, ``prefix_stats``) and, under
+tpudist's names and units, the process-global :mod:`tpudist_torch.obs`
+registry's ``serve/*`` metrics (host values only: no metric reads the
+card); admissions, chunks, segments and swaps are ``obs`` spans, traced
+requests (``Request.trace``) record their lifecycle in ``obs.events``,
+and ``run`` is guarded by the flight recorder.
 
 Requests may carry deadlines: a queued request past its deadline
 completes ``reason="timeout"``; a lane past it is frozen on the device and
@@ -109,6 +114,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import os
 import time
 import warnings
 from collections import deque
@@ -117,6 +123,7 @@ from typing import Any, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from tpudist_torch import obs
 from tpudist_torch.models.generate import (
     _blank_cache,
     _make_select,
@@ -134,6 +141,7 @@ from tpudist_torch.models.speculative import (
     _set_cache_index,
 )
 from tpudist_torch.models.transformer import TransformerConfig
+from tpudist_torch.runtime import faults
 from tpudist_torch.utils.device import resolve_device
 
 
@@ -161,11 +169,19 @@ class Request:
     rid: Any = None               # caller's correlation id
     deadline_s: float | None = None
     priority: int = 0             # 0 = best-effort; higher = keep longer
+    # the fleet's tracing context (obs.events.TraceContext, None for
+    # untraced local runs): keys this loop's lifecycle events to the one
+    # fleet-wide id that survives a redispatch
+    trace: Any = None
     prefix_hash: int | None = None
     # a KV migration payload (a prefill loop's handoff or a migrated
     # lane): a decode-capable paged loop ADOPTS its pages; None, or a
     # payload failing a gate, means an ordinary prefill
     kv_handoff: Any = None
+    # pull-mode fleet prefix cache: a KV transport ref to a peer-exported
+    # prefix payload, resolved and installed by the replica worker before
+    # admission (a miss installs nothing: the full prefill is exact)
+    prefix_ref: str | None = None
 
 
 @dataclasses.dataclass
@@ -459,6 +475,8 @@ class ServeLoop:
             # table each segment stamps into the cache
             self.pool = BlockPool(nb, block, num_slots, cfg.max_seq_len)
         self.kv_block_size = block
+        self.kv_num_blocks = nb
+        self.cache_layout = cache_layout
         # paged: one block past the allocator's range is the merge's sink
         # for side slots that must not land (frozen lanes, dead table
         # entries), so the merge needs no host read of which ones do
@@ -561,6 +579,10 @@ class ServeLoop:
         self._migrate_rids: set[str] = set()
         self._evacuate = False
         self.stats = ServeStats()
+        self._init_obs()
+        # lifetime tokens drained to the host: the trip point of the
+        # TPUDIST_FAULT_NAN_AFTER_TOKENS injection
+        self._served_tokens = 0
         # depth >= 2 on a card: the side stream of the emits' copies, the
         # pinned emits buffers (one per segment in flight, each with the
         # event of its copy) and the pinned early-exit flags (one a tick)
@@ -570,6 +592,69 @@ class ServeLoop:
         self.pinned_reuse_waits = 0   # a ring buffer reused before its copy
         self.segment_host_reads = 0   # per-tick early-exit host reads
         self.spec_host_reads = 0      # a speculative segment's per-round reads
+
+    def _init_obs(self) -> None:
+        """tpudist's ``serve/*`` metrics, same names and units, in the
+        process-global registry (host values only)."""
+        self._obs_requests = obs.counter("serve/requests", unit="reqs")
+        self._obs_tokens = obs.counter("serve/tokens", unit="tokens")
+        self._obs_prompt_tokens = obs.counter("serve/prompt_tokens",
+                                              unit="tokens")
+        self._obs_prefill_tokens = obs.counter("serve/prefill_tokens",
+                                               unit="tokens")
+        self._obs_rejected = obs.counter("serve/rejected", unit="reqs")
+        self._obs_timeouts = obs.counter("serve/timeouts", unit="reqs")
+        self._obs_corrupt = obs.counter("serve/corrupt_segments",
+                                        unit="segments")
+        self._obs_segments = obs.counter("serve/segments", unit="segments")
+        self._obs_queue = obs.gauge("serve/queue_depth", unit="reqs")
+        self._obs_degraded = obs.gauge("serve/degraded", unit="bool")
+        self._obs_degrade_clamped = obs.counter("serve/degrade_clamped",
+                                                unit="reqs")
+        self._obs_latency = obs.histogram("serve/request_latency", unit="s")
+        # enqueue -> admit, sliding-window so the router's SLO gate reads
+        # the last minute; <= 0 disables the window
+        wait_window = float(
+            os.environ.get("TPUDIST_SERVE_WAIT_WINDOW_S", "60"))
+        self._obs_queue_wait = obs.histogram(
+            "serve/queue_wait_s", unit="s",
+            window_s=wait_window if wait_window > 0 else None)
+        self._obs_host_wait = obs.histogram("serve/host_wait", unit="s")
+        self._obs_depth = obs.gauge("serve/pipeline_depth", unit="segments")
+        self._obs_swaps = obs.counter("serve/swaps", unit="swaps")
+        self._obs_weights_version = obs.gauge("serve/weights_version",
+                                              unit="version")
+        self._obs_dispatches = obs.counter("serve/dispatches",
+                                           unit="dispatches")
+        self._obs_steps_per_dispatch = obs.gauge("serve/steps_per_dispatch",
+                                                 unit="tokens")
+        self._obs_spec_k = obs.gauge("serve/spec_k", unit="tokens")
+        self._obs_spec_accept = obs.gauge("serve/spec_accept_rate",
+                                          unit="ratio")
+        self._obs_spt = obs.gauge(
+            "serve/seconds_per_token", unit="s",
+            help="EMA of realized seconds per generated token "
+                 "(dispatch->drain wall / tokens; the replica's "
+                 "service rate)")
+        self._obs_adoptions = obs.counter("serve/adoptions", unit="reqs")
+        self._obs_handoff_fallbacks = obs.counter(
+            "serve/handoff_fallbacks", unit="reqs")
+        self._obs_preempted = obs.counter("serve/preempted", unit="reqs")
+        self._obs_resumed = obs.counter("serve/resumed", unit="reqs")
+        self._obs_migrated_out = obs.counter("serve/migrated_out",
+                                             unit="reqs")
+
+    @property
+    def params(self) -> dict:
+        """The served weights as the port's state_dict (what a fleet
+        snapshot restores into)."""
+        return self.model.state_dict()
+
+    @params.setter
+    def params(self, tree) -> None:
+        """Load a state_dict or a flax tree (converted) into the model."""
+        _, sd = serving_layout(self._cfg_in, tree)
+        self.model.load_state_dict(sd)
 
     # -- device work ---------------------------------------------------------
 
@@ -599,14 +684,15 @@ class ServeLoop:
         return flag, ev
 
     @torch.no_grad()
-    def _segment(self, n_steps: int):
+    def _segment(self, n_steps: int, poison: bool = False):
         """One multi-token segment: up to ``n_steps`` decode ticks, leaving
         early once every lane is frozen (at depth 1 by a host read of
         ``active.any()`` each tick; deeper, by a lagged pinned flag, see
         the module docstring).  Returns the ``[B, 1 + steps]`` emits
         (column 0 carries the admission-deferred first tokens, columns
         past the ticks run are pad) and the per-lane ``corrupt`` flags of
-        the in-graph NaN/inf guard."""
+        the in-graph NaN/inf guard.  ``poison`` (the fault harness's
+        ``NAN_AFTER_TOKENS``) NaN-floods every tick's logits."""
         stop_arr = self._stop
         pad = self.pad_token
         S = self.cfg.max_seq_len
@@ -638,6 +724,8 @@ class ServeLoop:
             logits, cache = self.model(tok[:, None], positions=pos[:, None],
                                        cache=cache)
             last = logits[:, -1]
+            if poison:
+                last = torch.full_like(last, float("nan"))
             # integrity guard: freeze (not emit) lanes whose logits are no
             # longer finite
             bad = active & ~torch.isfinite(last).all(dim=-1)
@@ -1280,6 +1368,7 @@ class ServeLoop:
         L = int(prompt.size)
         max_new = int(req.max_new_tokens)
         self.stats.prompt_tokens += L
+        self._obs_prompt_tokens.inc(L)
         self.prefix_stats["requests"] += 1
         self.prefix_stats["prompt_tokens"] += L
         if req.prefix_hash is not None and self._prefix_cache is not None:
@@ -1295,9 +1384,11 @@ class ServeLoop:
             if st is not None:
                 return st
             self.stats.handoff_fallbacks += 1
+            self._obs_handoff_fallbacks.inc()
         if self.chunked:
             return self._admit_start(slot, req, prompt, L, max_new)
         self.prefix_stats["prefill_tokens"] += L
+        self._obs_prefill_tokens.inc(L)
         pages = None
         if self.pool is not None:
             # allocate-on-admit: pages under the prompt now, the rest of
@@ -1339,6 +1430,7 @@ class ServeLoop:
         elif self.pool is not None:
             self.pool.admit(slot, L, max_new)
         self.prefix_stats["prefill_tokens"] += L - suffix_start
+        self._obs_prefill_tokens.inc(L - suffix_start)
         if self.pool is not None:
             pages = self.pool.table[slot].copy()
         cache1 = (self._gather_prefix(pages) if suffix_start
@@ -1499,6 +1591,9 @@ class ServeLoop:
             self._draft_prefill(padded, chunk, slot, L_eff)
         self._stamp_lane(slot, torch.tensor(first, device=dev), max_new)
         self.stats.adoptions += 1
+        self._obs_adoptions.inc()
+        obs.recorder.record("serve_adopt", slot=slot, prompt_len=L,
+                            blocks=len(blocks), generated=len(generated))
         return {"req": req, "tokens": list(generated),
                 "pending_first": True}
 
@@ -1568,17 +1663,21 @@ class ServeLoop:
         return int(self._spec_policy.best_k(batch=max(live, 1),
                                             allow_plain=False))
 
-    def _apply_swap(self, swap: dict) -> None:
-        tree = swap["fn"]()
-        if tree is not None:
-            _, sd = serving_layout(self._cfg_in, tree)
-            self.model.load_state_dict(sd)
-            self.stats.swaps += 1
-            if swap["version"] is not None:
-                self.weights_version = int(swap["version"])
-            # cached prefix KV was computed under the old weights; the
-            # loop is drained, so every cached block returns to the pool
-            self.flush_prefix_cache()
+    def _apply_swap(self, swap: dict, seq: int) -> None:
+        with obs.span("serve/swap", version=swap["version"]):
+            tree = swap["fn"]()
+            if tree is not None:
+                self.params = tree
+                self.stats.swaps += 1
+                self._obs_swaps.inc()
+                if swap["version"] is not None:
+                    self._obs_weights_version.set(int(swap["version"]))
+                    self.weights_version = int(swap["version"])
+                # cached prefix KV was computed under the old weights; the
+                # loop is drained, so every cached block returns to the pool
+                self.flush_prefix_cache()
+        obs.recorder.record("serve_swap", seq=seq, version=swap["version"],
+                            applied=tree is not None)
         if swap["on_swapped"] is not None:
             swap["on_swapped"]()
 
@@ -1680,19 +1779,33 @@ class ServeLoop:
         closed = source is None
         stats = self.stats
         synced = self.pipeline_depth == 1
+        # id(request) -> its enqueue time, for serve/queue_wait_s
+        t_enq: dict[int, float] = {}
+        swap_pause_logged = False   # one swap_pause event per barrier
 
         def emit(comp: Completion) -> None:
             done.append(comp)
             if sink is not None:
                 sink(comp)
 
+        def tev(kind: str, req: Request, **fields) -> None:
+            """One lifecycle event of a TRACED request into the tracing
+            ring; untraced local runs stay out of it."""
+            tc = getattr(req, "trace", None)
+            if tc is not None:
+                obs.events.record(kind, trace=tc.trace_id, **fields)
+
         def complete_unadmitted(req: Request, reason: str) -> None:
+            t_enq.pop(id(req), None)
             if reason == "rejected":
                 stats.rejected += 1
+                self._obs_rejected.inc()
             elif reason == "timeout":
                 stats.timeouts += 1
+                self._obs_timeouts.inc()
             elif reason == "invalid":
                 stats.invalid += 1
+            tev(reason, req, stage="queue")
             emit(Completion(
                 rid=req.rid, prompt=np.asarray(req.prompt),
                 tokens=np.zeros((0,), np.int32), reason=reason))
@@ -1707,6 +1820,7 @@ class ServeLoop:
                     except ValueError:
                         complete_unadmitted(req, "invalid")
                         continue
+                t_enq[id(req)] = time.perf_counter()
                 pending.append(req)
 
         def shed() -> None:
@@ -1717,6 +1831,7 @@ class ServeLoop:
             class, so earlier arrivals keep their FIFO place."""
             self._degraded = (self.degrade_queue is not None
                               and len(pending) > self.degrade_queue)
+            self._obs_degraded.set(1.0 if self._degraded else 0.0)
             while (self.max_queue is not None
                    and len(pending) > self.max_queue):
                 lowest = min(r.priority for r in pending)
@@ -1725,14 +1840,20 @@ class ServeLoop:
                 req = pending[victim]
                 del pending[victim]
                 complete_unadmitted(req, "rejected")
+            self._obs_queue.set(len(pending))
 
         def finalize(slot: int, reason: str, *,
                      free_pool: bool = True) -> None:
             st = slot_state[slot]
+            tev("finalize", st["req"], slot=slot, reason=reason,
+                tokens=len(st["tokens"]))
             emit(Completion(
                 rid=st["req"].rid, prompt=np.asarray(st["req"].prompt),
                 tokens=np.asarray(st["tokens"], np.int32), reason=reason))
             stats.tokens += len(st["tokens"])
+            self._obs_tokens.inc(len(st["tokens"]))
+            if "t_admit" in st:
+                self._obs_latency.record(time.perf_counter() - st["t_admit"])
             slot_state[slot] = None
             if self.pool is not None and free_pool:
                 # free-on-finalize: blocks and the unused reservation
@@ -1768,6 +1889,11 @@ class ServeLoop:
                     now = self._clock()
                 if now > st["req"].deadline_s:
                     stats.timeouts += 1
+                    self._obs_timeouts.inc()
+                    obs.recorder.record("serve_timeout", slot=slot, seq=seq,
+                                        tokens=len(st["tokens"]))
+                    tev("timeout", st["req"], stage="decode", slot=slot,
+                        tokens=len(st["tokens"]))
                     kill(slot, "timeout")
 
         def admit_free() -> None:
@@ -1775,7 +1901,7 @@ class ServeLoop:
             queue (none while a swap waits); a one-shot admission's tokens
             first surface in the NEXT dispatched segment (index ``seq``),
             so its drain is gated on that stamp."""
-            nonlocal pending
+            nonlocal pending, swap_pause_logged
             if pending:
                 now = None
                 kept: deque[Request] = deque()
@@ -1789,7 +1915,14 @@ class ServeLoop:
                     kept.append(req)
                 pending = kept
             if self._pending_swap is not None:
-                return  # the swap barrier: no admissions until it lands
+                # the swap barrier: no admissions until it lands
+                if not swap_pause_logged:
+                    swap_pause_logged = True
+                    for req in pending:
+                        tev("swap_pause", req, queued=len(pending),
+                            version=self._pending_swap.get("version"))
+                self._obs_queue.set(len(pending))
+                return
             for slot in range(self.B):
                 if slot_state[slot] is None and pending:
                     # preempt="migrate" admits the best waiting class
@@ -1804,6 +1937,7 @@ class ServeLoop:
                         # never jumps it, which would starve long prompts)
                         break
                     del pending[sel]
+                    t_q = t_enq.pop(id(req), None)
                     if (self.preempt != "migrate" and self._degraded
                             and req.priority <= 0
                             and req.max_new_tokens > self.degrade_max_new):
@@ -1813,11 +1947,27 @@ class ServeLoop:
                         req = dataclasses.replace(
                             req, max_new_tokens=self.degrade_max_new)
                         stats.degrade_clamped += 1
-                    st = self._admit(slot, req)
+                        self._obs_degrade_clamped.inc()
+                        tev("degrade_clamp", req, stage="replica",
+                            max_new=self.degrade_max_new)
+                    if t_q is not None:
+                        self._obs_queue_wait.record(
+                            time.perf_counter() - t_q)
+                    with obs.span("serve/admit", slot=slot):
+                        st = self._admit(slot, req)
+                    st["t_admit"] = time.perf_counter()
                     if "prefill" not in st:
                         st["seq"] = seq
                     slot_state[slot] = st
                     stats.requests += 1
+                    self._obs_requests.inc()
+                    L_req = int(np.asarray(req.prompt).size)
+                    obs.recorder.record(
+                        "serve_admit", slot=slot, seq=seq,
+                        prompt_len=L_req, max_new=req.max_new_tokens)
+                    tev("admit", req, slot=slot, seq=seq,
+                        prompt_len=L_req, max_new=req.max_new_tokens)
+            self._obs_queue.set(len(pending))
 
         def drain(slot: int, emit_row) -> None:
             """Feed a slot's newly visible tokens (column 0 = the
@@ -1835,9 +1985,16 @@ class ServeLoop:
                     # an id outside the vocab can only come from scrambled
                     # device memory or a bad transfer
                     stats.corrupt_segments += 1
+                    self._obs_corrupt.inc()
+                    obs.recorder.record(
+                        "serve_corrupt_segment", slot=slot,
+                        token=t, tokens=len(st["tokens"]))
+                    tev("corrupt_segment", st["req"], slot=slot,
+                        token=t, tokens=len(st["tokens"]))
                     kill(slot, "corrupt_segment")
                     return
                 st["tokens"].append(t)
+                self._served_tokens += 1
                 if j > 0 or not first_col:
                     stats.decode_tokens += 1
                 if t in self._stop_set:
@@ -1862,11 +2019,16 @@ class ServeLoop:
                 pf = st["prefill"]
                 if pf["chunks"]:
                     off, w = pf["chunks"].pop(0)
-                    pf["cache1"], pf["logits"] = self._prefill_chunk(
-                        pf["cache1"], pf["padded"][:, off:off + w], off)
+                    with obs.span("serve/prefill_chunk", slot=slot,
+                                  off=off, width=w):
+                        pf["cache1"], pf["logits"] = self._prefill_chunk(
+                            pf["cache1"], pf["padded"][:, off:off + w], off)
                     pf["off_last"] = off
+                    tev("prefill_chunk", st["req"], slot=slot,
+                        off=off, width=w, left=len(pf["chunks"]))
                     continue
-                self._admit_finish(pf, slot)
+                with obs.span("serve/admit_finish", slot=slot):
+                    self._admit_finish(pf, slot)
                 if self._prefix_cache is not None:
                     # registered only now that the insert has written the
                     # blocks: an earlier admission matching them would
@@ -1882,16 +2044,24 @@ class ServeLoop:
                                               self.kv_block_size):
                             self._tier.discard(h)
                 del st["prefill"]
+                tev("prefill_done", st["req"], slot=slot, seq=seq,
+                    prompt_len=pf["L"])
                 if self.role == "prefill":
                     # the prefill role's job ends here: the lane never
                     # decodes; its pages and first token leave as the
                     # handoff, and the slot frees at once
                     self._active[slot] = False
+                    payload = self._build_handoff(slot, st["req"], pf)
+                    tev("handoff_export", st["req"], slot=slot, seq=seq,
+                        prompt_len=pf["L"],
+                        blocks=-(-pf["L"] // self.kv_block_size))
                     emit(Completion(
                         rid=st["req"].rid,
                         prompt=np.asarray(st["req"].prompt),
                         tokens=np.zeros((0,), np.int32), reason="handoff",
-                        handoff=self._build_handoff(slot, st["req"], pf)))
+                        handoff=payload))
+                    self._obs_latency.record(
+                        time.perf_counter() - st["t_admit"])
                     slot_state[slot] = None
                     handed = True
                     continue
@@ -1928,8 +2098,10 @@ class ServeLoop:
             if (self._pending_swap is None or inflight
                     or any(st is not None for st in slot_state)):
                 return
+            nonlocal swap_pause_logged
             swap, self._pending_swap = self._pending_swap, None
-            self._apply_swap(swap)
+            swap_pause_logged = False   # the next swap logs its pause again
+            self._apply_swap(swap, seq)
             admit_free()   # the barrier is down; refill lanes now
             shed()
 
@@ -1957,34 +2129,60 @@ class ServeLoop:
                 self._stamp_table()
             t0 = time.perf_counter()
             spec = None
-            if k:
-                emits_dev, corrupt_dev, spec = self._segment_spec(n, k)
-                stats.spec_k = k
-            else:
-                emits_dev, corrupt_dev = self._segment(n)
+            with obs.span("serve/segment", steps=n, seq=seq):
+                if k:
+                    emits_dev, corrupt_dev, spec = self._segment_spec(n, k)
+                    stats.spec_k = k
+                    self._obs_spec_k.set(k)
+                else:
+                    emits_dev, corrupt_dev = self._segment(
+                        n, faults.poison_logits(self._served_tokens))
+            self._obs_segments.inc()
+            self._obs_dispatches.inc()
+            for slot, st in enumerate(slot_state):
+                if (st is not None and not st.get("zombie")
+                        and "prefill" not in st):
+                    tev("segment", st["req"], slot=slot, seq=seq,
+                        steps=n, tokens=len(st["tokens"]),
+                        spt=(round(self._step_ema, 6)
+                             if self._step_ema is not None else None))
             inflight.append((seq, self._fetch_start(seq, emits_dev,
                                                     corrupt_dev),
                              n, k, spec, t0))
             seq += 1
             stats.segments += 1
+            self._obs_depth.set(len(inflight))
+            # fault harness: a configured kill-after-K-segments SIGKILLs
+            # here, mid-decode, with segments in flight
+            faults.on_segment()
 
         def drain_oldest() -> None:
             """Resolve the oldest segment in flight: wait for its copy,
             then feed every lane whose stamp says this segment carries its
             tokens, and refund the zombies it was the last to hold."""
             s_idx, fetched, n, k, spec, t_disp = inflight.popleft()
+            self._obs_depth.set(len(inflight))
             t0 = time.perf_counter()
             emits, corrupt = self._fetch_wait(fetched)
             now = time.perf_counter()
             stats.host_wait_seconds += now - t0
             dt = now - t_disp
             stats.decode_seconds += dt
+            # tpudist's drain reads a segment only when a lane takes its
+            # tokens; its host_wait and per-dispatch gauges follow that
+            read = any(st is not None and not st.get("zombie")
+                       and "seq" in st and st["seq"] <= s_idx
+                       for st in slot_state)
+            if read:
+                self._obs_host_wait.record(now - t0)
             if spec is not None:
                 n, rounds, acc, act = spec   # n: tokens the segment emitted
                 stats.spec_rounds += rounds
                 stats.spec_draft_steps += rounds * (k + 1)
                 stats.spec_accepted += acc
                 stats.spec_row_rounds += act
+                if read and act > 0 and k > 0:
+                    self._obs_spec_accept.set(acc / (act * k))
                 policy = self._spec_policy
                 if policy is not None and act > 0:
                     policy.update({"rounds": act, "draft_accepted": acc},
@@ -1998,6 +2196,10 @@ class ServeLoop:
                 per = dt / n
                 self._step_ema = (per if self._step_ema is None
                                   else 0.7 * self._step_ema + 0.3 * per)
+                if read:
+                    self._obs_spt.set(self._step_ema)
+            if read:
+                self._obs_steps_per_dispatch.set(n)
             for slot in range(self.B):
                 st = slot_state[slot]
                 if (st is None or st.get("zombie") or "seq" not in st
@@ -2008,6 +2210,12 @@ class ServeLoop:
                     # from the bad step, but the segment's earlier columns
                     # come from the same poisoned state: discard them all
                     stats.corrupt_segments += 1
+                    self._obs_corrupt.inc()
+                    obs.recorder.record(
+                        "serve_corrupt_segment", slot=slot,
+                        seq=s_idx, tokens=len(st["tokens"]))
+                    tev("corrupt_segment", st["req"], slot=slot,
+                        seq=s_idx, tokens=len(st["tokens"]))
                     finalize(slot, "corrupt_segment")
                 else:
                     drain(slot, emits[slot, :1 + n])
@@ -2045,8 +2253,9 @@ class ServeLoop:
             the resume to a re-prefill, byte-identical), else the payload
             stays whole in host RAM."""
             req = slot_state[slot]["req"]
+            n_gen = len(slot_state[slot]["tokens"])
             payload = export_lane(slot)
-            entry: dict = {"req": req}
+            entry: dict = {"req": req, "t_q": time.perf_counter()}
             keys: list[int] = []
             if self._tier is not None and payload["layers"]:
                 parent = None
@@ -2076,6 +2285,11 @@ class ServeLoop:
                 entry["payload"] = payload
             self._parked[req.rid] = entry
             stats.preempted += 1
+            self._obs_preempted.inc()
+            obs.recorder.record("serve_preempt", slot=slot,
+                                tokens=n_gen, parked=len(self._parked))
+            tev("preempt", req, stage="replica", slot=slot,
+                tokens=n_gen, parked=len(self._parked))
 
         def unpark(entry: dict) -> dict | None:
             """A parked lane's payload, its tiered blocks taken back; None
@@ -2100,11 +2314,18 @@ class ServeLoop:
             entry.pop("keys", None)
             entry.pop("payload", None)
 
-        def migrate_out(req: Request, payload: dict | None) -> None:
+        def migrate_out(req: Request, payload: dict | None,
+                        stage: str) -> None:
             """Hand a request out as a ``reason="migrate"`` completion,
             with its lane's payload or none (it never held a lane, or was
             mid-prefill: a re-prefill elsewhere gives the same bytes)."""
+            t_enq.pop(id(req), None)
             stats.migrated_out += 1
+            self._obs_migrated_out.inc()
+            tev("migrate_export", req, stage=stage,
+                tokens=(len(payload.get("generated", ())) + 1
+                        if payload else 0),
+                refless=payload is None)
             emit(Completion(rid=req.rid, prompt=np.asarray(req.prompt),
                             tokens=np.zeros((0,), np.int32),
                             reason="migrate", handoff=payload))
@@ -2130,7 +2351,7 @@ class ServeLoop:
             kept: deque[Request] = deque()
             for req in pending:
                 if chosen(req):
-                    migrate_out(req, None)
+                    migrate_out(req, None, "queue")
                     moved = True
                 else:
                     kept.append(req)
@@ -2138,7 +2359,7 @@ class ServeLoop:
             for rid in list(self._parked):
                 if chosen(self._parked[rid]["req"]):
                     entry = self._parked.pop(rid)
-                    migrate_out(entry["req"], unpark(entry))
+                    migrate_out(entry["req"], unpark(entry), "parked")
                     moved = True
             lanes = [slot for slot, st in enumerate(slot_state)
                      if st is not None and not st.get("zombie")
@@ -2153,9 +2374,9 @@ class ServeLoop:
                         # mid-prefill: no finished prefix to export
                         self.pool.free_slot(slot)
                         slot_state[slot] = None
-                        migrate_out(st["req"], None)
+                        migrate_out(st["req"], None, "prefill")
                     else:
-                        migrate_out(st["req"], export_lane(slot))
+                        migrate_out(st["req"], export_lane(slot), "decode")
                     moved = True
             return moved
 
@@ -2215,48 +2436,65 @@ class ServeLoop:
             if not self.pool.can_admit(int(np.asarray(req.prompt).size),
                                        int(req.max_new_tokens)):
                 return False
-            payload = unpark(self._parked.pop(rid))
-            pending.appendleft(dataclasses.replace(req, kv_handoff=payload)
-                               if payload is not None else req)
+            entry = self._parked.pop(rid)
+            payload = unpark(entry)
+            resumed = (dataclasses.replace(req, kv_handoff=payload)
+                       if payload is not None else req)
+            t_enq[id(resumed)] = entry["t_q"]
+            pending.appendleft(resumed)
             stats.resumed += 1
+            self._obs_resumed.inc()
+            obs.recorder.record("serve_resume", fallback=payload is None,
+                                parked=len(self._parked))
+            tev("resume", req, stage="replica", fallback=payload is None,
+                parked=len(self._parked))
             return True
 
-        intake(requests, strict=True)
-        admit_free()
-        shed()
-        while True:
-            if not closed:
-                batch = source()
-                if batch is None:
-                    closed = True
-                elif batch:
-                    intake(batch, strict=False)
+        # an unhandled exception mid-serve dumps the flight recorder's
+        # bundle (admission ring, final snapshot) before propagating
+        with obs.recorder.guard("serve_loop", num_slots=self.B,
+                                requests=len(requests),
+                                pipeline_depth=self.pipeline_depth):
+            intake(requests, strict=True)
+            admit_free()
+            shed()
+            while True:
+                if not closed:
+                    batch = source()
+                    if batch is None:
+                        closed = True
+                    elif batch:
+                        intake(batch, strict=False)
+                        admit_free()
+                        shed()
+                expire_inflight()
+                if (self.preempt == "migrate"
+                        and self._pending_swap is not None
+                        and source is not None):
+                    # fast swap: hand in-flight work to peers so the
+                    # barrier drains in about one handoff instead of the
+                    # longest decode
+                    self._evacuate = True
+                if do_migrates() | maybe_preempt() | maybe_resume():
                     admit_free()
                     shed()
-            expire_inflight()
-            if (self.preempt == "migrate" and self._pending_swap is not None
-                    and source is not None):
-                # fast swap: hand in-flight work to peers so the barrier
-                # drains in about one handoff instead of the longest decode
-                self._evacuate = True
-            if do_migrates() | maybe_preempt() | maybe_resume():
-                admit_free()
-                shed()
-            advance_admissions()
-            if can_work():
-                dispatch()
-            # drain when the pipeline is full, or when nothing is left to
-            # dispatch and only drains remain
-            while inflight and (len(inflight) >= self.pipeline_depth
-                                or not can_work()):
-                drain_oldest()
-                admit_free()
-            maybe_swap()
-            if not (pending or inflight or self._parked
-                    or any(st is not None for st in slot_state)):
-                if closed:
-                    break
-                time.sleep(idle_wait_s)
-        # the queue drained on the way out: an idle loop is not degraded
-        self._degraded = False
+                advance_admissions()
+                if can_work():
+                    dispatch()
+                # drain when the pipeline is full, or when nothing is left
+                # to dispatch and only drains remain
+                while inflight and (len(inflight) >= self.pipeline_depth
+                                    or not can_work()):
+                    drain_oldest()
+                    admit_free()
+                maybe_swap()
+                if not (pending or inflight or self._parked
+                        or any(st is not None for st in slot_state)):
+                    if closed:
+                        break
+                    time.sleep(idle_wait_s)
+            # the queue drained on the way out: an idle loop is not
+            # degraded
+            self._degraded = False
+            self._obs_degraded.set(0.0)
         return done
