@@ -138,9 +138,12 @@ Phases, each printing one JSON line and each fatal on failure:
    2 epochs snapshotted every epoch, a second Trainer resuming from the
    snapshot for epoch 3, bit for bit equal to an uninterrupted 3-epoch
    run (losses, parameters, Adam's state); test accuracy >= 0.9; the
-   native gather pool used; no port kernel launched; ms per step,
-   images/s, the snapshot saves' blocking seconds, peak memory, 20
-   profiled steps' device busy share;
+   native gather pool used; no port kernel launched; the first Trainer's
+   train/steps equal to its steps, xla/step_tflops (its first step's
+   counted FLOPs over the mean step time) and the allocator's
+   xla/mem/peak_bytes_in_use/d0 above 0; ms per step, images/s, the
+   snapshot saves' blocking seconds, peak memory, 20 profiled steps'
+   device busy share;
 27. train_convnet — the ConvNet with dropout through Trainer.train() on
    data/real_digits.npz (batch 128, Adam 1e-3, 15 epochs): held-out
    accuracy >= 0.90; then the mnist_horovod shape (batch 1024, SGD
@@ -257,7 +260,18 @@ Phases, each printing one JSON line and each fatal on failure:
    and a disaggregated one (1 prefill + 2 decode, paged, KV over the
    store), each request once and token-identical to one ServeLoop on the
    card; each replica's K1/K2/K5 launches from the replica itself; wall,
-   requests/s, detection s, p50/p99 latency, handoff bytes.
+   requests/s, detection s, p50/p99 latency, handoff bytes;
+46. fleet_autoscale (after fleet) — the fleet phase's model and prompts,
+   paged at block 128, from one replica: an Autoscaler (1-2 replicas, a
+   5 ms queue-wait target) buys a joiner during batch 1, batch 2 (12
+   fresh prompts from seed + 1) spreads over both, the idle tail (a 25 s
+   queue-wait window) drains one replica back out; batch 1 once and
+   token-identical to the fleet phase's paged ServeLoop, batch 2 to its
+   own paged ServeLoop reference, >= 1 scale-up, >= 1 clean drain (exit
+   0, pool_drained), no death and no ReplicaLost alert over a FleetScraper,
+   K1 and K5 (no K2) in every replica that served, the joiner among
+   them, a live console frame listing both; scale-up s, drain s, wall s
+   and requests/s a batch, p50/p99.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -2220,6 +2234,33 @@ class _DeathClock:
         self._client.delete(key)
 
 
+def _fleet_model_args(dev, seed: int) -> list:
+    """The router's replica flags for FLEET's model, slots and ticks."""
+    W = FLEET
+    return ["--vocab", str(W["vocab"]), "--layers", str(W["layers"]),
+            "--heads", str(W["heads"]), "--kv-heads", str(W["kv_heads"]),
+            "--embed", str(W["embed"]), "--seq-len", str(W["seq_len"]),
+            "--seed", str(seed), "--slots", str(W["slots"]),
+            "--prefill-chunk", str(W["chunk"]),
+            "--steps-per-sync", str(W["steps"]), "--ttl", str(W["ttl"]),
+            "--device", str(dev)]
+
+
+def _smoke_replica(addr: str, ns: str, i: int, args: list, out: str,
+                   env: dict):
+    """Replica ``r{i}`` (rank i) in chip_smoke's replica mode
+    (:func:`fleet_replica_main`, dumping its launches to ``out``)."""
+    p = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; "
+         "sys.exit(chip_smoke.fleet_replica_main(sys.argv[1:]))",
+         "--launches-out", out, "--coord", addr, "--replica-id", f"r{i}",
+         "--rank", str(i), "--namespace", ns, *args],
+        cwd=_repo_root(), env=env)
+    p.replica_index = i
+    return p
+
+
 def _fleet_run(dev, seed: int, tmp: str, ns: str, roles: list,
                layout: list, reqs, kill: dict | None = None) -> dict:
     """Start one replica a role (chip_smoke's replica mode, cuda:0), route
@@ -2239,27 +2280,15 @@ def _fleet_run(dev, seed: int, tmp: str, ns: str, roles: list,
     addr = f"127.0.0.1:{server.port}"
     client = CoordClient("127.0.0.1", server.port)
     env = dict(os.environ, PYTHONPATH=_repo_root())
-    model = ["--vocab", str(W["vocab"]), "--layers", str(W["layers"]),
-             "--heads", str(W["heads"]), "--kv-heads", str(W["kv_heads"]),
-             "--embed", str(W["embed"]), "--seq-len", str(W["seq_len"]),
-             "--seed", str(seed), "--slots", str(W["slots"]),
-             "--prefill-chunk", str(W["chunk"]),
-             "--steps-per-sync", str(W["steps"]), "--ttl", str(W["ttl"]),
-             "--device", str(dev), *layout]
+    model = [*_fleet_model_args(dev, seed), *layout]
     procs, outs = [], []
     for i, role in enumerate(roles):
         out = f"{tmp}/{ns}_r{i}.json"
         outs.append(out)
         extra = ({"TPUDIST_FAULT_KILL_AFTER_SEGMENTS": str(kill[i])}
                  if kill and i in kill else {})
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c",
-             "import sys, chip_smoke; "
-             "sys.exit(chip_smoke.fleet_replica_main(sys.argv[1:]))",
-             "--launches-out", out, "--coord", addr, "--replica-id",
-             f"r{i}", "--rank", str(i), "--namespace", ns, *model,
-             "--role", role],
-            cwd=_repo_root(), env={**env, **extra}))
+        procs.append(_smoke_replica(addr, ns, i, [*model, "--role", role],
+                                    out, {**env, **extra}))
     exited: dict[int, float] = {}
 
     def watch(i: int, p) -> None:
@@ -2312,6 +2341,16 @@ def _fleet_run(dev, seed: int, tmp: str, ns: str, roles: list,
             "latency_max_s": max(lat) if lat else float("nan")}
 
 
+def _fleet_prompts(seed: int) -> list:
+    """FLEET's seeded prompts of min_prompt..max_prompt tokens."""
+    import numpy as np
+
+    W = FLEET
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(W["min_prompt"], W["max_prompt"] + 1, W["requests"])
+    return [rng.integers(0, W["vocab"], n).astype(np.int32) for n in lens]
+
+
 def phase_fleet(torch, dev, seed):
     """The serve fleet on the card: the port's CoordServer and Router over
     three replica processes on cuda:0 at the serve width (FLEET: 8 layers,
@@ -2338,10 +2377,8 @@ def phase_fleet(torch, dev, seed):
     W = FLEET
     cfg, sd = build_tiny_lm(W["vocab"], W["layers"], W["heads"],
                             W["kv_heads"], W["embed"], W["seq_len"], seed)
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(W["min_prompt"], W["max_prompt"] + 1, W["requests"])
-    prompts = [rng.integers(0, W["vocab"], n).astype(np.int32)
-               for n in lens]
+    prompts = _fleet_prompts(seed)
+    lens = np.array([len(p) for p in prompts])
 
     def reqs():
         return [Request(p, W["new"], rid=f"f{i}")
@@ -2437,6 +2474,248 @@ def phase_fleet(torch, dev, seed):
             rows[case] = row
     emit({"phase": "fleet", "width": W, "prompt_tokens": int(lens.sum()),
           **rows, "launches": launches})
+    return launches, want["paged"]
+
+
+def phase_fleet_autoscale(torch, dev, seed, want_paged: dict) -> dict:
+    """The autoscaled fleet on the card: the ``fleet`` phase's model and
+    traffic (FLEET, paged at block 128) through one replica in
+    chip_smoke's replica mode and an ``Autoscaler`` with the JAX
+    example's config (1-2 replicas, a 5 ms queue-wait target, 2 breach
+    polls up, 4 idle polls down, 0.25 s polls) whose injected spawner
+    starts the joiner in the same mode at the next chain index.  Batch 1
+    breaches and buys the joiner; once it is live batch 2 spreads over
+    both; the idle tail drains one replica back out.  Batch 2's 12
+    prompts are drawn from ``seed + 1``: the router places a prompt whose
+    blocks a replica's prefix cache holds on that replica (content
+    affinity), so batch 1's prompts again would all go back to r0.
+    Replicas keep queue wait in a 25 s sliding window
+    (``TPUDIST_SERVE_WAIT_WINDOW_S``): longer than batch 1's last
+    admission to the joiner live and batch 2 started (~15 s on the H100),
+    so batch 1's waits hold the fleet up until batch 2's arrive and no
+    idle streak drains a replica before the joiner serves; the tail then
+    waits the window out.  Checks: every request of both batches once
+    and token-identical to the paged ServeLoop (batch 1: ``want_paged``,
+    from the fleet phase; batch 2: the same loop here, before the fleet),
+    >= 1 scale-up and >= 1 completed drain, one live replica at the end,
+    the drained replica exiting 0 with ``pool_drained``, no replica
+    death and ``ReplicaLost`` never firing in an
+    ``AlertManager(default_rules())`` over a ``FleetScraper`` run
+    through the phase, every replica that served launching K1 and K5 and
+    no K2, the joiner among them, and a console frame from a live
+    ``gather`` listing both replicas.  Prints scale-up s (first breach
+    poll to joiner live, watched from a thread while batch 1 runs),
+    drain s (drain mark to lease gone), wall s and requests/s per batch,
+    router-side p50/p99 and each replica's K1/K5.
+    Returns the launches summed over the replicas."""
+    import os
+    import tempfile
+    import threading
+
+    from tpudist_torch import obs
+    from tpudist_torch.models.serving import Request, ServeLoop
+    from tpudist_torch.obs.alerts import AlertManager, default_rules
+    from tpudist_torch.obs.console import gather, render
+    from tpudist_torch.obs.tsdb import TSDB, FleetScraper
+    from tpudist_torch.runtime import router as rt
+    from tpudist_torch.runtime.autoscaler import AutoscaleConfig, Autoscaler
+    from tpudist_torch.runtime.coord import CoordClient, CoordServer
+    from tpudist_torch.runtime.router import build_tiny_lm
+
+    W = FLEET
+    prompts = {"a": _fleet_prompts(seed), "b": _fleet_prompts(seed + 1)}
+
+    def reqs(tag):
+        return [Request(p, W["new"], rid=f"{tag}{i}")
+                for i, p in enumerate(prompts[tag])]
+
+    cfg, sd = build_tiny_lm(W["vocab"], W["layers"], W["heads"],
+                            W["kv_heads"], W["embed"], W["seq_len"], seed)
+    loop = ServeLoop(cfg, sd, num_slots=W["slots"],
+                     steps_per_sync=W["steps"], prefill_chunk=W["chunk"],
+                     cache_layout="paged", kv_block_size=W["block"],
+                     device=dev)
+    want = {"a": {f"a{i}": want_paged[f"f{i}"]
+                  for i in range(W["requests"])},
+            "b": {c.rid: c.tokens.tolist() for c in loop.run(reqs("b"))}}
+    del loop, sd
+    torch.cuda.empty_cache()
+    ns = "fleet_autoscale"
+    server = CoordServer(0)
+    addr = f"127.0.0.1:{server.port}"
+    client = CoordClient("127.0.0.1", server.port)
+    env = dict(os.environ, PYTHONPATH=_repo_root(),
+               TPUDIST_SERVE_WAIT_WINDOW_S="25")
+    args = [*_fleet_model_args(dev, seed), "--cache-layout", "paged",
+            "--kv-block-size", str(W["block"])]
+
+    def counter(name):
+        return obs.snapshot()["counters"].get(name, {}).get("value", 0.0)
+
+    def live(c=client):   # a client per thread: the scaler's is its own
+        return sorted(n[len(ns) + 1:] for n in c.live()
+                      if n.startswith(f"{ns}:"))
+
+    joined: dict[str, float] = {}
+    unwatch = threading.Event()
+
+    def watch_join() -> None:
+        # the joiner can go live while batch 1 still runs (router.run
+        # blocks this thread), so its live time is taken here
+        c = CoordClient("127.0.0.1", server.port)
+        while not unwatch.is_set():
+            if len(live(c)) >= 2:
+                joined["t"] = time.monotonic()
+                return
+            time.sleep(0.1)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {}
+
+        def spawn(i):
+            outs[f"r{i}"] = f"{tmp}/{ns}_r{i}.json"
+            return _smoke_replica(addr, ns, i, args, outs[f"r{i}"], env)
+
+        rt._seed_replica_index(client, 1, namespace=ns)
+        procs = [spawn(0)]
+        spawn_client = CoordClient("127.0.0.1", server.port)
+        scaler = Autoscaler(
+            CoordClient("127.0.0.1", server.port), namespace=ns,
+            config=AutoscaleConfig(
+                min_replicas=1, max_replicas=2, target_wait_s=0.005,
+                low_wait_s=0.001, quantile=0.9, breach_polls=2,
+                idle_polls=4, up_cooldown_s=60.0, down_cooldown_s=0.0,
+                poll_s=0.25, max_metric_age_s=10.0),
+            spawner=lambda n: [spawn(i) for i in rt.alloc_replica_indices(
+                spawn_client, n, namespace=ns)],
+            device=str(dev))
+        tsdb = TSDB()
+        alerts = AlertManager(tsdb, default_rules())
+        scraper = FleetScraper(tsdb, client=CoordClient("127.0.0.1",
+                                                        server.port),
+                               namespace=ns, registry=obs.registry,
+                               alerts=alerts, interval_s=0.5)
+        before = {k: counter(k) for k in (
+            "autoscale/scale_ups", "autoscale/drain_completed",
+            "router/replica_deaths")}
+        sent: dict[str, float] = {}
+        lat: list[float] = []
+        batches = {}
+        try:
+            t0 = time.time()
+            rt.wait_live(client, 1, namespace=ns, timeout_s=180.0,
+                         procs=procs)
+            live_s = time.time() - t0
+            scraper.start()
+            scaler.start()
+            router = rt.Router(client, namespace=ns, lost_after_s=10.0)
+
+            def done(key, comp) -> None:
+                lat.append(time.time() - sent[str(comp.rid)])
+
+            def batch(tag):
+                t0 = time.time()
+                sent.update({f"{tag}{i}": t0
+                             for i in range(W["requests"])})
+                comps = router.run(reqs(tag), timeout_s=W["timeout_s"],
+                                   on_complete=done)
+                wall = time.time() - t0
+                batches[tag] = {"comps": comps, "wall_s": wall,
+                                "requests_per_s": W["requests"] / wall}
+
+            watcher = threading.Thread(target=watch_join, daemon=True)
+            watcher.start()
+            batch("a")
+            watcher.join(timeout=180.0)
+            check("t" in joined and len(live()) == 2,
+                  f"fleet_autoscale: no joiner live (scale-ups "
+                  f"{counter('autoscale/scale_ups')}, live {live()})")
+            frame_doc = gather(client, ns, tsdb=tsdb, alerts=alerts)
+            frame = render(frame_doc)
+            batch("b")
+            deadline = time.monotonic() + 180.0
+            drained = 0.0
+            while time.monotonic() < deadline:
+                drained = (counter("autoscale/drain_completed")
+                           - before["autoscale/drain_completed"])
+                if drained >= 1 and len(live()) == 1:
+                    break
+                time.sleep(0.1)
+            t_drained = time.monotonic()
+            live_end = live()
+            time.sleep(1.0)          # one more scrape past the drain
+        finally:
+            unwatch.set()
+            scaler.stop()
+            scraper.stop()
+            procs += scaler.procs
+            reports = rt.exit_reports(client, namespace=ns)
+            codes = rt.stop_fleet(client, procs, namespace=ns,
+                                  timeout_s=60.0)
+        dumps = {}
+        for rid, out in outs.items():
+            if os.path.exists(out):
+                with open(out) as fh:
+                    dumps[rid] = json.load(fh)
+    del server
+    log = scaler.decision_log
+    first_breach = next(r["t"] for r in log if r.get("breach", 0) >= 1
+                        or r["action"] is not None)
+    downs = [r for r in log if r["action"] and r["action"][0] == "down"]
+    ups = counter("autoscale/scale_ups") - before["autoscale/scale_ups"]
+    deaths = (counter("router/replica_deaths")
+              - before["router/replica_deaths"])
+    for tag, b in batches.items():
+        rids = sorted(str(c.rid) for c in b["comps"])
+        check(rids == sorted(f"{tag}{i}" for i in range(W["requests"])),
+              f"fleet_autoscale: batch {tag} completions {rids}")
+        bad = [c.rid for c in b["comps"]
+               if c.tokens.tolist() != want[tag][str(c.rid)]]
+        check(not bad, f"fleet_autoscale: batch {tag} requests {bad} "
+              "differ from the paged ServeLoop on the card")
+    check(ups >= 1 and drained >= 1 and len(live_end) == 1,
+          f"fleet_autoscale: scale-ups {ups}, drains {drained}, live at "
+          f"the end {live_end}")
+    check(len(downs) >= 1, "fleet_autoscale: no drain decision logged")
+    victim = downs[0]["action"][1]
+    gone = next(p for p in procs if p.replica_index == int(victim[1:]))
+    check(gone.returncode == 0
+          and reports.get(victim, {}).get("pool_drained") is True,
+          f"fleet_autoscale: drained {victim} exit codes {codes}, report "
+          f"{reports.get(victim)}")
+    check(deaths == 0 and "ReplicaLost" not in alerts.fired_names,
+          f"fleet_autoscale: deaths {deaths}, alerts fired "
+          f"{sorted(alerts.fired_names)}")
+    check({"r0", "r1"} <= set(frame_doc["replicas"])
+          and "r0" in frame and "r1" in frame,
+          f"fleet_autoscale: console frame lists "
+          f"{sorted(frame_doc['replicas'])}")
+    launches = {"K1": 0, "K2": 0, "K5": 0}
+    replicas = {}
+    for rid, d in dumps.items():
+        n, served = d["launches"], d["counters"].get("serve/requests", 0)
+        replicas[rid] = {"K1": n["K1"], "K2": n["K2"], "K5": n["K5"],
+                         "requests": served}
+        if served:
+            check(n["K1"] > 0 and n["K5"] > 0 and n["K2"] == 0,
+                  f"fleet_autoscale: {rid} launched {n}")
+        for k in launches:
+            launches[k] += n[k]
+    check(replicas.get("r1", {}).get("requests", 0) >= 1,
+          f"fleet_autoscale: the joiner served nothing ({replicas})")
+    hist = obs.values_to_hist(lat, growth=2 ** 0.25)
+    emit({"phase": "fleet_autoscale", "width": W,
+          "replicas_live_s": live_s,
+          "scale_up_s": joined["t"] - first_breach,
+          "drain_s": t_drained - downs[0]["t"],
+          **{f"batch_{tag}": {"wall_s": b["wall_s"],
+                              "requests_per_s": b["requests_per_s"]}
+             for tag, b in batches.items()},
+          "latency_p50_s": obs.hist_quantile(hist, 0.5),
+          "latency_p99_s": obs.hist_quantile(hist, 0.99),
+          "scale_ups": ups, "drains": drained, "victim": victim,
+          "exit_codes": codes, "alerts_fired": sorted(alerts.fired_names),
+          "replicas": replicas, "launches": launches})
     return launches
 
 
@@ -5216,9 +5495,13 @@ def phase_train_mnist(torch, dev, seed):
     reaches exactly 0 in the second epoch, so the parameters and Adam's
     moments carry the check there); test accuracy >= MNIST_ACCURACY; the
     native gather pool fed every epoch; no port kernel launched (K1-K10 =
-    0).  Then ms per step of 100 steps after a synchronise, images/s, the
-    seconds each snapshot save blocked, peak memory, and 20 steps under
-    torch.profiler."""
+    0); the first Trainer's telemetry: ``train/steps`` equal to the steps
+    it ran, ``xla/step_tflops`` (its first step's counted FLOPs over the
+    mean step time) and ``xla/mem/peak_bytes_in_use/d0`` above 0.  Then
+    ms per step of 100 steps after a synchronise, images/s, the seconds
+    each snapshot save blocked, peak memory, 20 steps under
+    torch.profiler, and the host microseconds of the Trainer's per-step
+    telemetry timed alone, with their share of the step."""
     import itertools
     import tempfile
 
@@ -5230,13 +5513,34 @@ def phase_train_mnist(torch, dev, seed):
     out = {"phase": "train_mnist", "batch": MNIST_BATCH,
            "train_n": len(train), "test_n": len(test),
            "steps_per_epoch": steps_per_epoch}
+    from tpudist_torch import obs
+
+    def counter(name):
+        return obs.snapshot()["counters"].get(name, {}).get("value", 0.0)
+
     with tempfile.TemporaryDirectory() as tmp:
         reset_launches()
         first = mnist_trainer(torch, dev, seed, f"{tmp}/a.npz", 2, train,
                               test)
+        obs.gauge("xla/step_tflops").set(0.0)
+        obs.gauge("xla/mem/peak_bytes_in_use/d0").set(0.0)
+        steps0 = counter("train/steps")
         t0 = time.perf_counter()
         s_first = first.train()
         out["first_2_epochs_s"] = time.perf_counter() - t0
+        gauges = obs.snapshot()["gauges"]
+        out["telemetry"] = {
+            "train_steps": counter("train/steps") - steps0,
+            "step_flops": first._step_flops,
+            **{k: gauges.get(k, {}).get("value") for k in (
+                "xla/step_tflops", "xla/mfu",
+                "xla/mem/peak_bytes_in_use/d0", "xla/mem/bytes_limit/d0")}}
+        check(out["telemetry"]["train_steps"] == 2 * steps_per_epoch,
+              f"train_mnist: train/steps {out['telemetry']}")
+        check((out["telemetry"]["xla/step_tflops"] or 0) > 0
+              and (out["telemetry"]["xla/mem/peak_bytes_in_use/d0"]
+                   or 0) > 0,
+              f"train_mnist: telemetry {out['telemetry']}")
         resumed = mnist_trainer(torch, dev, seed, f"{tmp}/a.npz",
                                 MNIST_EPOCHS, train, test)
         check(resumed.epochs_run == 2
@@ -5322,6 +5626,32 @@ def phase_train_mnist(torch, dev, seed):
         out.update({"ms_per_step": ms,
                     "images_per_s": MNIST_BATCH / (ms / 1e3),
                     "profile": profiled_steps(torch, run, 20)})
+        # the host cost of the telemetry Trainer._run_epoch adds to each
+        # step (a span, the loss gauge on the step's device scalar, two
+        # counters, the step-time histogram, two clock reads), timed alone
+        # against the bare step; probe names keep train/* untouched
+        steps_c = obs.counter("smoke/probe_steps")
+        examples_c = obs.counter("smoke/probe_examples")
+        loss_g = obs.gauge("smoke/probe_loss")
+        step_h = obs.histogram("smoke/probe_step_time", unit="s")
+        loss = whole.step_losses[-1]
+
+        def telemetry(n):
+            for i in range(n):
+                t0 = time.perf_counter()
+                with obs.span("telemetry_probe", step=i):
+                    pass
+                loss_g.set(loss)
+                steps_c.inc()
+                examples_c.inc(MNIST_BATCH)
+                step_h.record(time.perf_counter() - t0)
+
+        telemetry(500)
+        t0 = time.perf_counter()
+        telemetry(5000)
+        us = (time.perf_counter() - t0) / 5000 * 1e6
+        out.update({"telemetry_us_per_step": us,
+                    "telemetry_share_of_step": us / 1e3 / ms})
     emit(out)
     torch.cuda.empty_cache()
     return launches
@@ -7061,7 +7391,10 @@ def main(argv=None) -> int:
     spec_launches["sharded_generate"] = phase_sharded_generate(
         torch, dev, args.seed)
     spec_launches["kv_tier"] = phase_kv_tier(torch, dev, args.seed)
-    spec_launches["fleet"] = phase_fleet(torch, dev, args.seed)
+    spec_launches["fleet"], fleet_want = phase_fleet(torch, dev, args.seed)
+    spec_launches["fleet_autoscale"] = phase_fleet_autoscale(
+        torch, dev, args.seed, fleet_want)
+    del fleet_want
     q8_launches = phase_decode_q8(torch, dev, args.seed)
     bwd_rows, k1_train = phase_backward_kernels(torch, dev, args.seed)
     phase_train_parity(torch, dev, args.seed)

@@ -40,8 +40,10 @@ The disaggregated tier:
 
 The control-plane tier:
 
-* ``--autoscale`` (the autoscaler) is not ported yet: it raises
-  ``NotImplementedError`` until ROADMAP Queue A 10's remainder lands.
+* ``--autoscale`` hands capacity to the autoscaler
+  (`tpudist_torch.runtime.autoscaler`): a millisecond queue-wait target
+  makes the batch itself a breach, and the control loop buys one joiner
+  replica mid-traffic through `scale_fleet`.
 * ``--roll-structural`` performs a blue-green rollout of a STRUCTURAL
   change in-place weight swaps cannot express (paged KV block size
   16 -> 8): green pool spun up, warmed, canary exact-checked, traffic
@@ -54,6 +56,7 @@ is a separate process):
     python examples/serve_fleet_gpu.py --replicas 2 --join --hot-swap
     python examples/serve_fleet_gpu.py --replicas 3 --disagg
     python examples/serve_fleet_gpu.py --replicas 1 --roll-structural
+    python examples/serve_fleet_gpu.py --replicas 1 --autoscale
 """
 
 from __future__ import annotations
@@ -106,10 +109,6 @@ def main(argv=None) -> int:
                         help="where replicas and the reference serve "
                              "(default cuda; raises without a card)")
     args = parser.parse_args(argv)
-    if args.autoscale:
-        raise NotImplementedError(
-            "--autoscale: the autoscaler is not ported yet "
-            "(ROADMAP Queue A 10 (autoscaler))")
     if args.hot_swap and args.roll_structural:
         parser.error("--hot-swap and --roll-structural are separate "
                      "demos; pick one")
@@ -198,6 +197,22 @@ def main(argv=None) -> int:
             replica_args=replica_args, env_overrides=env, device=device)
     requests = make_requests(args.requests, seed=0)
     comps2: list = []
+    scaler = None
+    if args.autoscale:
+        from tpudist_torch.runtime.autoscaler import (AutoscaleConfig,
+                                                      Autoscaler)
+
+        # a millisecond wait target makes the batch itself a breach:
+        # the control loop buys one replica mid-traffic
+        scaler = Autoscaler(
+            CoordClient(port=server.port),
+            coord_addr=f"127.0.0.1:{server.port}",
+            config=AutoscaleConfig(
+                min_replicas=1, max_replicas=args.replicas + 1,
+                target_wait_s=0.005, low_wait_s=0.001, breach_polls=2,
+                idle_polls=8, up_cooldown_s=60.0, down_cooldown_s=30.0,
+                poll_s=0.25, max_metric_age_s=10.0),
+            replica_args=replica_args, device=device)
     try:
         wait_live(client, args.replicas, timeout_s=120.0, procs=procs)
         print("fleet live; routing")
@@ -209,6 +224,10 @@ def main(argv=None) -> int:
             procs += scale_fleet(f"127.0.0.1:{server.port}", 1,
                                  start_index=args.replicas,
                                  replica_args=replica_args, device=device)
+        if scaler is not None:
+            print("autoscaler watching the fleet (target p90 wait "
+                  "5ms; the batch is a deliberate breach)")
+            scaler.start()
         t0 = time.perf_counter()
         comps = router.run(requests, timeout_s=180.0)
         wall = time.perf_counter() - t0
@@ -220,6 +239,18 @@ def main(argv=None) -> int:
                                     {}).get("value", 0))
             print(f"{handoffs} KV handoffs crossed the "
                   "prefill -> decode seam")
+        if scaler is not None:
+            from tpudist_torch import obs
+
+            limit = time.perf_counter() + 60.0
+            ups = 0
+            while time.perf_counter() < limit and ups < 1:
+                ups = int(obs.snapshot()["counters"].get(
+                    "autoscale/scale_ups", {}).get("value", 0))
+                time.sleep(0.5)
+            scaler.stop()
+            print(f"autoscaler bought {ups} replica(s); fleet now "
+                  f"{sorted(scaler.live())}")
         if args.roll_structural:
             canary = Request(np.arange(5, dtype=np.int32), 8,
                              rid="probe")
@@ -255,6 +286,9 @@ def main(argv=None) -> int:
             comps2 = router.run(make_requests(args.requests, seed=1),
                                 timeout_s=180.0)
     finally:
+        if scaler is not None:
+            scaler.stop()
+            procs += scaler.procs
         stop_fleet(client, procs)
         if snap_dir is not None:
             shutil.rmtree(snap_dir, ignore_errors=True)

@@ -410,6 +410,14 @@ def test_serve_counters_equal_after_the_same_workload(weights, layout,
               degrade_max_new=5, pipeline_depth=1)
     if layout == "paged":
         kw.update(cache_layout="paged", kv_block_size=16, kv_num_blocks=8)
+    # serve/queue_wait_s is a sliding-window histogram: on a loaded host
+    # a generation recorded by an earlier test can age out between the
+    # before and after snapshots and shrink one package's count delta,
+    # so both packages' windows are held still while the test reads them
+    for reg in (jobs.registry, tobs.registry):
+        for m in reg.metrics().values():
+            if getattr(m, "window_s", None):
+                monkeypatch.setattr(m, "_clock", lambda t=m._clock(): t)
     b0 = jobs.snapshot()
     want = jserv.ServeLoop(cfg, params, **kw).run(_workload(jserv, shared))
     w = _serve_metrics(jobs, b0)

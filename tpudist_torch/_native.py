@@ -22,6 +22,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 _REPO = Path(__file__).resolve().parent.parent
@@ -103,13 +104,19 @@ def _build(src: Path, out: Path) -> bool:
 def _load(name: str) -> ctypes.CDLL | None:
     """The bound library ``name``, built first if needed; None when it
     cannot be built or loaded on this host (remembered: no retry)."""
+    built_s = None
     with _lock:
         if name in _libs:
             return _libs[name]
         lib = None
         try:
             out = lib_path(name)
-            if out.exists() or _build(_SOURCES[name], out):
+            ok = out.exists()
+            if not ok:
+                t0 = time.perf_counter()
+                ok = _build(_SOURCES[name], out)
+                built_s = time.perf_counter() - t0 if ok else None
+            if ok:
                 lib = ctypes.CDLL(str(out))
                 for fn, (argtypes, restype) in _SIGNATURES[name].items():
                     getattr(lib, fn).argtypes = argtypes
@@ -117,7 +124,11 @@ def _load(name: str) -> ctypes.CDLL | None:
         except OSError:  # no source, or a library that does not load
             lib = None
         _libs[name] = lib
-        return lib
+    if built_s is not None:   # outside the lock: obs may load libraries
+        from tpudist_torch.obs import xla as obs_xla
+
+        obs_xla.note_compile(built_s, source="g++")
+    return lib
 
 
 def load() -> ctypes.CDLL | None:

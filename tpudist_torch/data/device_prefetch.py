@@ -24,8 +24,10 @@ The contract is tpudist's: items in order; an exception raised by the
 source reaches the consumer at the matching ``next``; abandoning the
 iterator (``break``, an exception, :meth:`DevicePrefetch.close`) stops
 the worker and closes the source, so a loader's in-flight gather jobs are
-reaped.  ``stall_s`` is the consumer's cumulative wait for input, a
-plain attribute until the obs layer is ported (ROADMAP Queue A 10).
+reaped.  ``stall_s`` is the consumer's cumulative wait for input; the
+same waits tick tpudist's ``data/input_stall`` counter and
+``data/input_stall_s`` histogram, and ``data/prefetch_depth`` gauges the
+depth.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from typing import Any, Callable, Iterable, Iterator
 import numpy as np
 import torch
 
+from tpudist_torch import obs
 from tpudist_torch.utils.trees import tree_map
 
 __all__ = ["DevicePrefetch", "device_prefetch"]
@@ -74,6 +77,9 @@ class DevicePrefetch:
         self.depth = depth
         self.device = None if device is None else torch.device(device)
         self.stall_s = 0.0
+        self._stall = obs.counter("data/input_stall", unit="s")
+        self._stall_hist = obs.histogram("data/input_stall_s", unit="s")
+        obs.gauge("data/prefetch_depth").set(depth)
         self._it = iter(iterable)
         self._put = put
         self._done = False
@@ -169,7 +175,10 @@ class DevicePrefetch:
             raise StopIteration
         t0 = time.perf_counter()
         kind, val = self._q.get()
-        self.stall_s += time.perf_counter() - t0
+        stall = time.perf_counter() - t0
+        self.stall_s += stall
+        self._stall.inc(stall)
+        self._stall_hist.record(stall)
         if kind == _END:
             self._done = True
             self._thread.join()

@@ -39,10 +39,11 @@ kernels on the same kind of device.
 ``runtime/ici.py``) is a per-round ``torch.distributed`` process group
 here (:mod:`tpudist_torch.runtime.ici`): NCCL on cards, gloo on the CPU,
 or gloo on cards when asked for (one card holds one NCCL rank).
-tpudist's flight-recorder dump of a crashed worker and its obs counters
-wait for the observability plane, ROADMAP Queue A 10 — until then the
-round events go to :data:`recorded` and the counts to :data:`counters`,
-both plain.
+The worker publishes tpudist's ``elastic/*`` counters and the
+``elastic/world_size`` gauge, records its round events in the flight
+recorder, and dumps a post-mortem bundle when an exception escapes the
+supervision.  The round events also go to :data:`recorded` and the
+counts to :data:`counters`, both plain.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpudist_torch import obs
 from tpudist_torch.elastic.loop import WorldChanged
 from tpudist_torch.elastic.state import (
     ElasticState,
@@ -80,16 +82,22 @@ from tpudist_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
-# tpudist's obs counters and flight-recorder events, kept plain: counts by
-# name, and the last round/world-change/peer-loss events with their wall
-# time (``t``), which the elastic chip_smoke phase reads
+# tpudist's obs counters and flight-recorder events, also kept plain:
+# counts by name, and the last round/world-change/peer-loss events with
+# their wall time (``t``), which the elastic chip_smoke phase reads
 counters = {"rounds": 0, "rendezvous_timeouts": 0, "world_changed": 0,
             "peer_lost": 0}
 recorded: collections.deque = collections.deque(maxlen=1000)
 
 
+def _count(name: str) -> None:
+    counters[name] += 1
+    obs.counter(f"elastic/{name}").inc()
+
+
 def _record(event: str, **fields: Any) -> None:
     recorded.append({"event": event, "t": time.time(), **fields})
+    obs.recorder.record(event, **fields)
 
 
 def worker_device(device: str | torch.device | None = None) -> torch.device:
@@ -481,13 +489,14 @@ def run_elastic_worker(
                     round_id, wid, timeout_s=rendezvous_timeout_s,
                     min_world=min_world, superseded_key="elastic/round")
             except TimeoutError:
-                counters["rendezvous_timeouts"] += 1
+                _count("rendezvous_timeouts")
                 rounds += 1
                 if rounds > max_rounds:
                     raise
                 round_id = _next_round(client, round_id)
                 continue
-            counters["rounds"] += 1
+            _count("rounds")
+            obs.gauge("elastic/world_size", unit="workers").set(world)
             _record("elastic_round", round=round_id, rank=rank, world=world)
             monitor.resize(world)
             if rank == 0:
@@ -589,7 +598,7 @@ def run_elastic_worker(
                 coll.close()  # stop async worker/prefetcher threads
                 return state
             except WorldChanged as e:
-                counters["world_changed"] += 1
+                _count("world_changed")
                 _record("world_changed", round=round_id, old=world,
                         new=e.new_world_size)
                 rounds += 1
@@ -619,7 +628,7 @@ def run_elastic_worker(
                                or is_collective_failure(e))
                 if not peerish:
                     raise
-                counters["peer_lost"] += 1
+                _count("peer_lost")
                 _record("peer_lost", round=round_id, error=str(e)[:200])
                 rounds += 1
                 if rounds > max_rounds:
@@ -642,11 +651,20 @@ def run_elastic_worker(
                 mesh = None
                 round_id, min_world = recover(e, live)
     except BaseException as e:
-        # tpudist dumps a post-mortem bundle here (its flight recorder,
-        # ROADMAP Queue A 10); the port logs the escape and propagates
+        # the flight-recorder contract: an exception that escapes the
+        # elastic supervision (max_rounds exhausted, a real bug) dumps a
+        # post-mortem bundle before propagating; a failing dump must
+        # never mask the original exception
+        path = None
+        try:
+            path = obs.recorder.dump(exc=e, context={
+                "component": "elastic_worker", "worker": wid,
+                "round": round_id, "rounds_survived": rounds})
+        except Exception:  # noqa: BLE001
+            pass
         log.error("elastic worker %s crashed in round %d after %d "
-                  "re-rendezvous (%s: %s)", wid, round_id, rounds,
-                  type(e).__name__, str(e)[:200])
+                  "re-rendezvous (%s: %s); post-mortem bundle: %s", wid,
+                  round_id, rounds, type(e).__name__, str(e)[:200], path)
         raise
     finally:
         if ici is not None:

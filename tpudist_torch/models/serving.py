@@ -89,7 +89,7 @@ back to an ordinary prefill when any gate fails (structure, length, block
 size, hash chain, layer count and shape, weights version).  Payload layers
 are ``[n_blocks, block, Hkv·D]`` host arrays in tpudist's layer order:
 numpy for f32, CPU tensors for bf16 (numpy has no bf16 without
-``ml_dtypes``; a numpy bf16 bit pattern is read too).  With
+``ml-dtypes``; a numpy bf16 bit pattern is read too).  With
 ``preempt="migrate"`` a blocked higher-priority request PARKS the
 lowest-priority decoding lane (its payload kept whole in host RAM) and
 resumes it through the adopt path when pressure clears;
@@ -256,7 +256,7 @@ def _pinned(t: torch.Tensor, stream) -> torch.Tensor:
 
 def _payload_tensor(x) -> torch.Tensor:
     """A payload layer as a tensor: a tensor as it is, a numpy array by
-    its dtype, a numpy bf16 (``ml_dtypes``, whose dtype numpy reads as a
+    its dtype, a numpy bf16 (``ml-dtypes``, whose dtype numpy reads as a
     raw 2-byte void) by its bit pattern."""
     if isinstance(x, torch.Tensor):
         return x

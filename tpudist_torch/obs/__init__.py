@@ -22,8 +22,19 @@ plane, the flight recorder and per-request tracing.
   ring, fleet-wide timeline merge and SLO burn-rate accounting
   (:class:`SLOTracker`).
 
-tpudist's ``tsdb``, ``alerts``, ``console``, ``timeline`` and ``xla``
-modules are not ported yet (ROADMAP Queue A 10's remainder).
+* :mod:`tpudist_torch.obs.xla` — kernel-build, CUDA memory and
+  cost/MFU telemetry (tpudist's module and metric names; it reads CUDA).
+* :mod:`tpudist_torch.obs.tsdb` — bounded in-memory time-series store
+  scraped from the registry/merged snapshots on a cadence, with
+  rate/delta/quantile_over_time queries (:class:`TSDB`,
+  :class:`FleetScraper`).
+* :mod:`tpudist_torch.obs.alerts` — declarative alert rules (query +
+  predicate + hold) with a pending->firing->resolved lifecycle.
+* :mod:`tpudist_torch.obs.console` — ``python -m
+  tpudist_torch.obs.console``: terminal dashboard of the fleet;
+  ``--once`` renders a single frame.
+* :mod:`tpudist_torch.obs.timeline` — ``python -m
+  tpudist_torch.obs.timeline``: per-request timelines from an event log.
 
 Module-level conveniences bind to one process-global registry, tracer,
 event ring, SLO tracker and flight recorder, so library code can just
@@ -39,6 +50,14 @@ from tpudist_torch.obs.aggregate import (
     collect,
     collect_and_merge,
     merge_snapshots,
+)
+from tpudist_torch.obs.alerts import (
+    AlertManager,
+    AlertRule,
+    autoscale_rules,
+    default_rules,
+    load_rules,
+    rules_hash,
 )
 from tpudist_torch.obs.events import (
     EventPublisher,
@@ -72,10 +91,22 @@ from tpudist_torch.obs.registry import (
     values_to_hist,
 )
 from tpudist_torch.obs.spans import SpanTracer, atomic_write_json
+from tpudist_torch.obs.tsdb import TSDB, FleetScraper
+from tpudist_torch.obs.xla import (
+    install_compile_telemetry,
+    mfu,
+    note_compile,
+    note_step,
+    peak_tflops,
+    update_memory_gauges,
+)
 
 __all__ = [
+    "AlertManager",
+    "AlertRule",
     "Counter",
     "EventPublisher",
+    "FleetScraper",
     "FlightRecorder",
     "Gauge",
     "HealthMonitor",
@@ -88,23 +119,33 @@ __all__ = [
     "RequestEventLog",
     "SLOTracker",
     "SpanTracer",
+    "TSDB",
     "TraceContext",
     "atomic_write_json",
+    "autoscale_rules",
     "collect",
     "collect_and_merge",
     "collect_events",
     "counter",
+    "default_rules",
     "events",
     "gauge",
     "group_timelines",
-    "histogram",
     "hist_quantile",
+    "histogram",
+    "install_compile_telemetry",
     "is_complete",
     "jsonl_line",
+    "load_rules",
     "merge_events",
     "merge_snapshots",
+    "mfu",
+    "note_compile",
+    "note_step",
+    "peak_tflops",
     "recorder",
     "registry",
+    "rules_hash",
     "slo",
     "slo_class",
     "snapshot",
@@ -115,6 +156,7 @@ __all__ = [
     "timeline_for_rid",
     "to_prometheus",
     "tracer",
+    "update_memory_gauges",
     "validate_metric_name",
     "values_to_hist",
 ]

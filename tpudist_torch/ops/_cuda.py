@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -61,8 +62,11 @@ def build() -> dict[str, Path]:
     want = {src.stem: (src, _lib_path(src)) for src in _sources()}
     todo = {k: v for k, v in want.items() if not v[1].exists()}
     if todo:
+        from tpudist_torch.obs import xla as obs_xla
+
         nvcc = _nvcc()
         procs = {}
+        t0 = time.perf_counter()
         for stem, (src, out) in todo.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             log = out.with_suffix(".log").open("w")
@@ -70,6 +74,14 @@ def build() -> dict[str, Path]:
                 [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                  str(src)], stdout=log, stderr=subprocess.STDOUT),
                 tmp, out, log)
+        # each build's seconds run from the common start to the first
+        # poll that sees its nvcc exit, whatever order they finish in
+        seconds: dict[str, float] = {}
+        while len(seconds) < len(procs):
+            for stem, (proc, *_rest) in procs.items():
+                if stem not in seconds and proc.poll() is not None:
+                    seconds[stem] = time.perf_counter() - t0
+            time.sleep(0.01)
         failed = []
         for stem, (proc, tmp, out, log) in procs.items():
             rc = proc.wait()
@@ -79,6 +91,7 @@ def build() -> dict[str, Path]:
                               + out.with_suffix(".log").read_text()[-4000:])
             else:
                 os.replace(tmp, out)   # atomic: concurrent builds agree
+                obs_xla.note_compile(seconds[stem], source="nvcc")
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return {k: v[1] for k, v in want.items()}

@@ -25,9 +25,8 @@ blocks:
 Rule precedence as in tpudist: the ``tp``/``ep`` rules claim dimensions
 first (first match wins), then ``fsdp`` shards the largest dimension left
 free; a leaf with none replicates over ``fsdp``; ``dp`` shards only the
-batch.  tpudist publishes the axis sizes and the bubble to its obs
-registry; the port keeps them as the step's ``mesh_gauges`` until the obs
-layer is ported (ROADMAP Queue A 10).
+batch.  A composed step publishes the axis sizes and the bubble to the
+obs registry, as tpudist does, and keeps them as its ``mesh_gauges``.
 """
 
 from __future__ import annotations
@@ -161,10 +160,14 @@ def shard_composed_batch(batch: Any, mesh, spec: MeshSpec) -> Any:
 
 def mesh_gauges(spec: MeshSpec, bubble: float) -> dict[str, float]:
     """tpudist's gauges of a composed step: each axis size and the
-    schedule's bubble (0.0 off-pipeline)."""
+    schedule's bubble (0.0 off-pipeline), set in the obs registry."""
+    from tpudist_torch import obs
+
     out = {f"mesh/axis_size~axis={name}": float(size)
            for name, size in spec.axis_sizes().items()}
     out["train/bubble_fraction"] = float(bubble)
+    for name, value in out.items():
+        obs.gauge(name).set(value)
     return out
 
 

@@ -99,9 +99,9 @@ tensor on its device and in its dtype (contiguous), anything else as a
 numpy array, as tpudist returns it.  The wire is tpudist's byte for byte
 (keys, fusion plans, codecs, the top-k index order), so a gang may mix
 the two packages.  numpy has no bfloat16 and the port does not use
-``ml_dtypes``: bf16 values live on the host as 2-byte bit patterns
+``ml-dtypes``: bf16 values live on the host as 2-byte bit patterns
 (``np.dtype("V2")``, tpudist's ``"<V2"`` token) and are rounded from
-f32 to nearest-even by torch, which is what ``ml_dtypes`` does.  CUDA
+f32 to nearest-even by torch, which is what ``ml-dtypes`` does.  CUDA
 leaves are staged through pinned host memory: one device-to-host copy
 per (device, dtype) and one wait per call, the results copied back with
 one non-blocking host-to-device copy each (``stage_d2h_s``,
@@ -109,10 +109,10 @@ one non-blocking host-to-device copy each (``stage_d2h_s``,
 numpy, as tpudist's does, so a port rank and a tpudist rank compute the
 same bits.
 
-tpudist publishes calls, bytes and times to its metrics registry; the
-port has none yet (ROADMAP Queue A 10), so they are plain counters on
-each :class:`HostCollectives` (``calls``, ``bytes_posted``,
-``bytes_fetched``, ``allreduce_s``, ``fetch_wait_s``).
+Calls, bytes and times go to the obs registry under tpudist's ``coll/*``
+names, at tpudist's sites, and to plain counters on each
+:class:`HostCollectives` (``calls``, ``bytes_posted``, ``bytes_fetched``,
+``allreduce_s``, ``fetch_wait_s``).
 """
 
 from __future__ import annotations
@@ -129,6 +129,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from tpudist_torch import obs
 from tpudist_torch.runtime.coord import CoordClient
 
 class PeerLost(RuntimeError):
@@ -233,7 +234,7 @@ class CollectiveConfig:
 # ---------------------------------------------------------------------------
 # wire codecs + bucket fusion
 
-# bf16 on the host: 2-byte bit patterns; "<V2" is ml_dtypes' bfloat16 token,
+# bf16 on the host: 2-byte bit patterns; "<V2" is ml-dtypes' bfloat16 token,
 # which orders tpudist's dtype groups, so the port sorts by the same string
 _BF16 = np.dtype("V2")
 _BF16_TOKEN = "<V2"
@@ -249,7 +250,7 @@ def _from_token(token: str) -> np.dtype:
 
 def _bf16_bits(x: np.ndarray) -> np.ndarray:
     """f32 (or anything castable) to bf16 bit patterns, rounded to
-    nearest-even by torch (``ml_dtypes``' rounding)."""
+    nearest-even by torch (``ml-dtypes``' rounding)."""
     t = torch.from_numpy(np.asarray(x, dtype=np.float32, order="C"))
     return t.to(torch.bfloat16).view(torch.int16).numpy().view(_BF16)
 
@@ -622,7 +623,7 @@ def _unstage(staged: _Staged, results: list[np.ndarray]) -> Any:
 
 
 def _divide(arr: np.ndarray, world: int) -> np.ndarray:
-    """``arr / world`` as numpy (and ``ml_dtypes`` for bf16) compute it."""
+    """``arr / world`` as numpy (and ``ml-dtypes`` for bf16) compute it."""
     if arr.dtype == _BF16:
         return _bf16_bits(_bf16_float(arr) / world)
     return arr / world
@@ -813,7 +814,7 @@ class HostCollectives:
         self.bytes_posted_cross = 0   # hier: cross-host ring bytes only —
         self.bytes_fetched_cross = 0  # the wire the 2(H-1)/H bound is about
         self._in_cross = False
-        # tpudist's obs counters, as plain per-instance attributes:
+        # tpudist's obs counters, also as plain per-instance attributes:
         # calls by kind (``allreduce~algo=ring~compress=bf16``, ...),
         # seconds in allreduces and in fetch waits, the last compression
         # ratio, and the device<->host staging seconds of tensor leaves
@@ -868,10 +869,13 @@ class HostCollectives:
         return op
 
     def _count(self, kind: str) -> None:
+        """One call of ``kind``: the plain tally and ``coll/{kind}``."""
         self.calls[kind] = self.calls.get(kind, 0) + 1
+        obs.counter(f"coll/{kind}", unit="calls").inc()
 
     def _post(self, client: CoordClient, op: int, key: str,
               payload: bytes) -> None:
+        obs.counter("coll/bytes_posted", unit="bytes").inc(len(payload))
         self.bytes_posted += len(payload)
         if self._in_cross:
             self.bytes_posted_cross += len(payload)
@@ -879,6 +883,8 @@ class HostCollectives:
         self._posted.setdefault(op, []).append(key)
 
     def _account_fetch(self, raw: bytes, waited_s: float) -> bytes:
+        obs.counter("coll/bytes_fetched", unit="bytes").inc(len(raw))
+        obs.histogram("coll/fetch_wait_s", unit="s").record(waited_s)
         self.fetch_wait_s += waited_s
         self.bytes_fetched += len(raw)
         if self._in_cross:
@@ -1031,9 +1037,17 @@ class HostCollectives:
                     or self.world % self.config.hosts):
                 self._count("hier_fallback")
                 algo = "ring"
-        self._count(f"allreduce~algo={algo}~compress={self.config.compress}")
+        tag = f"~algo={algo}~compress={self.config.compress}"
+        # tpudist counts coll/allreduce again here, so an allreduce past
+        # the world-1 shortcut ticks it twice; the registry keeps that
+        obs.counter("coll/allreduce", unit="calls").inc()
+        self._count(f"allreduce{tag}")
         if wire_bytes:
             self.compress_ratio = total_bytes / wire_bytes
+            obs.gauge("coll/compress_ratio").set(self.compress_ratio)
+            obs.gauge(f"coll/compress_ratio{tag}").set(self.compress_ratio)
+        p0, f0 = self.bytes_posted, self.bytes_fetched
+        xp0, xf0 = self.bytes_posted_cross, self.bytes_fetched_cross
         op = self._begin_op(client)
         deadline = time.monotonic() + self.timeout_s
         io: _Prefetcher | None = None
@@ -1046,7 +1060,19 @@ class HostCollectives:
         for b, vec in zip(buckets, reduced_buckets):
             reduced.setdefault(b.group, []).append(vec)
         out = self._finish(staged, _defuse(reduced, plan, np_leaves), mean)
-        self.allreduce_s += time.perf_counter() - t_start
+        obs.counter(f"coll/bytes_posted{tag}", unit="bytes").inc(
+            self.bytes_posted - p0)
+        obs.counter(f"coll/bytes_fetched{tag}", unit="bytes").inc(
+            self.bytes_fetched - f0)
+        if algo == "hier":
+            obs.counter(f"coll/cross_bytes_posted{tag}", unit="bytes").inc(
+                self.bytes_posted_cross - xp0)
+            obs.counter(f"coll/cross_bytes_fetched{tag}", unit="bytes").inc(
+                self.bytes_fetched_cross - xf0)
+        dt = time.perf_counter() - t_start
+        self.allreduce_s += dt
+        obs.histogram("coll/allreduce_s", unit="s").record(dt)
+        obs.histogram(f"coll/allreduce_s{tag}", unit="s").record(dt)
         return out
 
     def _finish(self, staged: _Staged, results: list[np.ndarray],
@@ -1173,6 +1199,7 @@ class HostCollectives:
                     # while this hop decodes + reduces
                     io.submit(self._ring_key(op, phase_rs, tok, s + 1, left),
                               deadline)
+                t0 = time.perf_counter()
                 raw = self._take(
                     io, self._ring_key(op, phase_rs, tok, s, left), deadline,
                     on_wait)
@@ -1190,6 +1217,8 @@ class HostCollectives:
                         _bucket_encode(b, acc, base + lo))
                 else:
                     final_enc = _bucket_encode(b, acc, base + lo)
+                obs.histogram("coll/ring_chunk_s", unit="s").record(
+                    time.perf_counter() - t0)
             # all-gather over the store's star topology: post the finished
             # chunk ONCE; every peer fetches the owner's single post (ring
             # forwarding would re-upload each chunk world-2 more times)

@@ -24,9 +24,10 @@ top of it:
 There is no Python stand-in for the store: without the library every
 constructor raises :class:`NativeUnavailable`.
 
-tpudist publishes the client's retries, backoffs and outages to its
-metrics registry; the port has none yet (ROADMAP Queue A 10), so they are
-plain counters on :data:`stats` and :data:`outage`.
+The client's retries, backoffs and outages go to the obs registry under
+tpudist's names (``coord/retries``, ``coord/retry_backoff_s``,
+``coord/unavailable``, ``coord/outage_s``) and to the plain counters on
+:data:`stats` and :data:`outage`.
 """
 
 from __future__ import annotations
@@ -47,17 +48,32 @@ _VALUE_CAP = 1 << 20
 class _Stats:
     """Process-wide client counters: ``retries`` (idempotent-op and
     refused-class retries) and ``backoff_s`` (the seconds their sleeps
-    summed to)."""
+    summed to), also published as ``coord/retries`` and the
+    ``coord/retry_backoff_s`` histogram.  The obs handles are made at
+    the first retry: coord is imported by lightweight workers and must
+    not pull the metrics registry in at import."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.retries = 0
         self.backoff_s = 0.0
+        self._obs = None
 
     def retried(self, nap: float) -> None:
         with self._lock:
             self.retries += 1
             self.backoff_s += nap
+        if self._obs is None:
+            from tpudist_torch import obs
+
+            self._obs = (
+                obs.counter("coord/retries", unit="retries"),
+                obs.histogram(
+                    "coord/retry_backoff_s", unit="s",
+                    help="per-retry sleep the coord client's capped "
+                         "decorrelated-jitter backoff chose"))
+        self._obs[0].inc()
+        self._obs[1].record(nap)
 
 
 stats = _Stats()
@@ -67,9 +83,11 @@ class _OutageTracker:
     """Process-wide coord-availability bookkeeping.
 
     Every client op reports success/failure here; the first failure of a
-    contiguous bad stretch opens an outage (``unavailable`` -> 1) and the
-    first success after it closes it, adding the stretch to ``outages``
-    and ``outage_s``.  The happy path is one lock-free attribute check."""
+    contiguous bad stretch opens an outage (``unavailable`` -> 1, the
+    ``coord/unavailable`` gauge too) and the first success after it
+    closes it, adding the stretch to ``outages`` and ``outage_s`` and to
+    the ``coord/outage_s`` histogram.  The happy path is one lock-free
+    attribute check."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -77,12 +95,30 @@ class _OutageTracker:
         self.unavailable = 0
         self.outages = 0
         self.outage_s = 0.0
+        self._gauge = None
+        self._hist = None
+
+    def _obs(self):
+        if self._gauge is None:
+            from tpudist_torch import obs
+
+            self._gauge = obs.gauge(
+                "coord/unavailable", unit="bool",
+                help="1 while the coord store is unreachable from this "
+                     "process (brownout), 0 once an op succeeds again")
+            self._hist = obs.histogram(
+                "coord/outage_s", unit="s",
+                help="length of each contiguous coord-unreachability "
+                     "stretch, observed at reconnect")
+        return self._gauge, self._hist
 
     def down(self) -> None:
+        gauge, _ = self._obs()
         with self._lock:
             if self._down_since is None:
                 self._down_since = time.monotonic()
             self.unavailable = 1
+        gauge.set(1)
 
     def up(self) -> None:
         if self._down_since is None:
@@ -93,7 +129,11 @@ class _OutageTracker:
                 return
             self.unavailable = 0
             self.outages += 1
-            self.outage_s += time.monotonic() - since
+            stretch = time.monotonic() - since
+            self.outage_s += stretch
+        gauge, hist = self._obs()
+        gauge.set(0)
+        hist.record(stretch)
 
     def is_down(self) -> bool:
         return self._down_since is not None

@@ -101,7 +101,7 @@ __all__ = ["KVTransport", "CoordKVTransport", "IciKVTransport",
 def _raw_words(a) -> tuple[bytes, str, list]:
     """``(bytes, dtype tag, shape)`` of one page array.  numpy arrays
     keep tpudist's ``str(a.dtype)`` tag; a bf16 CPU tensor (numpy has no
-    bf16 without ``ml_dtypes``), like a numpy bf16 array, is tagged
+    bf16 without ``ml-dtypes``), like a numpy bf16 array, is tagged
     ``"bfloat16"`` and carries its raw 2-byte words."""
     if isinstance(a, torch.Tensor):
         t = a.detach().cpu().contiguous()

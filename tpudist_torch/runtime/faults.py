@@ -1,9 +1,9 @@
 """Deterministic fault injection for the coordination and serve planes
 (counterpart of :mod:`tpudist.runtime.faults`, framework-free and kept
 as the same code: the port reads the same ``TPUDIST_FAULT_*`` knobs).
-The coordination, heartbeat and collective hooks are used by the port's
-runtime today; the serving, router and hand-off hooks wait for the
-modules that call them (ROADMAP Queue A 10: the fleet's fault seams).
+Every hook has its caller in the port: the coordination client, the
+heartbeats and collectives, the serve loop and its replicas, the router,
+the KV hand-off and the autoscaler's poll.
 
 Robustness code that is only exercised by real hardware failures is
 robustness code that has never run.  This module is the harness that

@@ -52,9 +52,16 @@ from tpudist_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
-# process-wide, like tpudist's obs counters of the same names
+# process-wide; each also ticks tpudist's obs counter launch/{name}
 counters = {"restarts": 0, "blacklisted": 0, "blacklist_recovered": 0,
             "worker_failures": 0}
+
+
+def _tick(name: str) -> None:
+    from tpudist_torch import obs
+
+    counters[name] += 1
+    obs.counter(f"launch/{name}").inc()
 # the last launch's attempts as the supervisor saw them: the world, the
 # spawn ids it scheduled and their exit codes (a healthy worker torn down
 # early may not have run far enough to say so itself)
@@ -152,6 +159,7 @@ def launch(
     deadline = (None if timeout_s is None
                 else time.monotonic() + timeout_s)
     server = None
+    watcher = None
     base_env = {k: v for k, v in os.environ.items()
                 if k not in _PROCESS_GROUP_ENV}
     # Workers must resolve the same package the launcher runs from, however
@@ -163,14 +171,20 @@ def launch(
     if env:
         base_env.update(env)
     if coord_server:
-        # tpudist also starts its HealthWatcher here (stragglers and stale
-        # ranks cited in the supervision log); it waits for the port's
-        # observability plane, ROADMAP Queue A 10
         try:
             from tpudist_torch.runtime.coord import CoordServer
 
             server = CoordServer(0)
             base_env["TPUDIST_COORD_ADDR"] = f"127.0.0.1:{server.port}"
+            # the health plane rides the same store the workers publish
+            # metrics through: the watcher classifies stragglers/stale
+            # ranks so supervision decisions below can cite evidence
+            try:
+                from tpudist_torch.obs.health import HealthWatcher
+
+                watcher = HealthWatcher(base_env["TPUDIST_COORD_ADDR"])
+            except Exception as e:  # noqa: BLE001 - health is advisory
+                log.warning("health watcher unavailable (%s); continuing", e)
         except Exception as e:  # noqa: BLE001 - control plane is optional
             log.warning("coordination server unavailable (%s); continuing", e)
 
@@ -199,7 +213,7 @@ def launch(
                         discover_cmd, world, floor or 1, nprocs)
                 elif floor is not None and blacklist_after is None:
                     world = max(floor, world - 1)
-                counters["restarts"] += 1
+                _tick("restarts")
                 if blacklist_after is not None:
                     now = time.monotonic()
                     for sid, until in list(black_until.items()):
@@ -218,7 +232,7 @@ def launch(
                                 (i for i, s in enumerate(roster)
                                  if s >= nprocs), len(roster))
                             roster.insert(insert_at, sid)
-                            counters["blacklist_recovered"] += 1
+                            _tick("blacklist_recovered")
                     for sid in list(roster):
                         if fail_counts.get(sid, 0) >= blacklist_after:
                             black_until[sid] = (
@@ -226,12 +240,13 @@ def launch(
                                 if blacklist_cooldown is not None
                                 else float("inf"))
                             roster.remove(sid)
-                            counters["blacklisted"] += 1
+                            _tick("blacklisted")
                             log.warning(
                                 "spawn id %d blacklisted after %d failed "
-                                "attempts%s", sid, fail_counts[sid],
+                                "attempts%s%s", sid, fail_counts[sid],
                                 "" if blacklist_cooldown is None else
-                                f" (cooldown until +{black_until[sid] - now:.1f}s)")
+                                f" (cooldown until +{black_until[sid] - now:.1f}s)",
+                                f" [{watcher.describe()}]" if watcher else "")
                     while len(roster) < world:
                         roster.append(next_sid)   # fresh replacement slot
                         next_sid += 1
@@ -263,21 +278,27 @@ def launch(
                 for sid, code in zip(ids, codes):
                     if code not in (0, -signal.SIGTERM):
                         fail_counts[sid] = fail_counts.get(sid, 0) + 1
-                        counters["worker_failures"] += 1
+                        _tick("worker_failures")
             if elastic_inprocess:
                 if sum(c == 0 for c in codes) >= (floor or 1):
                     return 0
             elif all(c == 0 for c in codes):
                 return 0
             log.warning(
-                "gang attempt %d failed (exit codes %s)%s", attempt, codes,
-                "; restarting" if attempt < max_restarts else "")
+                "gang attempt %d failed (exit codes %s)%s%s", attempt, codes,
+                "; restarting" if attempt < max_restarts else "",
+                f" [{watcher.describe()}]" if watcher else "")
         # Survivors torn down by _supervise exit with the termination
         # signal; report the code of the worker that actually failed.
         failing = [c for c in codes
                    if c not in (0, -signal.SIGTERM, -signal.SIGKILL)]
         return failing[0] if failing else next(c for c in codes if c != 0)
     finally:
+        if watcher is not None:
+            try:
+                watcher.stop()
+            except Exception:  # noqa: BLE001 - advisory plane
+                pass
         if server is not None:
             server.stop()
 

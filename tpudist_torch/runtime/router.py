@@ -112,9 +112,9 @@ Fleet control plane (the policy layer over those mechanisms):
   so concurrent :func:`scale_fleet` callers (autoscaler + operator)
   can never mint the same rid.
 
-tpudist's autoscaler (:mod:`tpudist.runtime.autoscaler`) closes the loop
-over these mechanisms; its port waits for ROADMAP Queue A 10's remainder,
-so here :func:`scale_fleet` and the drain protocol are driven by hand.
+The autoscaler (:mod:`tpudist_torch.runtime.autoscaler`) closes the loop
+over these mechanisms: it buys joiners through :func:`scale_fleet` and
+drains idle replicas through the same protocol.
 
 Replicas run on the card by default (``--device cuda``): each prefills
 through the flash-forward kernel (K1) and decodes through the flash-decode
@@ -1001,15 +1001,14 @@ class Router:
         self.client = client
         self.ns = namespace
         self.poll_s = float(poll_s)
-        # optional AlertManager (tpudist.obs.alerts' interface: is_firing;
-        # not ported yet, Queue A 10's remainder): when wired, the
-        # router reads fleet-level degradation through the declarative
+        # optional AlertManager (tpudist_torch.obs.alerts): when wired,
+        # the router reads fleet-level degradation through the declarative
         # alert interface — a firing FleetDegraded rule arms the same
         # admission clamp a replica-advertised degraded flag does —
         # instead of growing another bespoke threshold probe
         self.alerts = alerts
         # injectable time sources: an offline fleet simulator (tpudist.sim;
-        # its port is Queue A 10's remainder) runs this SAME event loop
+        # its port is still to come) runs this SAME event loop
         # against a virtual clock whose sleeper advances simulated
         # replicas instead of blocking — production keeps the defaults
         self._clock = clock

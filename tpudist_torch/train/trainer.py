@@ -23,14 +23,21 @@ sharded by :func:`~tpudist_torch.parallel.mesh.make_composed_state`
 Snapshots of a sharded state hold the whole parameters and optimizer
 state, gathered from every process, and a restore cuts them again.
 
-Not ported yet: tpudist's cost probe, obs spans and flight-recorder guard
-(ROADMAP Queue A 10).
+Telemetry as tpudist's: ``train/*`` counters, gauges and the step-time
+histogram; spans ``train_epoch``, ``train_step`` / ``train_dispatch``,
+``snapshot_save`` and ``cost_probe``; a flight-recorder guard around
+:meth:`Trainer.train`; and, per epoch, ``xla/step_tflops`` / ``xla/mfu``
+from the first step's FLOPs (counted as it runs, by
+:func:`~tpudist_torch.obs.xla.cost_flops`) and the card's memory gauges.
+tpudist's recorder also keeps the step's HLO text; the port has no
+program text to keep.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Callable
 
 import torch
@@ -38,9 +45,11 @@ import torch.distributed as dist
 from torch import nn
 from torch.distributed.device_mesh import DeviceMesh
 
+from tpudist_torch import obs
 from tpudist_torch.data.device_prefetch import device_prefetch
 from tpudist_torch.data.loader import ShardedLoader
 from tpudist_torch.elastic.checkpoint import Checkpointer, restore_pytree
+from tpudist_torch.obs import xla as obs_xla
 from tpudist_torch.ops.losses import cross_entropy
 from tpudist_torch.parallel.data_parallel import (
     broadcast_params,
@@ -224,6 +233,41 @@ class Trainer:
                 dp_predict, mesh, self._param_specs, spec.data_axes())
         self.metrics = MetricLogger()
         self.throughput = ThroughputMeter(warmup_steps=2)
+        # obs handles cached once: the hot loop touches them by attribute.
+        # Recording stays lazy — the loss gauge takes the device scalar
+        # as it is, counters take host ints, the step-time histogram
+        # host floats — so nothing here adds a sync to the step path
+        # (snapshot() pays the one batched copy)
+        self._obs_steps = obs.counter("train/steps", unit="steps")
+        self._obs_examples = obs.counter("train/examples", unit="examples")
+        self._obs_epochs = obs.counter("train/epochs", unit="epochs")
+        self._obs_loss = obs.gauge("train/loss")
+        self._obs_tput = obs.gauge("train/images_per_sec", unit="img/s")
+        self._obs_step_time = obs.histogram("train/step_time", unit="s")
+        # per-optimizer-step FLOPs, counted on the first call; feeds the
+        # live MFU gauge
+        self._step_flops: float | None = None
+        self._cost_probed = False
+
+    def _call(self, fn, steps_per_dispatch: int, *batch):
+        """``fn(state, *batch)``; the first call runs under the FLOP
+        counter (the ``cost_probe`` span), so the probe is a step the
+        trainer takes anyway, never an extra one."""
+        if self._cost_probed:
+            return fn(self.state, *batch)
+        self._cost_probed = True
+        out: list = []
+        try:
+            with obs.span("cost_probe"):
+                flops = obs_xla.cost_flops(
+                    lambda: out.append(fn(self.state, *batch)))
+            if flops is not None:
+                self._step_flops = flops / steps_per_dispatch
+        except Exception as e:  # noqa: BLE001 - telemetry must not stop training
+            if not out:
+                raise
+            log.debug("cost probe failed: %s", e)
+        return out[0]
 
     # -- snapshots (the reference's _save_snapshot/_load_snapshot, full
     # state)
@@ -283,10 +327,11 @@ class Trainer:
         tree = self._snapshot_tree()
         if process_index() != 0:
             return
-        self._ckpt.save(epoch, tree,
-                        meta={"epochs_run": epoch + 1,
-                              "step": self.state.step,
-                              "seed": self.state.seed})
+        with obs.span("snapshot_save", epoch=epoch):
+            self._ckpt.save(epoch, tree,
+                            meta={"epochs_run": epoch + 1,
+                                  "step": self.state.step,
+                                  "seed": self.state.seed})
         log.info("Epoch %d | snapshot save started to %s (async=%s, "
                  "blocked %.4f s)", epoch, self.config.snapshot_path,
                  self._ckpt.async_save, self._ckpt.last_blocked_s)
@@ -317,28 +362,58 @@ class Trainer:
         if self.train_loop is not None:
             start_step = loader.stacked_groups(n) * n
             for g, batch in enumerate(self._feed(epoch, n_steps=n)):
-                self.state, metrics = self.train_loop(self.state, *batch)
+                t0 = time.perf_counter()
+                with obs.span("train_dispatch", steps=n):
+                    self.state, metrics = self._call(self.train_loop, n,
+                                                     *batch)
                 # stacked [n] metrics; every optimizer step weighs equally
                 self.metrics.update(**metrics)
                 self.throughput.step(n * loader.global_batch,
                                      block=(g + 1) * n - 1 == last)
+                # the loss gauge keeps the stacked device tensor; its last
+                # element is folded out at snapshot time, never here
+                self._obs_loss.set(metrics["loss"])
+                self._obs_steps.inc(n)
+                self._obs_examples.inc(n * loader.global_batch)
+                self._obs_step_time.record((time.perf_counter() - t0) / n)
                 if (g * n) % self.config.log_every < n:
+                    loss = float(metrics["loss"][-1])
                     log.info("epoch %d step %d loss %.4f", epoch,
-                             g * n + n - 1, float(metrics["loss"][-1]))
+                             g * n + n - 1, loss)
+                    # flight-recorder breadcrumb at log granularity: the
+                    # loss is already on the host here, no extra sync
+                    obs.recorder.record("train_log", epoch=epoch,
+                                        step=g * n + n - 1, loss=loss)
         for step, batch in enumerate(self._feed(epoch,
                                                 start_step=start_step),
                                      start=start_step):
-            self.state, metrics = self.train_step(self.state, *batch)
+            t0 = time.perf_counter()
+            with obs.span("train_step", step=step):
+                self.state, metrics = self._call(self.train_step, 1,
+                                                 *batch)
             # device scalars kept as they are: one host sync per epoch
             # (and at log points), not per step
             self.metrics.update(**metrics)
             self.throughput.step(loader.global_batch, block=step == last)
+            self._obs_loss.set(metrics["loss"])
+            self._obs_steps.inc()
+            self._obs_examples.inc(loader.global_batch)
+            # dispatch time unless TPUDIST_OBS_FENCE=1 makes spans fence
+            self._obs_step_time.record(time.perf_counter() - t0)
             if step % self.config.log_every == 0:
-                log.info("epoch %d step %d loss %.4f", epoch, step,
-                         float(metrics["loss"]))
+                loss = float(metrics["loss"])
+                log.info("epoch %d step %d loss %.4f", epoch, step, loss)
+                obs.recorder.record("train_log", epoch=epoch, step=step,
+                                    loss=loss)
         return self.metrics.reset()
 
     def train(self, max_epochs: int | None = None) -> dict:
+        # any unhandled exception dumps a post-mortem bundle (event ring,
+        # final snapshot) before propagating
+        with obs.recorder.guard("trainer", epochs_run=self.epochs_run):
+            return self._train(max_epochs)
+
+    def _train(self, max_epochs: int | None = None) -> dict:
         max_epochs = max_epochs or self.config.total_epochs
         summary: dict = {}
         start_epoch = self.epochs_run
@@ -346,7 +421,21 @@ class Trainer:
             profiling = self.config.profile_dir and epoch == start_epoch
             with maybe_profile(self.config.profile_dir if profiling
                                else None):
-                epoch_metrics = self._run_epoch(epoch)
+                with obs.span("train_epoch", epoch=epoch):
+                    epoch_metrics = self._run_epoch(epoch)
+            self._obs_epochs.inc()
+            self._obs_tput.set(self.throughput.items_per_sec)
+            # live efficiency gauges, refreshed per epoch: TFLOP/s (and
+            # MFU on a known card) from the first step's FLOPs over the
+            # measured mean step time, and the card's allocator gauges
+            # (nothing on the CPU)
+            obs_xla.note_step(self.throughput.mean_step_time,
+                              self._step_flops)
+            obs_xla.update_memory_gauges()
+            obs.recorder.record(
+                "epoch_end", epoch=epoch,
+                loss=epoch_metrics.get("loss"),
+                images_per_sec=round(self.throughput.items_per_sec, 2))
             summary = {"epoch": epoch, **epoch_metrics}
             if self.config.eval_every_epoch and self.test_loader is not None:
                 summary["test_accuracy"] = self.test()

@@ -6,9 +6,11 @@ exclusion, images/s, epoch means of device scalars, and an optional
 PyTorch returns from a CUDA call before the card has done the work, so a
 host clock read without a synchronise measures the dispatch rate.
 ``block=True`` (:class:`Stopwatch`, :meth:`ThroughputMeter.step`) waits
-for the card first.  tpudist's meters also feed its obs registry; the
-port keeps their readings as plain attributes (``items_per_sec``,
-``mean_step_time``) until the obs layer is ported (ROADMAP Queue A 10).
+for the card first.  As in tpudist, :class:`ThroughputMeter` also
+reports into the process-global obs registry (the
+``throughput/items_per_sec`` and ``throughput/steps`` gauges); its
+readings stay plain attributes too (``items_per_sec``,
+``mean_step_time``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from collections import defaultdict
 
 import torch
 import torch.distributed as dist
+
+from tpudist_torch import obs
 
 
 def sync_device() -> None:
@@ -51,7 +55,10 @@ class ThroughputMeter:
     """Images/s (or items/s) with warm-up steps excluded.  Each
     :meth:`step` reads the host clock; pass ``block=True`` at the end of
     a measured stretch (the trainer does at an epoch's last step) so the
-    rate counts the card's work and not only its dispatch."""
+    rate counts the card's work and not only its dispatch.
+
+    Post-warmup steps also refresh the obs gauges
+    ``throughput/items_per_sec`` and ``throughput/steps``."""
 
     def __init__(self, warmup_steps: int = 1) -> None:
         self.warmup_steps = warmup_steps
@@ -59,6 +66,8 @@ class ThroughputMeter:
         self._items = 0
         self._elapsed = 0.0
         self._last: float | None = None
+        self._rate_gauge = None
+        self._steps_gauge = None
 
     def start(self) -> None:
         self._last = time.perf_counter()
@@ -74,6 +83,13 @@ class ThroughputMeter:
         if self._steps > self.warmup_steps:
             self._items += n_items
             self._elapsed += now - self._last
+            if self._rate_gauge is None:
+                self._rate_gauge = obs.registry.gauge(
+                    "throughput/items_per_sec", unit="items/s")
+                self._steps_gauge = obs.registry.gauge(
+                    "throughput/steps", unit="steps")
+            self._rate_gauge.set(self.items_per_sec)
+            self._steps_gauge.set(float(self._steps))
         self._last = now
 
     @property
