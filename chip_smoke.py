@@ -272,6 +272,31 @@ Phases, each printing one JSON line and each fatal on failure:
    K1 and K5 (no K2) in every replica that served, the joiner among
    them, a live console frame listing both; scale-up s, drain s, wall s
    and requests/s a batch, p50/p99.
+47. check_build (after ep_moe) — ``python -m tpudist_torch.check_build``
+   on the card: rc 0, the torch backend (capability 9.0), the
+   collectives (one NCCL rank a card) and the kernels (the five
+   libraries, K1 once at (1, 256, 2, 128) bf16 causal within 0.05 of the
+   plain reference) OK; each probe's line, K1's error and launch;
+48. sim_replay — bench.py's sim_replay cell: a live one-replica fleet on
+   the card (chip_smoke's replica mode, tpudist's AutoscaleConfig, its
+   16-request spike, a 15 s queue-wait window) buys a joiner; its merged
+   events document replays through FleetSim.from_trace with
+   decision_match (equal scale-ups, the first within one poll of the
+   breach); every replica that served launched K1 and K5 and no K2
+   (counted in the replica from its start: launches_sim_replay); live
+   and sim wall s, speedup, live and sim p50/p99 queue wait (printed,
+   not gated);
+49. sim — tpudist's 13 builtin scenarios at full length through the
+   port's FleetSim (``python -m tpudist_torch.sim --all --check``, a
+   process of its own, steady_state once more from a spec file): every
+   envelope held, no lost request, steady_state's two rows equal but for
+   sim_wall_s and speedup; each scenario's sim_wall_s and speedup;
+50. mesh_bench (beside sim: both are host work) — ``python -m
+   tpudist_torch.parallel.mesh_bench --force-cpu`` in 8 gloo ranks on
+   the CPU (one NCCL rank a card needs 8 cards; the machine has one): the six composition rows bitwise equal to
+   their single-strategy steps, the real LM through interleaved 1F1B
+   (P=4, M=16, V=4) trained with its bubble at most 0.08; the rows and
+   the wall s.
 
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
@@ -288,6 +313,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # H100 SXM data-sheet peaks (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -7340,6 +7366,288 @@ def phase_ep_moe(torch, dev, seed):
         shutdown()
 
 
+# check_build, sim, sim_replay and mesh_bench: the port's CLIs and the
+# offline fleet simulator replaying a live fleet on this card
+# sim_replay: bench.py's bench_sim_replay (tpudist's AutoscaleConfig, its
+# 16-request spike, a 15 s queue-wait window on the replicas); the
+# replicas serve the router's default model, paged at block 16
+SIM_REPLAY = {"autoscale": dict(
+    min_replicas=1, max_replicas=2, target_wait_s=0.005, low_wait_s=0.001,
+    quantile=0.9, breach_polls=2, idle_polls=50, up_cooldown_s=60.0,
+    down_cooldown_s=600.0, poll_s=0.25, max_metric_age_s=10.0),
+    "requests": 16, "new": 16, "window_s": 15,
+    "replica_args": ["--cache-layout", "paged", "--kv-block-size", "16",
+                     "--ttl", "1.0"]}
+# mesh_bench: the real LM's schedule bubble must stay at or under this
+# (tpudist's acceptance point: P=4, M=16, V=4 gives 0.0448)
+MESH_BUBBLE_MAX = 0.08
+
+
+def _run_module(args: list, timeout: float):
+    """``python -m <args>`` from the repo root; the completed process."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=_repo_root())
+    return subprocess.run([sys.executable, "-m", *args], cwd=_repo_root(),
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def phase_check_build(smi: str) -> dict:
+    """``python -m tpudist_torch.check_build`` on this card: rc 0, the
+    required probes (torch backend, collectives over one NCCL rank a card,
+    the kernels) OK, and the kernel probe's flash forward (K1) launched on
+    the card within the probe's 0.05 of the plain reference.  Prints every
+    probe's line; returns K1's launch count and error."""
+    import re
+
+    t0 = time.perf_counter()
+    res = _run_module(["tpudist_torch.check_build"], 600)
+    wall = time.perf_counter() - t0
+    probes = {}
+    for line in res.stdout.splitlines():
+        m = re.match(r"\[(OK  |FAIL|WARN)\] (.+?)  +(.*)$", line)
+        if m:
+            probes[m.group(2).strip()] = {"mark": m.group(1).strip(),
+                                          "detail": m.group(3)}
+    check(res.returncode == 0, f"check_build: rc {res.returncode}\n"
+          f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    for name in ("torch backend", "collectives", "kernels"):
+        check(probes.get(name, {}).get("mark") == "OK",
+              f"check_build: required probe {name!r}: {probes.get(name)}")
+    kern = probes["kernels"]["detail"]
+    launched = re.search(r"(\d+) launch", kern)
+    err = re.search(r"max err ([0-9.eE+-]+)", kern)
+    check(launched is not None and int(launched.group(1)) >= 1
+          and err is not None and float(err.group(1)) < 0.05,
+          f"check_build: kernel probe {kern!r}")
+    row = {"launches": int(launched.group(1)),
+           "max_abs_err": float(err.group(1))}
+    emit({"phase": "check_build", "nvidia_smi": smi, "rc": res.returncode,
+          "wall_s": wall, "probes": probes,
+          "last_line": res.stdout.strip().splitlines()[-1], "K1": row})
+    return row
+
+
+def phase_sim(smi: str) -> None:
+    """The 13 builtin scenarios through the port's FleetSim at full
+    length, as ``python -m tpudist_torch.sim --all --check --jsonl f``
+    runs them (a process of its own: the summary rows read the process's
+    counters), with steady_state's spec once more from a file
+    (``--spec``): rc 0, 13 scenarios, every envelope_ok, no lost
+    request, and steady_state's second row equal to its first but for
+    the two real-clock fields.  Prints each scenario's sim_wall_s and
+    speedup."""
+    import os
+    import tempfile
+
+    from tpudist_torch.sim.scenario import BUILTIN
+
+    real_clock = ("sim_wall_s", "speedup")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "scenarios.jsonl")
+        spec = os.path.join(tmp, "steady_state.json")
+        with open(spec, "w") as f:
+            json.dump(BUILTIN["steady_state"], f)
+        t0 = time.perf_counter()
+        res = _run_module(["tpudist_torch.sim", "--all", "--spec", spec,
+                           "--check", "--jsonl", out], 600)
+        wall = time.perf_counter() - t0
+        check(res.returncode == 0, f"sim: rc {res.returncode}\n"
+              f"{res.stderr[-3000:]}")
+        with open(out) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+    check(len(rows) == 14 and len({r["scenario"] for r in rows}) == 13,
+          f"sim: {len(rows)} rows")
+    bad = {r["scenario"]: r["violations"] for r in rows
+           if not r["envelope_ok"] or r["lost_requests"] != 0}
+    check(not bad, f"sim: envelopes violated {bad}")
+    first, second = (r for r in rows if r["scenario"] == "steady_state")
+    diff = sorted(k for k in set(first) | set(second)
+                  if k not in real_clock and first.get(k) != second.get(k))
+    check(not diff, f"sim: steady_state rerun differs in {diff}")
+    emit({"phase": "sim", "nvidia_smi": smi, "wall_s": wall,
+          "scenarios": {r["scenario"]: {k: r[k] for k in (
+              "sim_wall_s", "speedup", "virtual_s", "requests",
+              "scale_ups", "drains", "alerts_fired")} for r in rows[:13]},
+          "steady_state_rerun_equal": True})
+
+
+def phase_sim_replay(torch, smi: str, seed: int) -> dict:
+    """bench.py's sim_replay cell on the card: a live one-replica fleet
+    (chip_smoke's replica mode, which runs the router's replica main as
+    ``launch_local_fleet``'s ``python -m`` does, on ``cuda``) under an
+    Autoscaler with tpudist's config takes the 16-request spike and buys
+    a joiner, spawned in the same mode; the merged ``tpudist.events/1``
+    document and the decision log are recorded, and
+    ``FleetSim.from_trace`` replays the run.  Gate: the simulator's
+    ``decision_match`` (equal scale-up counts, the first scale-up within
+    one poll of the first breach on both), and every replica that served
+    launching K1 and K5 (paged) and no K2, counted in the replica from
+    its start.  Prints the live and sim wall seconds, the speedup, each
+    replica's launches, and the live p50/p99 queue wait (the replica's
+    windowed histogram) beside the sim's: printed, not gated (tpudist's
+    bench explains why that agreement is loose).  Returns the launches
+    summed over the replicas."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tpudist_torch import obs
+    from tpudist_torch.models.serving import Request
+    from tpudist_torch.obs.aggregate import collect, merge_snapshots
+    from tpudist_torch.obs.events import collect_events, merge_events
+    from tpudist_torch.obs.registry import hist_quantile
+    from tpudist_torch.runtime import router as rt
+    from tpudist_torch.runtime.autoscaler import AutoscaleConfig, Autoscaler
+    from tpudist_torch.runtime.coord import CoordClient, CoordServer
+    from tpudist_torch.sim import FleetSim
+    from tpudist_torch.sim.simulator import decision_match
+
+    cfg = SIM_REPLAY
+    autoscale = cfg["autoscale"]
+    server = CoordServer(0)
+    ns = "sim-replay"
+    addr = f"127.0.0.1:{server.port}"
+    client = CoordClient("127.0.0.1", server.port)
+    env = dict(os.environ, PYTHONPATH=_repo_root(),
+               TPUDIST_SERVE_WAIT_WINDOW_S=str(cfg["window_s"]))
+    args = ["--device", "cuda", *cfg["replica_args"]]
+    rng = np.random.default_rng(seed)
+    spike = [Request(rng.integers(0, 64, 4 + i % 6).astype(np.int32),
+                     cfg["new"], rid=f"rp-{i}")
+             for i in range(cfg["requests"])]
+    # the recorded trace must hold this run's enqueue events only
+    obs.events.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = {}
+
+        def spawn(i):
+            outs[f"r{i}"] = f"{tmp}/{ns}_r{i}.json"
+            return _smoke_replica(addr, ns, i, args, outs[f"r{i}"], env)
+
+        rt._seed_replica_index(client, 1, namespace=ns)
+        procs = [spawn(0)]
+        spawn_client = CoordClient("127.0.0.1", server.port)
+        scaler = Autoscaler(
+            CoordClient("127.0.0.1", server.port), namespace=ns,
+            config=AutoscaleConfig(**autoscale),
+            spawner=lambda n: [spawn(i) for i in rt.alloc_replica_indices(
+                spawn_client, n, namespace=ns)])
+        try:
+            rt.wait_live(client, 1, namespace=ns, timeout_s=180.0,
+                         procs=procs)
+            router = rt.Router(client, namespace=ns, lost_after_s=5.0)
+            router._poll({}, {}, None)        # pin the membership baseline
+            t0 = time.perf_counter()
+            scaler.start()
+            comps = router.run(list(spike), timeout_s=240.0)
+            # the published histogram is windowed: read the spike's waits
+            merged_live = merge_snapshots(collect(client, f"{ns}/metrics"))
+            limit = time.perf_counter() + 90.0
+            while (time.perf_counter() < limit
+                   and not any(a["kind"] == "up"
+                               for a in scaler.action_seq())):
+                time.sleep(0.5)
+            live_wall_s = time.perf_counter() - t0
+            scaler.stop()
+        finally:
+            scaler.stop()
+            codes = rt.stop_fleet(client, procs + scaler.procs,
+                                  namespace=ns, timeout_s=60.0)
+        doc = merge_events(collect_events(client, f"{ns}/events"),
+                           router=obs.events.snapshot())
+        dumps = {}
+        for rid, out in outs.items():
+            if os.path.exists(out):
+                with open(out) as fh:
+                    dumps[rid] = json.load(fh)
+    server.stop()
+    check(sorted(str(c.rid) for c in comps)
+          == sorted(str(r.rid) for r in spike)
+          and all(c.reason == "length" for c in comps),
+          f"sim_replay: live completions "
+          f"{sorted((str(c.rid), c.reason) for c in comps)}")
+    launches = {"K1": 0, "K2": 0, "K5": 0}
+    replicas = {}
+    for rid, d in dumps.items():
+        n, served = d["launches"], d["counters"].get("serve/requests", 0)
+        replicas[rid] = {"K1": n["K1"], "K2": n["K2"], "K5": n["K5"],
+                         "requests": served}
+        if served:
+            check(n["K1"] > 0 and n["K5"] > 0 and n["K2"] == 0,
+                  f"sim_replay: {rid} launched {n}")
+        for k in launches:
+            launches[k] += n[k]
+    check(replicas.get("r0", {}).get("requests", 0) >= 1
+          and launches["K1"] > 0 and launches["K5"] > 0,
+          f"sim_replay: the live replicas' launches {replicas}")
+
+    sim = FleetSim.from_trace(doc, autoscale=autoscale, replicas=1)
+    t0 = time.perf_counter()
+    sim_row = sim.run()
+    sim_wall_s = time.perf_counter() - t0
+    match = decision_match(scaler.decision_log, scaler.action_seq(),
+                           sim.scaler.decision_log, sim.scaler.action_seq(),
+                           autoscale["target_wait_s"])
+    check(match["decision_match"] and match["live_ups"] >= 1,
+          f"sim_replay: {match}")
+    check(sim_row["lost_requests"] == 0,
+          f"sim_replay: the replay lost {sim_row['lost_requests']}")
+    live_h = merged_live["histograms"].get("serve/queue_wait_s")
+    have_live = bool(live_h) and live_h["count"] > 0
+    sim_waits = [w for r in sim.replicas for w in r.all_waits]
+    emit({"phase": "sim_replay", "nvidia_smi": smi,
+          "requests": len(spike), "events": len(doc.get("events", [])),
+          **match, "live_wall_s": live_wall_s,
+          "sim_wall_s": sim_wall_s, "speedup": live_wall_s / sim_wall_s,
+          "live_p50_wait_s": (hist_quantile(live_h, 0.5) if have_live
+                              else None),
+          "live_p99_wait_s": (hist_quantile(live_h, 0.99) if have_live
+                              else None),
+          "sim_p50_wait_s": (float(np.percentile(sim_waits, 50))
+                             if sim_waits else None),
+          "sim_p99_wait_s": (float(np.percentile(sim_waits, 99))
+                             if sim_waits else None),
+          "service_rates": sim.rates, "exit_codes": codes,
+          "replicas": replicas, "launches": launches})
+    return launches
+
+
+def phase_mesh_bench(smi: str) -> None:
+    """``python -m tpudist_torch.parallel.mesh_bench --force-cpu --out
+    f``: 8 gloo ranks on the CPU (one NCCL rank a card needs 8 cards and
+    this machine has one).  Checks: the six
+    composition rows bitwise equal to their single-strategy steps, and
+    the real LM through interleaved 1F1B (P=4, M=16, V=4) trained with
+    its bubble at most MESH_BUBBLE_MAX.  Prints the rows and the wall
+    seconds."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mesh_bench.jsonl")
+        t0 = time.perf_counter()
+        res = _run_module(["tpudist_torch.parallel.mesh_bench",
+                           "--force-cpu", "--out", out], 900)
+        wall = time.perf_counter() - t0
+        check(res.returncode == 0, f"mesh_bench: rc {res.returncode}\n"
+              f"{res.stderr[-3000:]}")
+        with open(out) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+    combos = [r for r in rows if not r["combo"].startswith("real_lm")]
+    lm = next(r for r in rows if r["combo"].startswith("real_lm"))
+    check(len(combos) == 6 and all(r["exact_match"] for r in combos),
+          "mesh_bench: combos " + str([(r["combo"], r["exact_match"],
+                                        r["max_abs_diff"]) for r in combos]))
+    check(lm["trained"] and lm["bubble_fraction"] <= MESH_BUBBLE_MAX,
+          f"mesh_bench: real LM {lm}")
+    emit({"phase": "mesh_bench", "nvidia_smi": smi, "wall_s": wall,
+          "ranks": "8 gloo (CPU)",
+          "rows": rows})
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7425,6 +7733,15 @@ def main(argv=None) -> int:
         k1_case="tp2_shard")
     spmd_launches = phase_train_spmd(torch, dev, args.seed)
     phase_ep_moe(torch, dev, args.seed)
+    cb_k1 = phase_check_build(smi)
+    spec_launches["sim_replay"] = phase_sim_replay(torch, smi, args.seed)
+    # sim (one process) and mesh_bench (8 single-threaded ranks) are host
+    # work only: run them side by side on the host's cores
+    with ThreadPoolExecutor(2) as pool:
+        host_phases = [pool.submit(phase_sim, smi),
+                       pool.submit(phase_mesh_bench, smi)]
+        for phase in host_phases:
+            phase.result()
 
     main_k1 = next(r for r in k1 if r["q_offset"] == 7168)
     main_k2 = next(r for r in k2 if r["case"] == "per_row_side")
@@ -7459,6 +7776,8 @@ def main(argv=None) -> int:
          "sp_library_ms": sp_k1["library_ms"], "sp_plan": sp_k1["plan"],
          "launches_train_spmd": spmd_launches["K1"],
          "launches_train_spmd_per_step": spmd_launches["per_step"]["K1"],
+         "launches_check_build": cb_k1["launches"],
+         "check_build_max_abs_err": cb_k1["max_abs_err"],
          **{"tp_shard_" + k: k1_tp[k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
              "plan", "shape")}},

@@ -13,12 +13,25 @@ CPU tensor takes the kernel's plain PyTorch version (tests only).
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from tpudist_torch.models.convert import from_flax_params
-from tpudist_torch.models.generate import greedy_generate
-from tpudist_torch.models.serving import Completion, Request, ServeLoop
-from tpudist_torch.models.transformer import TransformerConfig, TransformerLM
-from tpudist_torch.runtime import data_mesh, make_mesh
-from tpudist_torch.train.trainer import Trainer, TrainerConfig
+import importlib
+
+# the exports load on first use (PEP 562), so a stdlib-only module such as
+# tpudist_torch.sim.scenario imports without torch
+_EXPORTS = {
+    "from_flax_params": "tpudist_torch.models.convert",
+    "greedy_generate": "tpudist_torch.models.generate",
+    "Completion": "tpudist_torch.models.serving",
+    "Request": "tpudist_torch.models.serving",
+    "ServeLoop": "tpudist_torch.models.serving",
+    "TransformerConfig": "tpudist_torch.models.transformer",
+    "TransformerLM": "tpudist_torch.models.transformer",
+    "data_mesh": "tpudist_torch.runtime",
+    "make_mesh": "tpudist_torch.runtime",
+    "Trainer": "tpudist_torch.train.trainer",
+    "TrainerConfig": "tpudist_torch.train.trainer",
+}
+_SUBPACKAGES = ("data", "elastic", "models", "obs", "ops", "parallel",
+                "runtime", "sim", "train", "utils")
 
 __version__ = "0.1.0"
 
@@ -35,3 +48,13 @@ __all__ = [
     "greedy_generate",
     "make_mesh",
 ]
+
+
+def __getattr__(name):
+    if name in _EXPORTS:
+        value = getattr(importlib.import_module(_EXPORTS[name]), name)
+        globals()[name] = value
+        return value
+    if name in _SUBPACKAGES:
+        return importlib.import_module(f"tpudist_torch.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -9,6 +9,11 @@ P2P hops, with tensor-parallel blocks), sequence parallelism (ring, ring
 flash and Ulysses attention, the DP×SP train step) and the
 parameter-server hybrid (a row-sharded embedding table)."""
 
+# the trainer imports this package's modules, and they import
+# tpudist_torch.train.state: load the train package first, so whichever of
+# the two is imported first, neither meets the other half-initialised
+import tpudist_torch.train  # noqa: F401, I001
+
 from tpudist_torch.parallel.data_parallel import (
     broadcast_params,
     make_dp_eval_step,

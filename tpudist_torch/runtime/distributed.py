@@ -16,6 +16,9 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import pickle
+import tempfile
+import time
 
 import torch
 import torch.distributed as dist
@@ -125,3 +128,47 @@ def local_rank() -> int:
     """Index of this process among the processes of its host
     (``LOCAL_RANK``, as torchrun sets it; 0 when unset)."""
     return int(os.environ.get("LOCAL_RANK", "0"))
+
+
+def _spawned_rank(rank: int, fn, world: int, init: str, device: str,
+                  out_dir: str, args: tuple) -> None:
+    os.environ["LOCAL_RANK"] = str(rank)        # one host: local == global
+    initialize(init, world, rank, device=device)
+    try:
+        result = fn(rank, world, *args)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    finally:
+        shutdown()
+
+
+def spawn_ranks(fn, world: int, *args, device: str = "cuda",
+                timeout: float) -> list:
+    """``fn(rank, world, *args)`` in ``world`` spawned processes on this
+    host, each joined to one process group through :func:`initialize`
+    (``cuda``: NCCL, rank ``r`` on ``cuda:r``; ``cpu``: gloo); their
+    return values, by rank.  A rank that raises re-raises here; ranks
+    still running after ``timeout`` seconds are killed and
+    ``TimeoutError`` is raised."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init = "file://" + os.path.join(tmp, "store")
+        ctx = mp.start_processes(_spawned_rank,
+                                 args=(fn, world, init, device, tmp, args),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"{world} {device} rank(s) of "
+                                   f"{getattr(fn, '__qualname__', fn)} "
+                                   f"still running after {timeout:g} s; "
+                                   "killed")
+        results = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
