@@ -204,7 +204,8 @@ Phases, each printing one JSON line and each fatal on failure:
    collectives a step;
 36. ep_moe — the train cell's widths with E = 8, top-2 einsum MoE MLPs
    (2 layers, batch 2: EP_MOE), through the composed EP step (tokens
-   replicated over a one-rank ep axis, partial outputs all-reduced) and
+   replicated over a one-rank ep axis, partial outputs all-reduced, routed
+   over the one-rank dp × fsdp batch axes) and
    make_ep_shard_train_step (the all-to-all pair on a one-rank expert
    axis), each against the one-process MoE step at step 0 and timed
    beside it, launches and collectives a step;
@@ -301,8 +302,11 @@ Phases, each printing one JSON line and each fatal on failure:
 Kernel times are device times: CUDA-graph replays with the L2 cache
 flushed before each call (see ``timed_ms``).
 
-Then the card's name and power limit as nvidia-smi prints them, the kernel
-summary as one JSON line, and last the result line.  Exits non-zero
+Then each phase's wall seconds as one JSON line (``phase_seconds``: the
+build, every phase by name, summed over its calls, sim and mesh_bench
+overlapping, and the whole script), the card's name and power limit as
+nvidia-smi prints them, the kernel summary as one JSON line, and last
+the result line.  Exits non-zero
 without a result when there is no CUDA device or any phase fails.
 """
 
@@ -450,6 +454,34 @@ RESNET_PARITY_LR = 1e-3
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+# wall seconds by phase, summed over a phase's calls (_time_phases)
+PHASE_SECONDS: dict = {}
+
+
+def _time_phases() -> None:
+    """Wrap every ``phase_*`` function of this module so that its calls'
+    wall seconds add up in PHASE_SECONDS under the phase's name (its
+    ``phase=`` or ``name=`` argument where it takes one)."""
+    import functools
+
+    def timed(fn, default):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            key = kwargs.get("phase") or kwargs.get("name") or default
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                PHASE_SECONDS[key] = (PHASE_SECONDS.get(key, 0.0)
+                                      + time.perf_counter() - t0)
+
+        return run
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = timed(fn, name[len("phase_"):])
 
 
 def check(cond: bool, msg: str) -> None:
@@ -7242,7 +7274,9 @@ def phase_ep_moe(torch, dev, seed):
     EP steps from the same weights on the same batch — the composed step
     (make_composed_train_step over MeshSpec(rules=moe_ep_rules("ep")),
     the model built with ep_axis="ep", ep_tokens="replicated": partial
-    outputs all-reduced) and make_ep_shard_train_step over a data × expert
+    outputs all-reduced, and routing_axes=("dp", "fsdp"): the routing
+    over the global batch, its gate sums all-reduced and its counts
+    all-gathered on each axis) and make_ep_shard_train_step over a data × expert
     mesh (ep_tokens="sharded": the all-to-all pair, tpudist's sum
     contract) — each at step 0 against the one-process MoE step
     (make_dp_train_step on the same model without ep_axis): the loss
@@ -7306,7 +7340,9 @@ def phase_ep_moe(torch, dev, seed):
                 model = MoETransformerLM(cfg, moe,
                                          attention_fn=flash_attention_fn(),
                                          ep_axis="ep", mesh=mesh,
-                                         ep_tokens="replicated", device=dev)
+                                         ep_tokens="replicated",
+                                         routing_axes=spec.data_axes(),
+                                         device=dev)
                 specs = spec_tree_from_rules(model, spec.rules)
                 state = sharded_state(model, sd, adam(3e-4), mesh, specs,
                                       seed)
@@ -7340,7 +7376,12 @@ def phase_ep_moe(torch, dev, seed):
                   and all(got[k] == 0 for k in got if k not in want),
                   f"ep_moe {kind}: launches a step {got}, want {want}")
             coll = row["collectives_per_step"]
-            want_coll = ({"all_reduce": 3 * cfg.num_layers}
+            # composed, per layer: the partial outputs' sum and the
+            # cotangents of x and the combine weights; per routing axis
+            # (dp, fsdp), the gate sums' all-reduce forward and backward
+            # and the counts' all-gather
+            want_coll = ({"all_reduce": 7 * cfg.num_layers,
+                          "all_gather": 2 * cfg.num_layers}
                          if kind == "composed"
                          else {"all_to_all": 4 * cfg.num_layers})
             check(coll == want_coll, f"ep_moe {kind}: collectives a step "
@@ -7652,6 +7693,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
 
     import torch
 
@@ -7662,6 +7704,7 @@ def main(argv=None) -> int:
     from tpudist_torch.models.serving import ServeLoop
     from tpudist_torch.ops import _cuda
 
+    _time_phases()
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": smi,
@@ -7671,7 +7714,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     libs = _cuda.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
+    emit({"phase": "build", "seconds": PHASE_SECONDS["build"],
           "libraries": sorted(p.name for p in libs.values())})
 
     k1, k2 = phase_kernels(torch, dev, args.seed)
@@ -7900,6 +7944,8 @@ def main(argv=None) -> int:
             "share_of_bound": main_gn[key]["share_of_bound"],
             "stem_ms": stem_gn[key]["ms"],
             "stem_variant": stem_gn[key]["path"]})
+    emit({"phase": "phase_seconds", **PHASE_SECONDS,
+          "total": time.perf_counter() - t_main})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

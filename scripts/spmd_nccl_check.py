@@ -15,9 +15,12 @@ Rows (4 processes):
   (vocab 32000, 8 heads, 2 KV heads, embed 512) in the Megatron layout;
 * ``dp2_ep2`` — ``MeshSpec(dp=2, ep=2)`` with ``moe_ep_rules("ep")``:
   the same widths with every MLP an MoE MLP (E = 8, top-2, einsum),
-  tokens replicated over ``ep`` (partial outputs all-reduced);
+  tokens replicated over ``ep`` (partial outputs all-reduced), routed
+  over ``dp × fsdp`` (``routing_axes``: the global batch's load-balance
+  term, capacity and slot order, as tpudist's GSPMD program routes);
 * ``ep_shard_d2_e2`` — ``make_ep_shard_train_step`` over a ``data 2 ×
-  expert 2`` mesh: the all-to-all dispatch, tpudist's sum contract.
+  expert 2`` mesh: the all-to-all dispatch, each shard routing its own
+  tokens, tpudist's sum contract.
 
 Parity: a 2-layer model in f32 (TF32 off), batch ``--batch`` at
 ``--parity-seq``, one Adam step (3e-4) of the row's layout against rank
@@ -26,9 +29,12 @@ within 1e-5 relative and every gradient within 1e-3 of its largest
 element (chip_smoke's train_parity limits: the same math summed in other
 orders), and every parameter after the step within 2·lr (one Adam step
 moves an element by at most lr, so a misplaced block shows at the
-weights' own scale).  MoE rows use capacity factor 4 (no token dropped
-in either layout) and no aux loss (the load-balance term is a statistic
-of each data shard's tokens).  Timing: bf16 on f32 masters, ``--layers``
+weights' own scale).  ``dp2_ep2`` routes as the unsharded step does, so
+it runs at capacity factor 1.0 (tokens dropped) with the aux loss on
+(1e-2).  ``ep_shard_d2_e2`` routes each shard's tokens, which is
+tpudist's ``shard_map`` contract and not the unsharded step's once
+tokens drop or the load-balance term is on, so it runs at capacity
+factor 4 (no token dropped) with no aux loss.  Timing: bf16 on f32 masters, ``--layers``
 deep at ``--seq`` × ``--batch`` for the dense rows, 2 MoE layers at
 ``--moe-seq`` × ``--batch`` for the MoE rows (the einsum dispatch's
 [T, E, C] routing tensors bound the one-card reference), 2 warm-up and
@@ -180,7 +186,9 @@ def main(argv=None) -> int:
             model = MoETransformerLM(cfg, moe,
                                      attention_fn=flash_attention_fn(),
                                      ep_axis="ep", mesh=mesh,
-                                     ep_tokens="replicated", device=device)
+                                     ep_tokens="replicated",
+                                     routing_axes=spec.data_axes(),
+                                     device=device)
         else:
             sizes = {"dp2_tp2": dict(dp=2, tp=2),
                      "fsdp2_tp2": dict(fsdp=2, tp=2)}[row]
@@ -209,8 +217,14 @@ def main(argv=None) -> int:
                                     for n, p in model.named_parameters()}
 
     rows = ("dp2_tp2", "fsdp2_tp2", "dp2_ep2", "ep_shard_d2_e2")
-    moe_parity = MoEConfig(num_experts=8, top_k=2, dispatch="einsum",
-                           capacity_factor=4.0, aux_loss_weight=0.0)
+    moe_parity = {"dp2_ep2": MoEConfig(num_experts=8, top_k=2,
+                                       dispatch="einsum",
+                                       capacity_factor=1.0,
+                                       aux_loss_weight=1e-2),
+                  "ep_shard_d2_e2": MoEConfig(num_experts=8, top_k=2,
+                                              dispatch="einsum",
+                                              capacity_factor=4.0,
+                                              aux_loss_weight=0.0)}
     moe_timing = MoEConfig(num_experts=8, top_k=2, dispatch="einsum")
 
     # parity: 2 layers, f32
@@ -220,7 +234,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     parity = {}
     for row in rows:
-        moe = moe_parity if "ep" in row else None
+        moe = moe_parity.get(row)
         cfg = dense_cfg(2, args.parity_seq, torch.float32)
         model = whole_model(moe, cfg, args.seed + 1)
         sd = {k: v.detach().clone() for k, v in model.state_dict().items()}

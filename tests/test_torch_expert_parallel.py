@@ -1,24 +1,31 @@
 """tpudist_torch's expert parallelism against tpudist's.
 
-Three cases run in 4 gloo ranks spawned once for the module
+Four cases run in 4 gloo ranks spawned once for the module
 (``run_ranks``), each against tpudist on conftest's virtual CPU devices
 from the same flax weights and tokens (tpudist's ``tests/test_moe.py``
 configurations, the expert axis cut from 4 to 2 so the worlds stay at 4
 ranks):
 
 * ``make_ep_train_step`` (tokens replicated over the expert axis, partial
-  outputs summed) at data 1 × expert 2 (a leading ``rep`` axis of 2 fills
-  the ranks) with the aux loss on: two SGD steps against tpudist's GSPMD
-  ``make_ep_train_step`` on the same mesh shape (``:259``), then eight
-  Adam steps whose loss falls (``:155``);
-* the same step at data 2 × expert 2, aux weight 0 (the load-balance term
-  is a statistic of each data shard's tokens, so a per-shard step and a
-  global program differ in it by construction, as tpudist's ``:189``
-  notes): one SGD step against tpudist's;
+  outputs summed, the model routing over ``data``) at data 1 × expert 2
+  (a leading ``rep`` axis of 2 fills the ranks) with the aux loss on: two
+  SGD steps against tpudist's GSPMD ``make_ep_train_step`` on the same
+  mesh shape (``:259``), then eight Adam steps whose loss falls
+  (``:155``);
+* the same step at data 2 × expert 2, aux weight 0: one SGD step against
+  tpudist's;
+* ``ep_d2_e2_routed``: the same step at data 2 × expert 2 with the aux
+  loss on (1e-2) and capacity factor 1.0 (top-2 of 4 experts: tokens
+  drop), where the routing over the global batch (load-balance term,
+  capacity, slot order) decides the result: two SGD steps against
+  tpudist's.  On the same tokens, per-shard routing keeps other
+  token-expert pairs than the global one (asserted), so this case fails
+  on a step that routes each data shard alone;
 * ``make_ep_shard_train_step`` (the all-to-all pair, tokens over ``(data,
   expert)``, tpudist's sum contract) at data 2 × expert 2, capacity 8, aux
   weight 0: one SGD step against tpudist's dense single-device step
-  (``:189``), with the all-to-alls counted.
+  (``:189``), with the all-to-alls counted.  Each shard routes its own
+  tokens there (tpudist's ``shard_map`` contract).
 
 Tolerances are tpudist's own tests': the loss within rtol 1e-5 (``:259``;
 1e-4 for the shard step, ``:189``), parameters within atol 1e-4
@@ -39,6 +46,9 @@ CASES = [
     dict(name="ep_d2_e2", axes={"data": 2, "expert": 2}, layers=2,
          moe=dict(aux_loss_weight=0.0), batch=8, seed=3, kind="replicated",
          steps=1),
+    dict(name="ep_d2_e2_routed", axes={"data": 2, "expert": 2}, layers=2,
+         moe=dict(capacity_factor=1.0, aux_loss_weight=1e-2), batch=8,
+         seed=5, kind="replicated", steps=2),
     dict(name="ep_shard_d2_e2", axes={"data": 2, "expert": 2}, layers=1,
          moe=dict(capacity_factor=8.0, aux_loss_weight=0.0), batch=16,
          seed=0, kind="sharded", steps=1),
@@ -117,9 +127,11 @@ def _run_case(case, sd, tokens):
     mesh = make_mesh(case["axes"])
     tok = torch.from_numpy(tokens).long()
 
-    def build(optimizer):
+    def build(optimizer, routing_axes=(
+            ("data",) if case["kind"] == "replicated" else None)):
         model = MoETransformerLM(cfg, moe, ep_axis="expert", mesh=mesh,
-                                 ep_tokens=case["kind"], device="cpu")
+                                 ep_tokens=case["kind"],
+                                 routing_axes=routing_axes, device="cpu")
         return make_ep_state(model, sd, optimizer, mesh)
 
     out = {}
@@ -152,6 +164,14 @@ def _run_case(case, sd, tokens):
     out["losses"] = losses
     out["params"] = {k: v.numpy() for k, v in gather_tree(
         dict(state.model.named_parameters()), mesh, specs).items()}
+    if case["name"] == "ep_d2_e2_routed":
+        # a model routing each data shard alone: the step refuses it
+        unrouted, unrouted_specs = build(sgd(0.1), routing_axes=None)
+        try:
+            make_ep_train_step(_mean_loss(cfg), mesh, unrouted_specs)(
+                unrouted, *batch)
+        except ValueError as e:
+            out["unrouted_error"] = str(e)
     if case["name"] == "ep_d1_e2":
         state, specs = build(adam(1e-2))
         step = make_ep_train_step(_mean_loss(cfg), mesh, specs)
@@ -250,9 +270,11 @@ def test_ep_holds_its_experts_and_trains(rank_results):
 
 def test_ep_collectives_counted(rank_results):
     """The shard step dispatches by all-to-all (two a layer forward, two
-    backward); the replicated-token step by all-reduces only (per layer
-    and step: the partial outputs' sum, and the cotangents of ``x`` and
-    the combine weights)."""
+    backward) and routes each shard alone; the replicated-token step
+    dispatches by all-reduces only (per layer and step: the partial
+    outputs' sum, and the cotangents of ``x`` and the combine weights)
+    and routes over ``data`` (per layer and step: the gate sums'
+    all-reduce forward and backward, one all-gather of the counts)."""
     for res in rank_results:
         shard = res["ep_shard_d2_e2"]["calls"]
         layers = BY_NAME["ep_shard_d2_e2"]["layers"]
@@ -261,7 +283,8 @@ def test_ep_collectives_counted(rank_results):
         rep = res["ep_d2_e2"]["calls"]
         case = BY_NAME["ep_d2_e2"]
         assert rep.get("all_to_all", 0) == 0
-        assert rep["all_reduce"] == 3 * case["layers"] * case["steps"]
+        assert rep["all_reduce"] == 5 * case["layers"] * case["steps"]
+        assert rep["all_gather"] == case["layers"] * case["steps"]
 
 
 def test_ep_rules_and_dispatch_errors():
@@ -279,3 +302,39 @@ def test_ep_rules_and_dispatch_errors():
     with pytest.raises(ValueError, match="ep_tokens"):
         MoEMLP(16, 32, MoEConfig(num_experts=4), ep_axis="expert",
                ep_tokens="both", device="cpu")
+
+
+def test_ep_step_refuses_a_model_routing_per_shard(rank_results):
+    """``make_ep_train_step`` runs tpudist's GSPMD program: a model built
+    without ``routing_axes=("data",)`` would route each data shard alone,
+    and the step raises instead."""
+    for res in rank_results:
+        msg = res["ep_d2_e2_routed"].get("unrouted_error", "")
+        assert "routes over None" in msg and "('data',)" in msg, msg
+
+
+def test_ep_routed_case_discriminates():
+    """On ``ep_d2_e2_routed``'s tokens and first layer's router, the
+    port's routing of each data shard alone keeps another set of
+    token-expert pairs than its routing of the global batch: the case
+    fails on a step that routes per shard."""
+    from tpudist_torch.models.moe import MoETransformerLM, _top_k_routing
+
+    case = BY_NAME["ep_d2_e2_routed"]
+    cfg, moe = _cfgs(case)
+    model = MoETransformerLM(cfg, moe, device="cpu")
+    model.load_state_dict({k: torch.from_numpy(v)
+                           for k, v in _port_sd(case).items()})
+    layer, inputs = model.blocks[0].moe, []
+    layer.register_forward_pre_hook(lambda mod, args: inputs.append(args[0]))
+    with torch.no_grad():
+        model(torch.from_numpy(_flax(case)[2]).long())
+        gates = torch.softmax(layer.router(inputs[0].float()), -1)
+    t, k, e, cf = gates.shape[0], moe.top_k, moe.num_experts, \
+        moe.capacity_factor
+    kept = _top_k_routing(gates, k, int(cf * t * k / e))[0].sum(-1)
+    shards = case["axes"]["data"]
+    per_shard = torch.cat([
+        _top_k_routing(g, k, int(cf * (t // shards) * k / e))[0].sum(-1)
+        for g in gates.chunk(shards)])
+    assert kept.sum() < t * k and not torch.equal(kept, per_shard)

@@ -15,12 +15,11 @@ rows are computed once for the module on the 8 CPU devices
 * losses: the real LM's first and last, and the ``dp2_pp2``,
   ``dp2_pp2_tp2`` and ``dp2_ep2`` rows', within 1e-4 relative of
   tpudist's (f32, with reductions in other orders).  ``dp2_ep2`` is
-  compared with the load-balance term off in both packages (one more
-  ``_ep_row`` in the ranks and tpudist's, each under a MoEConfig whose
-  ``aux_loss_weight`` is 0): the port's EP step takes that term over each
-  data shard's tokens and tpudist's GSPMD program over the global batch
-  (``tests/test_torch_expert_parallel.py`` compares them the same way),
-  which at the bench's weight of 1e-2 moves the loss by 1.05e-4 relative.
+  compared with the load-balance term at the bench's weight of 1e-2 (both
+  packages take it over the global batch: the port's models route over
+  their steps' batch axes), and as ``dp2_ep2_aux0`` with the term off in
+  both packages (one more ``_ep_row`` in the ranks and tpudist's, each
+  under a MoEConfig whose ``aux_loss_weight`` is 0).
 """
 
 import contextlib
@@ -114,6 +113,7 @@ def jax_rows():
     from tpudist.parallel import mesh_bench
 
     rows = {r["combo"]: r for r in mesh_bench._pipeline_rows()}
+    rows["dp2_ep2"] = mesh_bench._ep_row()
     with _aux_off(tpudist.models):
         rows["dp2_ep2_aux0"] = mesh_bench._ep_row()
     lm = mesh_bench.run_real_lm()
@@ -148,7 +148,7 @@ def test_real_lm_schedule_is_tpudists(port_rows, jax_rows):
 @pytest.mark.parametrize("combo,key", [
     ("real_lm_pp4_dp2_1f1b", "loss_first"),
     ("real_lm_pp4_dp2_1f1b", "loss_last"),
-    ("dp2_pp2", "loss"), ("dp2_pp2_tp2", "loss"),
+    ("dp2_pp2", "loss"), ("dp2_pp2_tp2", "loss"), ("dp2_ep2", "loss"),
     ("dp2_ep2_aux0", "loss")])
 def test_losses_match_tpudist(combo, key, port_rows, jax_rows):
     got, want = port_rows[combo][key], jax_rows[combo][key]

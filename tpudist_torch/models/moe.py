@@ -36,6 +36,20 @@ schedules, by where the tokens are:
   cotangents, hence the router's and every upstream gradient, are whole on
   every process; the aux loss, identical on all of them, is not summed.
 
+Routing over a sharded batch (``routing_axes=`` over a ``mesh``, any
+dispatch): tpudist's GSPMD program sees the logical global batch, so its
+routing is a function of every token.  A process that holds a shard of
+that batch, its rows over ``routing_axes`` (the first major, as
+:func:`~tpudist_torch.parallel.tensor_parallel.shard_batch` cuts them),
+routes as that program does (:class:`RoutingGroup`): the load-balance
+term from the group's summed statistics over the global token count, the
+capacity from the global ``T``, and each token's slot from its global
+position (per expert, in token order, k-th choices after the (k−1)-th
+over the whole batch).  Slots are the global ones, so ``[T, E, C]``
+carries the global capacity; each process runs the experts on its own
+tokens only.  Without ``routing_axes`` a process's tokens are the whole
+batch (tpudist's ``shard_map`` and single-device semantics).
+
 The ragged ``jax.lax.ragged_dot`` becomes one ``torch.matmul`` per
 expert; the group sizes are read on the host (one sync per call).
 """
@@ -76,16 +90,68 @@ class MoEConfig:
     fused_block_rows: int = 128
 
 
-def _gate_choices(gates: torch.Tensor, top_k: int):
+class RoutingGroup:
+    """The processes whose tokens make one batch for routing: ``axes`` of
+    ``mesh``, over which a GSPMD-twin step shards the batch (the first
+    axis major).  Every process of the group holds as many tokens, this
+    one the ``index``-th block of the ``size``.  An axis missing from the
+    mesh raises ``ValueError``."""
+
+    def __init__(self, mesh, axes) -> None:
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        missing = [a for a in axes if a not in names]
+        if not axes or missing:
+            raise ValueError(f"routing axes {tuple(axes)}: {missing or axes} "
+                             f"not in the mesh's axes {names}")
+        self.axes = tuple(axes)
+        self.groups = [mesh.get_group(a) for a in self.axes]
+        self.size, self.index = 1, 0
+        for a in self.axes:
+            n = mesh.size(names.index(a))
+            self.size, self.index = (self.size * n,
+                                     self.index * n + mesh.get_local_rank(a))
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group; its VJP sums the cotangent over the
+        group too (``psum``), so a term that every process computes from
+        the sum gets its whole gradient back once the step averages over
+        the batch axes."""
+        from tpudist_torch.parallel.common import psum
+
+        for g in self.groups:
+            x = psum(x, g)
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``[size, *x.shape]``: every process's ``x`` in shard order (for
+        integer counts: no gradient)."""
+        from tpudist_torch.parallel.common import all_gather
+
+        x = x[None]
+        for g in reversed(self.groups):
+            x = all_gather(x, g, 0)
+        return x
+
+
+def _gate_choices(gates: torch.Tensor, top_k: int,
+                  group: RoutingGroup | None = None):
     """Shared routing head: top-k expert choices (value-descending, as
     ``jax.lax.top_k``) with renormalised gate mass, and the Switch
-    load-balancing aux loss."""
+    load-balancing aux loss, over ``group``'s tokens when given (its
+    first choices' counts and its gate sums summed over the group, over
+    the global token count)."""
     e = gates.shape[-1]
     top_vals, top_idx = torch.topk(gates, top_k, dim=-1, sorted=True)
     top_vals = top_vals / torch.clamp(top_vals.sum(-1, keepdim=True),
                                       min=1e-9)
-    frac_tokens = F.one_hot(top_idx[:, 0], e).to(gates.dtype).mean(0)
-    aux = torch.sum(frac_tokens * gates.mean(0)) * e
+    first = F.one_hot(top_idx[:, 0], e).to(gates.dtype)
+    if group is None:
+        frac_tokens, mean_gates = first.mean(0), gates.mean(0)
+    else:
+        frac_tokens, mean_gates = (
+            group.sum(torch.stack([first.sum(0), gates.sum(0)]))
+            / (gates.shape[0] * group.size))
+    aux = torch.sum(frac_tokens * mean_gates) * e
     return top_vals, top_idx, aux
 
 
@@ -94,27 +160,40 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
-def _top_k_routing(gates: torch.Tensor, top_k: int, capacity: int):
+def _top_k_routing(gates: torch.Tensor, top_k: int, capacity: int,
+                   group: RoutingGroup | None = None):
     """GShard routing: from router probabilities ``gates [T, E]`` build
     ``dispatch [T, E, C]`` (one-hot: token t to expert e at slot c),
     ``combine [T, E, C]`` (dispatch weighted by the renormalised gate) and
     the aux loss.  Slots are assigned in token order per expert, k-th
-    choices after the (k−1)-th; slots past ``capacity`` are dropped."""
+    choices after the (k−1)-th; slots past ``capacity`` are dropped.
+
+    With ``group`` the tokens are block ``group.index`` of the group's
+    batch and the slots are those of the whole batch: round k at an
+    expert starts after every shard's earlier rounds there and the lower
+    shards' round k (one all-gather of the ``[k, E]`` counts)."""
     t, e = gates.shape
-    top_vals, top_idx, aux = _gate_choices(gates, top_k)
+    top_vals, top_idx, aux = _gate_choices(gates, top_k, group)
+    onehots = F.one_hot(top_idx, e)                             # [T, k, E]
+    counts = onehots.sum(0)                                     # [k, E]
+    if group is not None:
+        shards = group.gather(counts)                           # [n, k, E]
+        counts = shards.sum(0)
+        lower = shards[:group.index].sum(0)
+    else:
+        lower = torch.zeros_like(counts)
+    starts = torch.cumsum(counts, 0) - counts + lower           # [k, E]
     dispatch = torch.zeros((t, e, capacity), dtype=gates.dtype,
                            device=gates.device)
     combine = torch.zeros_like(dispatch)
-    counts = torch.zeros(e, dtype=torch.long, device=gates.device)
     for k in range(top_k):
-        onehot = F.one_hot(top_idx[:, k], e)                   # [T, E]
-        pos = counts[None, :] + torch.cumsum(onehot, 0) - onehot
+        onehot = onehots[:, k]                                  # [T, E]
+        pos = starts[k][None, :] + torch.cumsum(onehot, 0) - onehot
         keep = (pos < capacity) & (onehot > 0)
         sel = _one_hot(pos, capacity, gates.dtype) \
             * keep[..., None].to(gates.dtype)                  # [T, E, C]
         dispatch = dispatch + sel
         combine = combine + sel * top_vals[:, k, None, None]
-        counts = counts + onehot.sum(0)
     return dispatch, combine, aux
 
 
@@ -178,11 +257,16 @@ class MoEMLP(nn.Module):
     runs the ``ep_tokens`` schedule (the module docstring; ``None``
     without a mesh: a group of one).  It raises ``ValueError`` under the
     ragged and fused dispatches, which are single-shard in the JAX package
-    too."""
+    too.  ``routing_axes`` over ``mesh`` routes over the batch those axes
+    shard (:class:`RoutingGroup`; ``None``: this process's tokens are the
+    whole batch); under ``ep_tokens="replicated"`` it may not name
+    ``ep_axis``, whose processes hold the same tokens."""
 
     def __init__(self, d_model: int, d_ff: int, moe: MoEConfig,
                  ep_axis: str | None = None, *, mesh=None,
-                 ep_tokens: str = "sharded", device=None) -> None:
+                 ep_tokens: str = "sharded",
+                 routing_axes: tuple[str, ...] | None = None,
+                 device=None) -> None:
         super().__init__()
         if moe.dispatch in ("ragged", "fused"):
             if ep_axis is not None:
@@ -196,9 +280,15 @@ class MoEMLP(nn.Module):
         if ep_tokens not in ("sharded", "replicated"):
             raise ValueError(f"ep_tokens must be 'sharded' or 'replicated', "
                              f"got {ep_tokens!r}")
+        if ep_tokens == "replicated" and ep_axis in (routing_axes or ()):
+            raise ValueError(f"routing axes {tuple(routing_axes)} name the "
+                             f"expert axis {ep_axis!r}, over which tokens "
+                             "are replicated")
         self.moe = moe
         self.ep_tokens = ep_tokens
         self.ep = TensorParallel(ep_axis, mesh)
+        self.routing = (None if routing_axes is None
+                        else RoutingGroup(mesh, routing_axes))
         e = moe.num_experts
         self.ep.check(e, "num_experts")
         local = e // self.ep.size
@@ -217,15 +307,20 @@ class MoEMLP(nn.Module):
         gates = torch.softmax(F.linear(x.float(), self.router.weight), -1)
         w_up, w_down = self.w_up.to(x.dtype), self.w_down.to(x.dtype)
         if moe.dispatch in ("ragged", "fused"):
-            top_vals, top_idx, aux = _gate_choices(gates, moe.top_k)
+            top_vals, top_idx, aux = _gate_choices(gates, moe.top_k,
+                                                   self.routing)
             if moe.dispatch == "fused":
                 out = fused_moe_mlp(x, w_up, w_down, top_idx, top_vals,
                                     block_rows=moe.fused_block_rows)
             else:
                 out = _ragged_moe(x, w_up, w_down, top_idx, top_vals)
             return out, aux.float()
+        # tpudist's capacity, of the global batch
+        if self.routing is not None:
+            t *= self.routing.size
         capacity = max(1, int(moe.capacity_factor * t * moe.top_k / e))
-        dispatch, combine, aux = _top_k_routing(gates, moe.top_k, capacity)
+        dispatch, combine, aux = _top_k_routing(gates, moe.top_k, capacity,
+                                                self.routing)
         dispatch, combine = dispatch.to(x.dtype), combine.to(x.dtype)
         ep = self.ep
         if ep.group is not None and self.ep_tokens == "replicated":
@@ -280,11 +375,14 @@ class MoETransformerLM(nn.Module):
     the JAX model's (load them with ``load_state_dict`` of
     :func:`~tpudist_torch.models.convert.from_flax_moe_params`' output,
     or draw random ones with :meth:`init_weights`).  ``ep_axis`` over
-    ``mesh`` shards every MoE layer's experts (:class:`MoEMLP`)."""
+    ``mesh`` shards every MoE layer's experts, and ``routing_axes`` over
+    ``mesh`` routes every MoE layer over the batch those axes shard
+    (:class:`MoEMLP`)."""
 
     def __init__(self, cfg: TransformerConfig, moe: MoEConfig, *,
                  attention_fn: AttentionFn = sdpa, ep_axis: str | None = None,
                  mesh=None, ep_tokens: str = "sharded",
+                 routing_axes: tuple[str, ...] | None = None,
                  device=None) -> None:
         super().__init__()
         device = resolve_device(device)
@@ -296,7 +394,8 @@ class MoETransformerLM(nn.Module):
                                device)
         self.blocks = nn.ModuleList(
             MoEDecoderBlock(cfg, moe, attention_fn, device, ep_axis=ep_axis,
-                            mesh=mesh, ep_tokens=ep_tokens)
+                            mesh=mesh, ep_tokens=ep_tokens,
+                            routing_axes=routing_axes)
             for _ in range(cfg.num_layers))
         self.ln_f = LayerNorm(cfg.embed_dim, cfg.compute_dtype, device)
         self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size, cfg, f32, device)

@@ -9,12 +9,15 @@ are written out here, the collectives in
 :class:`~tpudist_torch.models.moe.MoEMLP` (``ep_axis=``):
 
 * :func:`make_ep_train_step` — the batch sharded over ``data`` only; the
-  model built with ``ep_tokens="replicated"``: each expert process applies
-  its own experts to the data shard's tokens and the partial outputs are
-  summed over the expert group;
+  model built with ``ep_tokens="replicated"`` and ``routing_axes=("data",)``:
+  each expert process applies its own experts to the data shard's tokens,
+  the partial outputs are summed over the expert group, and the routing
+  (load-balance term, capacity, slot order) is over the global batch, as
+  in tpudist's program;
 * :func:`make_ep_shard_train_step` — the batch sharded over ``(data,
-  expert)``; the model built with ``ep_tokens="sharded"``: the all-to-all
-  pair, and tpudist's sum contract for the loss.
+  expert)``; the model built with ``ep_tokens="sharded"`` and no routing
+  axes: the all-to-all pair, each shard routing its own tokens, and
+  tpudist's sum contract for the loss.
 """
 
 from __future__ import annotations
@@ -66,11 +69,14 @@ def make_ep_train_step(loss_fn, mesh, param_specs: Mapping[str, tuple],
     """DP×EP: tpudist's GSPMD program as it lowers, replicated tokens
     plus an all-reduce.  ``batch`` is this process's rows over
     ``data_axis`` (the expert processes of a data shard hold the same
-    rows), the model is built with ``ep_axis`` and
-    ``ep_tokens="replicated"``, and ``loss_fn`` returns the mean loss over
-    the rows.  Gradients are averaged over ``data_axis`` alone: each
-    expert stack's gradient is its process's, every replicated leaf's is
-    whole on every expert process."""
+    rows), the model is built with ``ep_axis``,
+    ``ep_tokens="replicated"`` and ``routing_axes=(data_axis,)`` (the
+    step raises ``ValueError`` otherwise), and ``loss_fn`` returns the
+    mean loss over the rows.  Gradients are averaged over ``data_axis``
+    alone: each expert stack's gradient is its process's, every
+    replicated leaf's is whole on every expert process; the load-balance
+    term, the same on every data shard, reaches the router whole through
+    its sums' all-reduce VJP."""
     return make_spmd_train_step(loss_fn, mesh, param_specs, donate,
                                 batch_axes=(data_axis,))
 
@@ -86,8 +92,9 @@ def make_ep_shard_train_step(
     """The explicit DP×EP step, tpudist's ``shard_map`` contract:
 
     * the model is built with ``ep_axis=expert_axis`` (and
-      ``ep_tokens="sharded"``), so each MoE layer routes this process's
-      tokens to all experts and ships them through the all-to-all pair;
+      ``ep_tokens="sharded"``, no ``routing_axes``), so each MoE layer
+      routes this process's tokens to all experts and ships them through
+      the all-to-all pair;
     * ``batch`` is this process's rows over ``(data_axis, expert_axis)``;
     * ``loss_fn(model, batch) -> scalar`` returns this shard's loss
       CONTRIBUTION: the global loss is its sum over every process

@@ -22,6 +22,12 @@ blocks:
 * ``pp``   — a pipeline schedule over the ``pp`` axis (GPipe stacked
   blocks with ``tp``, or 1F1B / interleaved).
 
+Under the per-shard step (any of fsdp/tp/ep > 1) an MoE model is built
+with ``routing_axes=spec.data_axes()``, so it routes over the global
+batch as tpudist's GSPMD program does (the step raises ``ValueError``
+otherwise); the data-parallel step routes each shard's tokens, as
+tpudist's ``shard_map`` one does.
+
 Rule precedence as in tpudist: the ``tp``/``ep`` rules claim dimensions
 first (first match wins), then ``fsdp`` shards the largest dimension left
 free; a leaf with none replicates over ``fsdp``; ``dp`` shards only the
@@ -199,7 +205,8 @@ def make_composed_train_step(
       fsdp-sharded leaves gathered and reduce-scattered over ``fsdp``.
       ``loss_fn(model, batch, generator)`` (the mean over this process's
       rows) and ``params`` (the model laid out for the spec, or
-      ``state_example``) are required.  ``param_specs`` given takes this
+      ``state_example``) are required, and an MoE model routes over
+      ``spec.data_axes()`` (``routing_axes=``).  ``param_specs`` given takes this
       path at any sizes (a mesh of one-process axes then issues every
       collective of the sharded step, as ``chip_smoke.py`` runs it on
       one card);

@@ -335,10 +335,10 @@ def _pipeline_rows():
 
 
 def _ep_row(state_dict=None):
-    """dp×ep against the expert-parallel step over ``data × expert``.  The
-    load-balance term is a statistic of each data shard's tokens here and
-    of the global batch in tpudist's GSPMD program, so the two packages'
-    losses differ by that term's share (ROADMAP Queue C 15)."""
+    """dp×ep against the expert-parallel step over ``data × expert``, each
+    model routing over its step's batch axes (``dp × fsdp``, ``data``):
+    the load-balance term over the global batch, as in tpudist's GSPMD
+    program."""
     from tpudist_torch.models.moe import MoEConfig, MoETransformerLM
     from tpudist_torch.models.transformer import TransformerConfig
     from tpudist_torch.ops.losses import cross_entropy
@@ -363,7 +363,9 @@ def _ep_row(state_dict=None):
     def model_fn(mesh, composed):
         return MoETransformerLM(cfg, moe, ep_axis="ep" if composed
                                 else "expert", mesh=mesh,
-                                ep_tokens="replicated", device=_device())
+                                ep_tokens="replicated",
+                                routing_axes=spec.data_axes() if composed
+                                else ("data",), device=_device())
 
     spec = MeshSpec(dp=2, ep=2, rules=tuple(moe_ep_rules("ep")))
     return _gspmd_row(

@@ -311,10 +311,24 @@ class ShardedParams:
         self.n_batch = math.prod(axis_size(mesh, a) for a in self.batch_axes)
 
     def check(self, model: nn.Module) -> list[tuple[str, nn.Parameter]]:
+        """The model's named parameters, once they are the layout's and
+        every MoE layer routes over the batch axes (a GSPMD program routes
+        over its global batch)."""
+        from tpudist_torch.models.moe import MoEMLP
+
         named = list(model.named_parameters())
         if [n for n, _ in named] != list(self.specs):
             raise ValueError("param_specs name other parameters than the "
                              "model's (in its order)")
+        for name, m in model.named_modules():
+            if not isinstance(m, MoEMLP):
+                continue
+            axes = m.routing.axes if m.routing is not None else None
+            if axes != self.batch_axes:
+                raise ValueError(
+                    f"{name} routes over {axes}, the step's batch over "
+                    f"{self.batch_axes}: build the model with "
+                    f"routing_axes={self.batch_axes}")
         return named
 
     def full(self, named) -> dict[str, torch.Tensor] | None:
@@ -380,7 +394,10 @@ def make_spmd_train_step(loss_fn: LossFn, mesh, param_specs: Mapping[str,
     shards.  Leaves sharded over a model or expert axis keep their
     gradients local; replicated leaves there are complete on every process
     (the Megatron f/g pair), so no gradient is ever summed over an axis
-    whose processes hold the same contribution.  The loss and the aux
+    whose processes hold the same contribution.  An MoE model must be
+    built with ``routing_axes`` equal to ``batch_axes`` (it then routes
+    over the global batch, as the GSPMD program does), else the step
+    raises ``ValueError``.  The loss and the aux
     entries are averaged over the batch axes.  Every collective runs on
     its axis's group whatever its size, so a mesh of one-process axes
     still issues each of them.  ``loss_fn`` gets the generator of its data
