@@ -22,7 +22,9 @@ Phases, each printing one JSON line and each fatal on failure:
    gathered view) and K6 (int8 decode, per-row and scalar length) against
    their plain versions at the same decode shapes, timed the same way;
    for K2 (in kernels), K5 and K6 the split pass's and the merge's device
-   ms apart, from torch.profiler;
+   ms apart, from torch.profiler; K2, K5 and K6 also against the split
+   walk and merge in plain PyTorch at the wrappers' split (plan), and a
+   second call bitwise equal;
 5. parity  — a full-width 2-layer f32 model: ServeLoop completions (per-row
    and side-buffer decode) equal each request's own greedy_generate rollout
    (scalar decode), both through flash-prefill; cached-prefill logits on
@@ -45,7 +47,8 @@ Phases, each printing one JSON line and each fatal on failure:
    sharing a 1024-token prefix (one a full-prompt hit) with prefix
    sharing off and on: token identity, hit rate, copy-on-write splits;
 11. decode_q8 — flash_decode_q8 (K6) through 8 layers x 32 decode steps
-   of int8 caches at 8k, launches counted;
+   of int8 caches at 8k, launches counted, the last step against the
+   plain version and the split walk at the wrappers' split;
 12. kernels_bwd — the backward kernels K3 (dQ and Delta) and K4 (dK, dV)
    against their plain versions in bf16 at the training shape (causal,
    and with a 512 window) and at bench.py's flash shape, each gradient
@@ -692,6 +695,23 @@ def phase_kernels(torch, dev, seed):
         check(ratio <= 1.0 and err_l <= LSE_ATOL,
               f"K2 disagrees with its plain version ({name}): O {err_o} "
               f"(ratio to limit {ratio}) LSE {err_l}")
+        # ... and against the split walk and merge in plain PyTorch at the
+        # wrappers' split, and a second call bitwise equal
+        split = fd._SPLIT_KEYS
+        so, slse = fd._flash_decode_split_plain(
+            q, kc, vc, packed_kv_heads=HKV, return_lse=True,
+            split_keys=split, **kw)
+        _, split_err_l, split_ratio = compare(o, lse, so, slse)
+        check(split_ratio <= 1.0 and split_err_l <= LSE_ATOL,
+              f"K2 disagrees with its split plain version ({name}, "
+              f"{split} keys a split): ratio {split_ratio} LSE "
+              f"{split_err_l}")
+        again = fd.flash_decode(q, kc, vc, packed_kv_heads=HKV,
+                                return_lse=True, **kw)
+        repeat = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        check(repeat, f"K2 ({name}): a second call on the same inputs gave "
+              f"other bits")
+        del so, slse, again
         nbytes = 2 * n_live * HKV * D * 2 + 2 * q.numel() * 2
         b_ms, b_by = bound(nbytes, 4.0 * n_live * H * D)
         # the library yardstick: SDPA over main cache + side buffer with
@@ -709,7 +729,10 @@ def phase_kernels(torch, dev, seed):
             vals.transpose(1, 2)
         k2.append({
             "case": name, "max_abs_err": err_o, "lse_err": err_l,
-            "tol_ratio": ratio,
+            "tol_ratio": ratio, "bitwise_repeat": repeat,
+            "split_plain": {"tol_ratio": split_ratio,
+                            "lse_err": split_err_l},
+            "plan": {"split_keys": split},
             "ms": timed_ms(lambda: fd.flash_decode(
                 q, kc, vc, packed_kv_heads=HKV, **kw), 50, flush),
             "plain_ms": timed_ms(lambda: fd.flash_decode_plain(
@@ -792,14 +815,27 @@ def phase_paged_kernels(torch, dev, seed):
         po = fd.paged_flash_decode_plain(q, kp, vp, table, lens, **kw)
         kg, vg = fd.paged_gather_kv(kp, table), fd.paged_gather_kv(vp, table)
         o_k2 = fd.flash_decode(q, kg, vg, lens, **kw)
+        split = fd._SPLIT_KEYS
+        so = fd._paged_flash_decode_split_plain(q, kp, vp, table, lens,
+                                                split_keys=split, **kw)
+        repeat = bool(torch.equal(
+            o, fd.paged_flash_decode(q, kp, vp, table, lens, **kw)))
         torch.cuda.synchronize()
         diff = (o.float() - po.float()).abs()
         ratio = (diff / (O_ATOL + O_RTOL * po.float().abs())).max().item()
+        split_ratio = ((o.float() - so.float()).abs()
+                       / (O_ATOL + O_RTOL * so.float().abs())).max().item()
         identical = bool(torch.equal(o, o_k2))
         check(ratio <= 1.0, f"K5 disagrees with its plain version (block "
               f"{bs}): O {diff.max().item()} (ratio to limit {ratio})")
+        check(split_ratio <= 1.0, f"K5 disagrees with its split plain "
+              f"version (block {bs}, {split} keys a split): ratio "
+              f"{split_ratio}")
         check(identical, f"K5 (block {bs}) differs from K2 over the gathered "
               f"view by {(o.float() - o_k2.float()).abs().max().item()}")
+        check(repeat, f"K5 (block {bs}): a second call on the same inputs "
+              f"gave other bits")
+        del so
         # the bound: live K/V, the live table entries, q and O
         live_blocks = int(((lens.long() + bs - 1) // bs).sum())
         nbytes = 2 * n_live * F_ * 2 + live_blocks * 4 + 2 * q.numel() * 2
@@ -816,6 +852,9 @@ def phase_paged_kernels(torch, dev, seed):
         k5.append({
             "case": f"block{bs}", "max_abs_err": diff.max().item(),
             "tol_ratio": ratio, "bit_identical_to_k2": identical,
+            "bitwise_repeat": repeat,
+            "split_plain": {"tol_ratio": split_ratio},
+            "plan": {"split_keys": split},
             "ms": timed_ms(lambda: fd.paged_flash_decode(
                 q, kp, vp, table, lens, **kw), 50, flush),
             "plain_ms": timed_ms(lambda: fd.paged_flash_decode_plain(
@@ -841,12 +880,29 @@ def phase_paged_kernels(torch, dev, seed):
         check(ratio <= 1.0 and err_l <= LSE_ATOL,
               f"K6 disagrees with its plain version ({name}): O {err_o} "
               f"(ratio to limit {ratio}) LSE {err_l}")
+        split = fd._SPLIT_KEYS
+        so, slse = fd._flash_decode_q8_split_plain(
+            q, kq, ks, vq, vs, cache_len, return_lse=True, split_keys=split)
+        _, split_err_l, split_ratio = compare(o, lse, so, slse)
+        check(split_ratio <= 1.0 and split_err_l <= LSE_ATOL,
+              f"K6 disagrees with its split plain version ({name}, "
+              f"{split} keys a split): ratio {split_ratio} LSE "
+              f"{split_err_l}")
+        again = fd.flash_decode_q8(q, kq, ks, vq, vs, cache_len,
+                                   return_lse=True)
+        repeat = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        check(repeat, f"K6 ({name}): a second call on the same inputs gave "
+              f"other bits")
+        del so, slse, again
         # int8 K and V, one f32 scale each per (token, head), q and O
         nbytes = 2 * n * F_ + 2 * n * HKV * 4 + 2 * q.numel() * 2
         b_ms, b_by = bound(nbytes, 4.0 * n * H * D)
         k6.append({
             "case": name, "max_abs_err": err_o, "lse_err": err_l,
-            "tol_ratio": ratio,
+            "tol_ratio": ratio, "bitwise_repeat": repeat,
+            "split_plain": {"tol_ratio": split_ratio,
+                            "lse_err": split_err_l},
+            "plan": {"split_keys": split},
             "ms": timed_ms(lambda: fd.flash_decode_q8(
                 q, kq, ks, vq, vs, cache_len), 50, flush),
             "plain_ms": timed_ms(lambda: fd.flash_decode_q8_plain(
@@ -3004,13 +3060,21 @@ def phase_decode_q8(torch, dev, seed):
     po = fd.flash_decode_q8_plain(q, *caches[-1], lens)
     ratio = ((out.float() - po.float()).abs()
              / (O_ATOL + O_RTOL * po.float().abs())).max().item()
+    split = fd._SPLIT_KEYS
+    so = fd._flash_decode_q8_split_plain(q, *caches[-1], lens,
+                                         split_keys=split)
+    split_ratio = ((out.float() - so.float()).abs()
+                   / (O_ATOL + O_RTOL * so.float().abs())).max().item()
     check(launches["K6"] == steps * layers and ratio <= 1.0
-          and bool(torch.isfinite(out).all()),
-          f"decode_q8: launches {launches}, ratio {ratio}")
+          and split_ratio <= 1.0 and bool(torch.isfinite(out).all()),
+          f"decode_q8: launches {launches}, ratio {ratio}, against the "
+          f"split plain version ({split} keys a split) {split_ratio}")
     del caches
     torch.cuda.empty_cache()
     emit({"phase": "decode_q8", "steps": steps, "layers": layers,
-          "launches": launches, "wall_s": wall, "tol_ratio_last": ratio})
+          "launches": launches, "wall_s": wall, "tol_ratio_last": ratio,
+          "split_plain_tol_ratio_last": split_ratio,
+          "plan": {"split_keys": split}})
     return launches
 
 
@@ -7840,7 +7904,7 @@ def main(argv=None) -> int:
                           + [spec_worst["K2"]["tol_ratio"]]),
          **{k: main_k2[k] for k in ("ms", "plain_ms", "bound_ms",
                                     "bound_by", "library_ms", "partial_ms",
-                                    "merge_ms")},
+                                    "merge_ms", "plan")},
          **sp_summary(sp_rows["K2"])},
     ]
     main_bwd = next(r for r in bwd_rows if r["case"] == "train")
@@ -7912,7 +7976,7 @@ def main(argv=None) -> int:
             "tol_ratio": max(r["tol_ratio"] for r in rows),
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms",
-                                        "partial_ms", "merge_ms")},
+                                        "partial_ms", "merge_ms", "plan")},
             **sp_extra})
     main_k7 = next(r for r in moe_rows if r["case"] == "train")
     kernels.append({

@@ -15,8 +15,9 @@ routing and block 16, ``kernels_bwd`` and ``kernels_ring`` the backward
 (K3, K8, K4), ``kernels_gn`` K9 and K10 (fused GroupNorm) at ResNet50's
 site shapes, the f32 layer1 tail and the 224 px stem, with the path each
 took; ``train``, ``train_sp``, ``train_moe`` and ``serve`` give the steps
-and the prefill, ``gn_sites`` the 53 GroupNorm sites of a ResNet50 step,
-fused and closed form, summed.  This script's own phases: ``k1_sp`` (K1 at
+and the prefill, ``profile`` serve's and then one profiled 32-tick decode
+segment of its loop (device ms by kernel family), ``gn_sites`` the 53
+GroupNorm sites of a ResNet50 step, fused and closed form, summed.  This script's own phases: ``k1_sp`` (K1 at
 train_sp's shape, B=1, S=8192, H=8, Hkv=2, D=64, beside SDPA's forward,
 which older trees' phases do not time) and ``prefill`` (one 7,680-token
 prompt admitted in one shot by the serve model's ServeLoop, on the host
@@ -54,6 +55,8 @@ PHASES = {
     "train": "chip_smoke.phase_train(torch, dev, {seed})",
     "train_sp": "chip_smoke.phase_train_sp(torch, dev, {seed})",
     "serve": "chip_smoke.phase_serve(torch, dev, {seed})",
+    "profile": "_, loop = chip_smoke.phase_serve(torch, dev, {seed})\n"
+               "chip_smoke.phase_profile(torch, loop, {seed})",
     "kernels_gn": "chip_smoke.phase_gn_kernels(torch, dev, {seed})",
     "gn_sites": "chip_smoke.phase_gn_sites(torch, dev, {seed})",
     "k1_sp": "k1_sp(torch, dev, {seed})",
@@ -261,6 +264,10 @@ def step_times(lines: dict) -> dict:
         out["serve"] = {k: doc[k] for k in (
             "wall_s", "prefill_s", "prefill_tokens_per_s",
             "decode_tokens_per_s", "decode_ms_per_tick")}
+    doc = lines.get("profile")
+    if doc:
+        out["profile"] = {k: doc[k] for k in (
+            "wall_ms", "device_ms", "device_busy_share", "by_family_ms")}
     return out
 
 

@@ -124,6 +124,112 @@ def test_contract_errors_match_jax():
         tfd.flash_decode(x["q"], x["k"], x["v"], 5)
 
 
+# ---- the split walk: K2's splits and merge in plain PyTorch -----------------
+
+# name: (cache_len, kwargs); at 32-key splits of the 96-key cache,
+# lengths one below, at and one past a split boundary, the side buffer, a
+# window (one ending on a boundary), and pos_offset with a wholly dead
+# slice
+SPLIT_CASES = {
+    "per_row_boundaries": (np.array([31, 32, 33], np.int32), {}),
+    "per_row_boundaries_64": (np.array([63, 64, 65], np.int32), {}),
+    "scalar_one_below": (63, {}),
+    "scalar_one_past": (65, {}),
+    "side": (np.array([33, 96, 1], np.int32),
+             {"side": 5, "return_lse": True}),
+    "window": (80, {"window": 24}),
+    "window_at_boundary": (64, {"window": 33, "return_lse": True}),
+    "pos_offset_dead": (40, {"pos_offset": 64, "return_lse": True}),
+    "pos_offset_window": (100, {"pos_offset": 32, "window": 20}),
+}
+GROUPS = {"g1_d16": (1, 16), "g4_d16": (4, 16), "g1_d64": (1, 64),
+          "g4_d64": (4, 64)}
+
+
+def _split_inputs(seed, g, d, s=S):
+    """4 query heads over 4 // g KV heads, the cache [B, s, Hkv, D]."""
+    rng = np.random.default_rng(seed)
+    h_kv = H // g
+    t = lambda *shape: rng.standard_normal(shape, np.float32)  # noqa: E731
+    return h_kv, dict(q=t(B, 1, H, d), k=t(B, s, h_kv, d),
+                      v=t(B, s, h_kv, d), side_k=t(B, CAP, h_kv, d),
+                      side_v=t(B, CAP, h_kv, d))
+
+
+def _at_split(x, ck):
+    """A length or position written at 32-key splits, moved to ``ck``-key
+    splits: the same distance from its nearest split boundary."""
+    if isinstance(x, np.ndarray):
+        return np.array([_at_split(int(v), ck) for v in x], np.int32)
+    n = round(x / 32)
+    return n * ck + x - n * 32
+
+
+def _case_at_split(case, ck):
+    """SPLIT_CASES[case] over a ``3·ck``-key cache at ``ck``-key splits."""
+    cache_len, kw = SPLIT_CASES[case]
+    return _at_split(cache_len, ck), {
+        k: _at_split(v, ck) if k in ("window", "pos_offset") else v
+        for k, v in kw.items()}
+
+
+def _split_call(fn, to, x, cache_len, kw, **extra):
+    args = dict(window=kw.get("window"),
+                return_lse=kw.get("return_lse", False),
+                pos_offset=kw.get("pos_offset", 0), **extra)
+    if "side" in kw:
+        args.update(side_k=to(x["side_k"]), side_v=to(x["side_v"]),
+                    side_len=kw["side"])
+    return fn(to(x["q"]), to(x["k"]), to(x["v"]), to(cache_len), **args)
+
+
+@pytest.mark.parametrize("group", sorted(GROUPS))
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_walk_matches_jax(jax_flash_decode, case, group):
+    """The split walk at 32-key splits, where SPLIT_CASES's boundaries
+    lie, against tpudist's flash_decode (Pallas, interpret mode)."""
+    g, d = GROUPS[group]
+    cache_len, kw = SPLIT_CASES[case]
+    h_kv, x = _split_inputs(sorted(SPLIT_CASES).index(case), g, d)
+    split = 32
+    want = _split_call(
+        lambda *a, **k: jax_flash_decode(*a, interpret=True, **k), _jax, x,
+        cache_len, kw)
+    got = _split_call(tfd._flash_decode_split_plain, _torch, x, cache_len,
+                      kw, split_keys=split)
+    if kw.get("return_lse"):
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), **TOL)
+        got, want = got[0], want[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if case == "pos_offset_dead":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("group", sorted(GROUPS))
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_walk_at_the_wrappers_split_matches_jax(jax_flash_decode, case,
+                                                      group):
+    """The split walk at the wrappers' split (SPLIT_CASES moved to it,
+    over three splits of keys) against tpudist's flash_decode (Pallas,
+    interpret mode)."""
+    g, d = GROUPS[group]
+    split = tfd._SPLIT_KEYS
+    cache_len, kw = _case_at_split(case, split)
+    h_kv, x = _split_inputs(sorted(SPLIT_CASES).index(case), g, d,
+                            s=3 * split)
+    want = _split_call(
+        lambda *a, **k: jax_flash_decode(*a, interpret=True, **k), _jax, x,
+        cache_len, kw)
+    got = _split_call(tfd._flash_decode_split_plain, _torch, x, cache_len,
+                      kw, split_keys=split)
+    if kw.get("return_lse"):
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), **TOL)
+        got, want = got[0], want[0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if case == "pos_offset_dead":
+        assert not got.any()
+
+
 # ---- on the card: kernel K2 against its plain version --------------------
 
 @pytest.fixture
@@ -160,7 +266,8 @@ def test_kernel_matches_plain(cuda_device, dtype, case):
 
 # ---- on the card: the split merge (K2's, K5's and K6's) ---------------------
 
-# 512 keys = 4 splits of 128 (and the side buffer's own split); name:
+# 512 keys = 4 of the wrappers' 128-key splits (and the side buffer's own
+# split); name:
 # (cache_len, window, side tokens)
 MERGE_CASES = {
     "one_live_split": (np.array([100, 7, 128], np.int32), None, None),
@@ -199,3 +306,47 @@ def test_merge_cases_on_the_card(cuda_device, dtype, case):
     torch.testing.assert_close(got.float(), want.float(), **tol)
     torch.testing.assert_close(lse, plse, atol=1e-3, rtol=1e-4)
     assert torch.equal(got, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", sorted(GROUPS))
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+@pytest.mark.parametrize("split", tfd._SPLIT_SIZES)
+def test_kernel_split_boundaries_on_the_card(cuda_device, monkeypatch,
+                                             split, dtype, group, case):
+    """K2 at each split size the kernel is held at, at lengths one below, at
+    and one past its boundaries, with the side buffer, a window and a
+    dead pos_offset slice: against the plain version and the split walk
+    at that split, and a second call bitwise equal."""
+    g, d = GROUPS[group]
+    cache_len, kw = _case_at_split(case, split)
+    h_kv, x = _split_inputs(sorted(SPLIT_CASES).index(case), g, d,
+                            s=3 * split)
+
+    def to(a):
+        if not isinstance(a, np.ndarray):
+            return a
+        t = torch.from_numpy(a).to(cuda_device)
+        return t if a.dtype == np.int32 else t.to(dtype)
+
+    monkeypatch.setattr(tfd, "_SPLIT_KEYS", split)
+    before = tfd.FLASH_DECODE.launches
+    got = _split_call(tfd.flash_decode, to, x, cache_len, kw)
+    again = _split_call(tfd.flash_decode, to, x, cache_len, kw)
+    want = _split_call(tfd.flash_decode_plain, to, x, cache_len, kw)
+    walk = _split_call(tfd._flash_decode_split_plain, to, x, cache_len, kw,
+                       split_keys=split)
+    torch.cuda.synchronize()
+    assert tfd.FLASH_DECODE.launches == before + 2
+    tol = TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    if kw.get("return_lse"):
+        for ref in (want, walk):
+            torch.testing.assert_close(got[1], ref[1], atol=1e-3, rtol=1e-4)
+        assert torch.equal(got[1], again[1])
+        got, again, want, walk = got[0], again[0], want[0], walk[0]
+    for ref in (want, walk):
+        torch.testing.assert_close(got.float(), ref.float(), **tol)
+    assert torch.equal(got, again)
+    if case == "pos_offset_dead":
+        assert not got.any()

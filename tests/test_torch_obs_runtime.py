@@ -173,11 +173,15 @@ def _coord_run(pkg: str, port: int) -> dict:
                 | {n: s["histograms"].get(n, {}).get("count", 0)
                    for n in names[1:]})
 
-    before = read()
     outcomes = []
     with coord.CoordClient("127.0.0.1", port, retries=3,
                            retry_base_s=0.0005, retry_cap_s=0.001) as c:
+        # the outage tracker is process-wide: a success first closes any
+        # outage an earlier test of this process left open (one that ended
+        # on a refused non-idempotent verb), so that the baseline counts
+        # only this run's stretches
         c.set("obsrt/k", b"v")
+        before = read()
         faults.install(_fault_plan(
             faults, {1, 2, 4, 7, 8, 9, 10, 14, 15, 20}))
         try:

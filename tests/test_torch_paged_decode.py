@@ -16,6 +16,11 @@ Tolerances:
   away, moving an output by 2^-8 of that key's share of ``|v|``; the
   seeded inputs here differ by under 2e-7.  The LSE has no bf16 step:
   1e-5.
+- int8 split walk (``_flash_decode_q8_split_plain``): each split rounds
+  ``p · v_scale`` against its own max, the Pallas kernel against the
+  row's, so every term may round the other way: each output is held
+  within ``2^-8 · Σ p|v_scale·v| / Σ p`` (the two roundings' bound,
+  from the row's softmax in f64) plus 1e-5; the LSE within 1e-5.
 
 The ``cuda`` tests hold kernel K5 against its plain version (and
 bit-for-bit against K2 over the gathered view) and K6 against its plain
@@ -233,6 +238,132 @@ def test_q8_errors():
         tfd.flash_decode_q8(q.expand(-1, 2, -1, -1), kq, ks, vq, vs, 9)
 
 
+# ---- the split walks of K5 and K6 in plain PyTorch --------------------------
+
+SPLIT_GROUPS = {"g1_d16": (1, 16), "g4_d16": (4, 16), "g1_d64": (1, 64),
+                "g4_d64": (4, 64)}
+# rows one below, at and one past a 32-key split boundary
+SPLIT_LENS = np.array([31, 64, 65], np.int32)
+
+
+def _at_split(x, ck):
+    """A length or position written at 32-key splits, moved to ``ck``-key
+    splits: the same distance from its nearest split boundary (the
+    helper of tests/test_torch_flash_decode.py's card tests)."""
+    if isinstance(x, np.ndarray):
+        return np.array([_at_split(int(v), ck) for v in x], np.int32)
+    n = round(x / 32)
+    return n * ck + x - n * 32
+
+
+def _paged_split_inputs(seed, bs, g, d, split=32):
+    """4 query heads over 4 // g KV heads; a ``3·split``-key pool table
+    per row (``bs`` 8, 16 or 24: 24 does not divide a split), its live
+    blocks a shuffled draw of distinct pool blocks; SPLIT_LENS moved to
+    ``split``-key splits."""
+    rng = np.random.default_rng(seed)
+    h_kv, m = H // g, 3 * split // bs
+    n_pool = B * m + 1
+    table = rng.permutation(np.arange(1, n_pool)).astype(np.int32).reshape(
+        B, m)
+    t = lambda *shape: rng.standard_normal(shape, np.float32)  # noqa: E731
+    return h_kv, dict(q=t(B, 1, H, d), k_pool=t(n_pool, bs, h_kv * d),
+                      v_pool=t(n_pool, bs, h_kv * d), table=table,
+                      lens=_at_split(SPLIT_LENS, split),
+                      side_k=t(B, CAP, h_kv * d),
+                      side_v=t(B, CAP, h_kv * d))
+
+
+@pytest.mark.parametrize("side_len", [None, 5], ids=["no_side", "side5"])
+@pytest.mark.parametrize("group", sorted(SPLIT_GROUPS))
+@pytest.mark.parametrize("bs", [8, 16, 24])
+def test_paged_split_walk_matches_jax(jax_decode, bs, group, side_len):
+    """K5's split walk at 32-key splits against tpudist's
+    paged_flash_decode (Pallas, interpret mode)."""
+    import jax.numpy as jnp
+
+    g, d = SPLIT_GROUPS[group]
+    h_kv, x = _paged_split_inputs(bs + d + g, bs, g, d)
+    split = 32
+
+    def call(fn, to, **kw):
+        side = {} if side_len is None else dict(
+            side_k=to(x["side_k"]), side_v=to(x["side_v"]),
+            side_len=side_len)
+        return fn(to(x["q"]), to(x["k_pool"]), to(x["v_pool"]),
+                  to(x["table"]), to(x["lens"]), packed_kv_heads=h_kv,
+                  **side, **kw)
+
+    want = call(jax_decode.paged_flash_decode, jnp.asarray, interpret=True)
+    got = call(tfd._paged_flash_decode_split_plain, torch.from_numpy,
+               split_keys=split)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# name: (cache_len, kwargs)
+Q8_SPLIT_CASES = {
+    "per_row_boundaries": (np.array([31, 32, 33], np.int32), {}),
+    "scalar_one_past": (65, {"return_lse": True}),
+    "window_at_boundary": (64, {"window": 33}),
+    "pos_offset_dead": (40, {"pos_offset": 64, "return_lse": True}),
+}
+
+
+@pytest.mark.parametrize("group", sorted(SPLIT_GROUPS))
+@pytest.mark.parametrize("case", sorted(Q8_SPLIT_CASES))
+def test_q8_split_walk_matches_jax(jax_decode, case, group):
+    """K6's split walk at 32-key splits against tpudist's
+    flash_decode_q8 (Pallas, interpret mode)."""
+    import jax.numpy as jnp
+
+    g, d = SPLIT_GROUPS[group]
+    cache_len, kw = Q8_SPLIT_CASES[case]
+    rng = np.random.default_rng(sorted(Q8_SPLIT_CASES).index(case) + 40)
+    h_kv = H // g
+    q = rng.standard_normal((B, 1, H, d), np.float32)
+    k, v = (rng.standard_normal((B, S8, h_kv, d)).astype(np.float32)
+            for _ in range(2))
+    split = 32
+    jq = jax_decode.quantize_kv(jnp.asarray(k), jnp.asarray(v))
+    want = jax_decode.flash_decode_q8(jnp.asarray(q), *jq,
+                                      jnp.asarray(cache_len),
+                                      interpret=True, **kw)
+    tq = tfd.quantize_kv(torch.from_numpy(k), torch.from_numpy(v))
+    got = tfd._flash_decode_q8_split_plain(
+        torch.from_numpy(q), *tq, torch.as_tensor(cache_len),
+        split_keys=split, **kw)
+    if kw.get("return_lse"):
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), **TOL)
+        got, want = got[0], want[0]
+    bound = _q8_rounding_bound(torch.from_numpy(q), *tq, cache_len, kw)
+    assert (np.abs(got.numpy() - np.asarray(want))
+            <= bound + TOL["atol"]).all()
+
+
+def _q8_rounding_bound(q, kq, ks, vq, vs, cache_len, kw):
+    """Per output element, how far two int8 decodes may land apart when
+    each rounds ``p · v_scale`` to bf16 against its own max: a split's
+    ``p`` is the whole row's times ``exp(M - m_split)``, so each term's
+    rounding moves it by at most 2^-9 of its value on either side, and
+    the outputs by at most ``2^-8 · Σ p|v_scale·v| / Σ p``, computed here
+    in f64 from the row's softmax."""
+    b, _, h, d = q.shape
+    s, h_kv = kq.shape[1], kq.shape[2]
+    qf = q.to(torch.bfloat16).double().reshape(b, h_kv, h // h_kv, d)
+    keep = tfd._global_keep(s, torch.as_tensor(cache_len), kw.get("window"),
+                            kw.get("pos_offset", 0), q.device)
+    sc = torch.einsum("bjgd,bsjd->bjgs", qf, kq.double()) * (
+        ks[..., 0].double() * d ** -0.5).permute(0, 2, 1)[:, :, None]
+    sc = sc.masked_fill(~keep, float("-inf"))
+    p = torch.exp(sc - sc.amax(-1, keepdim=True).clamp_min(-1e30))
+    vv = (vs.double() * vq.double()).abs()               # [B, S, Hkv, D]
+    num = torch.einsum("bjgs,bsjd->bjgd", p, vv)
+    den = p.sum(-1, keepdim=True)
+    bound = torch.where(den > 0, 2.0 ** -8 * num / den.clamp_min(1e-300),
+                        torch.zeros_like(num))
+    return bound.reshape(b, 1, h, d).numpy()
+
+
 # ---- the paged model step ---------------------------------------------------
 
 def test_paged_model_step_matches_dense_sided_step():
@@ -337,3 +468,83 @@ def test_k6_matches_plain(cuda_device, dtype, case):
         got, want = got[0], want[0]
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
                                rtol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side_len", [None, 5], ids=["no_side", "side5"])
+@pytest.mark.parametrize("group", sorted(SPLIT_GROUPS))
+@pytest.mark.parametrize("bs", [8, 16, 24])
+@pytest.mark.parametrize("split", tfd._SPLIT_SIZES)
+def test_k5_split_boundaries_on_the_card(cuda_device, monkeypatch, split,
+                                         dtype, bs, group, side_len):
+    """K5 at each split size the kernel is held at, at rows one below, at and
+    one past a split boundary, at blocks 8, 16 and 24 (24 does not divide
+    a split): against the split walk at that split, bit for bit K2 over
+    the gathered view, and a second call bitwise equal."""
+    g, d = SPLIT_GROUPS[group]
+    h_kv, x = _paged_split_inputs(bs + d + g, bs, g, d, split)
+    monkeypatch.setattr(tfd, "_SPLIT_KEYS", split)
+
+    def to(a):
+        t = torch.from_numpy(a).to(cuda_device)
+        return t if a.dtype == np.int32 else t.to(dtype)
+
+    side = {} if side_len is None else dict(
+        side_k=to(x["side_k"]), side_v=to(x["side_v"]), side_len=side_len)
+    args = (to(x["q"]), to(x["k_pool"]), to(x["v_pool"]), to(x["table"]),
+            to(x["lens"]))
+    got = tfd.paged_flash_decode(*args, packed_kv_heads=h_kv, **side)
+    again = tfd.paged_flash_decode(*args, packed_kv_heads=h_kv, **side)
+    walk = tfd._paged_flash_decode_split_plain(
+        *args, packed_kv_heads=h_kv, split_keys=split, **side)
+    k2 = tfd.flash_decode(
+        args[0], tfd.paged_gather_kv(args[1], args[3]),
+        tfd.paged_gather_kv(args[2], args[3]), args[4],
+        packed_kv_heads=h_kv, **side)
+    torch.cuda.synchronize()
+    tol = TOL if dtype == torch.float32 else dict(atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(got.float(), walk.float(), **tol)
+    assert torch.equal(got, again) and torch.equal(got, k2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("group", sorted(SPLIT_GROUPS))
+@pytest.mark.parametrize("case", sorted(Q8_SPLIT_CASES))
+@pytest.mark.parametrize("split", tfd._SPLIT_SIZES)
+def test_k6_split_boundaries_on_the_card(cuda_device, monkeypatch, split,
+                                         dtype, case, group):
+    """K6 at each split size the kernel is held at, about its boundaries, a
+    window ending on one and a dead pos_offset slice (Q8_SPLIT_CASES
+    moved to that split): against the plain version and the split walk
+    at that split, and a second call bitwise equal."""
+    g, d = SPLIT_GROUPS[group]
+    cache_len, kw = Q8_SPLIT_CASES[case]
+    cache_len = _at_split(cache_len, split)
+    kw = {k: _at_split(v, split) if k in ("window", "pos_offset") else v
+          for k, v in kw.items()}
+    rng = np.random.default_rng(sorted(Q8_SPLIT_CASES).index(case) + 40)
+    h_kv = H // g
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, d), np.float32)).to(
+        cuda_device, dtype)
+    kv = tfd.quantize_kv(*(torch.from_numpy(
+        rng.standard_normal((B, 3 * split, h_kv, d)).astype(
+            np.float32)).to(cuda_device) for _ in range(2)))
+    lens = torch.as_tensor(cache_len).to(cuda_device)
+    monkeypatch.setattr(tfd, "_SPLIT_KEYS", split)
+    got = tfd.flash_decode_q8(q, *kv, lens, **kw)
+    again = tfd.flash_decode_q8(q, *kv, lens, **kw)
+    want = tfd.flash_decode_q8_plain(q, *kv, lens, **kw)
+    walk = tfd._flash_decode_q8_split_plain(q, *kv, lens, split_keys=split,
+                                            **kw)
+    torch.cuda.synchronize()
+    if kw.get("return_lse"):
+        for ref in (want, walk):
+            torch.testing.assert_close(got[1], ref[1], atol=1e-3, rtol=1e-4)
+        assert torch.equal(got[1], again[1])
+        got, again, want, walk = got[0], again[0], want[0], walk[0]
+    for ref in (want, walk):
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    assert torch.equal(got, again)

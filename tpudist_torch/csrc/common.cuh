@@ -73,31 +73,4 @@ __device__ __forceinline__ uint32_t pack_bf16_raw(__nv_bfloat16 lo,
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Copy `rows` rows of `cols` elements (cols * sizeof(T) a multiple of 16
-// bytes) from global memory, row r at src + (row0 + r) * stride, into
-// shared memory rows of `ld_words` 32-bit words; rows at or past `limit`
-// are zero-filled.  16-byte global loads, 32-bit shared stores (so the
-// shared row stride may be odd in words, which keeps row-per-lane reads
-// free of bank conflicts).
-template <typename T>
-__device__ __forceinline__ void load_rows(uint32_t* dst, int ld_words,
-                                          const T* src, long long stride,
-                                          int row0, int limit, int rows,
-                                          int cols) {
-  const int vpr = cols * (int)sizeof(T) / 16;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < rows * vpr; i += blockDim.x) {
-    const int r = i / vpr, c = i % vpr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit) {
-      val = *reinterpret_cast<const uint4*>(
-          src + (long long)(row0 + r) * stride + c * (16 / (int)sizeof(T)));
-    }
-    uint32_t* d = dst + r * ld_words + c * 4;
-    d[0] = val.x;
-    d[1] = val.y;
-    d[2] = val.z;
-    d[3] = val.w;
-  }
-}
-
 }  // namespace tpudist

@@ -12,9 +12,13 @@ longer, sequence-sharded one: slot ``j`` holds global position
 ``pos_offset + j``, and ``cache_len`` and ``window`` stay global.
 
 On a CUDA tensor it launches kernel K2 (``csrc/flash_decode.cu``, the
-Hopper port of the Pallas ``_decode_kernel``: a split-K grid plus an LSE
-merge); on a CPU tensor it runs :func:`flash_decode_plain`.  There is no
-fallback from the first to the second.
+Hopper port of the Pallas ``_decode_kernel``: a split-K grid of
+``_SPLIT_KEYS`` keys a split plus an LSE merge); on a CPU tensor it runs
+:func:`flash_decode_plain`.  There is no fallback from the first to the
+second.  :func:`_flash_decode_split_plain`
+(and its paged and int8 forms) is the kernel's split walk and merge in
+plain PyTorch, held against the JAX package on the CPU and against the
+kernels on the card.
 
 :func:`paged_flash_decode` is the same step against a paged block pool
 read through a page table (kernel K5 on CUDA tensors,
@@ -40,20 +44,20 @@ _NEG_BIG = -1e30
 _c_ll = ctypes.c_longlong
 FLASH_DECODE = _cuda.Kernel(
     "flash_decode", "tpudist_flash_decode",
-    [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
     + [_c_ll] * 16
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
        ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 PAGED_FLASH_DECODE = _cuda.Kernel(
     "flash_decode", "tpudist_paged_flash_decode",
-    [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
+    [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
     + [_c_ll] * 16
     + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
        ctypes.c_void_p])
 FLASH_DECODE_Q8 = _cuda.Kernel(
     "flash_decode", "tpudist_flash_decode_q8",
-    [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+    [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
     + [_c_ll] * 16
     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -63,11 +67,15 @@ _HEAD_DIMS = (16, 32, 64, 128)
 _MAX_GROUP = 32
 
 
-def _split_keys() -> int:
-    """Keys per split-K chunk, as the kernel library was compiled."""
-    fn = _cuda.library("flash_decode").tpudist_flash_decode_split_keys
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    return fn()
+# keys a split of K2, K5 and K6 takes.  Every size the kernel is held at
+# (_SPLIT_SIZES; it takes any multiple of 16 up to 256) was timed at
+# twelve shapes of the port's callers (scripts/kernel_variants.py
+# decode_splits; PERF.md): the fastest follows the live lengths, which
+# only the device holds, and no rule over the shapes beat a fixed 128
+# (one giving each SM 3 CTAs over the capacity lost up to 1.55x).  K5
+# takes K2's, so the two split a row alike.
+_SPLIT_KEYS = 128
+_SPLIT_SIZES = (32, 64, 128, 256)
 
 
 def _as_4d(cache: torch.Tensor, packed_kv_heads: int | None, d: int):
@@ -171,6 +179,125 @@ def flash_decode_plain(q, k_cache, v_cache, cache_len, *, window=None,
     return out, (m + torch.log(l)).reshape(b, h)
 
 
+def _split_walk(qf, k, v, keep, ck, *, k_weight, p_dtype, v_weight=None):
+    """The split pass and merge of K2/K5/K6 in plain PyTorch: the keys of
+    ``k``/``v`` ``[B, n·ck, Hkv, D]`` fall in ``n`` splits of ``ck``; a
+    split's partial is its max ``m`` over its live keys (``keep [B|1,
+    n·ck]``), ``l = Σ p`` and ``acc = Σ round(p)·v`` with ``p = exp(s -
+    m)``, ``s = (q·k)·k_weight`` (a number or ``[B, Hkv, n·ck]``), P
+    rounded to ``p_dtype`` — or, with ``v_weight [B, Hkv, n·ck]`` (K6),
+    ``round_bf16(p·v_weight)`` while ``l`` sums the unscaled ``p``.  The
+    merge, as ``decode_merge_kernel``: ``M = max(max_s m_s, -1e30)``, the
+    live splits weighted ``exp(m_s - M)``, ``O = Σ w·acc / max(L,
+    1e-30)``, ``LSE = M + log max(L, 1e-30)``; a dead split (no live key)
+    adds nothing.  ``qf [B, Hkv, g, D]`` f32.  Returns ``(out [B, Hkv, g,
+    D] f32, lse [B, Hkv, g])``."""
+    b, sk, h_kv, d = k.shape
+    n = sk // ck
+    if isinstance(k_weight, torch.Tensor):
+        k_weight = k_weight[:, :, None, :]
+    sc = torch.einsum("bjgd,bsjd->bjgs", qf, k.float()) * k_weight
+    sc = sc.masked_fill(~keep[:, None, None, :], float("-inf"))
+    sc = sc.unflatten(-1, (n, ck))                      # [B, Hkv, g, n, ck]
+    m = sc.amax(-1)
+    live = m > float("-inf")
+    p = torch.exp(sc - torch.where(live, m, torch.zeros_like(m))[..., None])
+    l = p.sum(-1)
+    if v_weight is not None:
+        pv = (p * v_weight.unflatten(-1, (n, ck))[:, :, None]).to(
+            torch.bfloat16)
+    else:
+        pv = p.to(p_dtype)
+    acc = torch.einsum("bjgns,bnsjd->bjgnd", pv.float(),
+                       v.float().unflatten(1, (n, ck)))
+    big_m = m.amax(-1).clamp_min(_NEG_BIG)
+    w = torch.where(live, torch.exp(m - big_m[..., None]),
+                    torch.zeros_like(m))
+    big_l = (l * w).sum(-1).clamp_min(1e-30)
+    out = (acc * w[..., None]).sum(-2) / big_l[..., None]
+    return out, big_m + torch.log(big_l)
+
+
+def _pad_keys(x, n_keys):
+    """``x [B, S, ...]`` zero-padded along S to ``n_keys``."""
+    pad = n_keys - x.shape[1]
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((x.shape[0], pad) + x.shape[2:])], 1)
+
+
+def _flash_decode_split_plain(q, k_cache, v_cache, cache_len, *, split_keys,
+                              window=None, return_lse=False, side_k=None,
+                              side_v=None, side_len=0, packed_kv_heads=None,
+                              pos_offset=0):
+    """Single-query :func:`flash_decode` as K2 walks it: the main cache in
+    splits of ``split_keys`` keys (the last one ragged), the side buffer
+    in splits of its own, each split's partial and the merge in split
+    order as :func:`_split_walk` computes them.  ``split_keys`` is the
+    wrappers' ``_SPLIT_KEYS``; with one split it is
+    :func:`flash_decode_plain`."""
+    b, _, h, d = q.shape
+    k4 = _as_4d(k_cache, packed_kv_heads, d)
+    v4 = _as_4d(v_cache, packed_kv_heads, d)
+    s, h_kv = k4.shape[1], k4.shape[2]
+    dev, ck = q.device, split_keys
+    main = -(-s // ck) * ck
+    keep = _global_keep(s, cache_len, window, pos_offset, dev).reshape(-1, s)
+    keep = _pad_keys(keep.expand(b, s), main)
+    keys, vals = _pad_keys(k4, main), _pad_keys(v4, main)
+    if side_k is not None:
+        sk4 = _as_4d(side_k, packed_kv_heads, d).to(k4.dtype)
+        sv4 = _as_4d(side_v, packed_kv_heads, d).to(v4.dtype)
+        cap = sk4.shape[1]
+        side = -(-cap // ck) * ck
+        sl = torch.as_tensor(side_len, device=dev).to(torch.long)
+        side_keep = (torch.arange(cap, device=dev) < sl).expand(b, cap)
+        keep = torch.cat([keep, _pad_keys(side_keep, side)], 1)
+        keys = torch.cat([keys, _pad_keys(sk4, side)], 1)
+        vals = torch.cat([vals, _pad_keys(sv4, side)], 1)
+    qf = q.float().reshape(b, h_kv, h // h_kv, d)
+    out, lse = _split_walk(qf, keys, vals, keep, ck, k_weight=d ** -0.5,
+                           p_dtype=v4.dtype)
+    out = out.reshape(b, 1, h, d).to(q.dtype)
+    return (out, lse.reshape(b, h)) if return_lse else out
+
+
+def _paged_flash_decode_split_plain(q, k_pool, v_pool, page_table, cache_len,
+                                    *, split_keys, packed_kv_heads,
+                                    side_k=None, side_v=None, side_len=0):
+    """Single-query :func:`paged_flash_decode` as K5 walks it: K2's split
+    walk (:func:`_flash_decode_split_plain`) over the gathered view."""
+    return _flash_decode_split_plain(
+        q, paged_gather_kv(k_pool, page_table),
+        paged_gather_kv(v_pool, page_table), cache_len,
+        split_keys=split_keys, side_k=side_k, side_v=side_v,
+        side_len=side_len, packed_kv_heads=packed_kv_heads)
+
+
+def _flash_decode_q8_split_plain(q, k_q8, k_scale, v_q8, v_scale, cache_len,
+                                 *, split_keys, window=None,
+                                 return_lse=False, pos_offset=0):
+    """:func:`flash_decode_q8` as K6 walks it: splits of ``split_keys``
+    keys with the int8 numerics of :func:`flash_decode_q8_plain`."""
+    b, _, h, d = q.shape
+    s, h_kv = k_q8.shape[1], k_q8.shape[2]
+    dev, ck = q.device, split_keys
+    main = -(-s // ck) * ck
+    keep = _global_keep(s, cache_len, window, pos_offset, dev).reshape(-1, s)
+    keep = _pad_keys(keep.expand(b, s), main)
+
+    def per_key(scale):   # [B, S, Hkv, 1] -> [B, Hkv, main]
+        return _pad_keys(scale[..., 0], main).permute(0, 2, 1)
+
+    qf = q.to(torch.bfloat16).float().reshape(b, h_kv, h // h_kv, d)
+    out, lse = _split_walk(qf, _pad_keys(k_q8, main), _pad_keys(v_q8, main),
+                           keep, ck, k_weight=per_key(k_scale) * d ** -0.5,
+                           p_dtype=torch.bfloat16,
+                           v_weight=per_key(v_scale))
+    out = out.reshape(b, 1, h, d).to(q.dtype)
+    return (out, lse.reshape(b, h)) if return_lse else out
+
+
 def _check_query(fn: str, q: torch.Tensor, h_kv: int) -> None:
     """What every decode kernel takes: f32 or bf16 queries (the cache type
     too, except K6's int8), a head_dim it was compiled for, at most
@@ -220,7 +347,7 @@ def _launch_kernel(q, k_cache, v_cache, cache_len, *, window, return_lse,
         if t.shape != (b, s, h_kv, d):
             raise ValueError(f"{name} shape {tuple(t.shape)} != "
                              f"{(b, s, h_kv, d)}")
-    split = _split_keys()
+    split = _SPLIT_KEYS
     n_main = -(-s // split)
     cap = 0
     sk4 = sv4 = None
@@ -252,7 +379,7 @@ def _launch_kernel(q, k_cache, v_cache, cache_len, *, window, return_lse,
         _DTYPES[q.dtype], _cuda.ptr(q), _cuda.ptr(k4), _cuda.ptr(v4),
         _cuda.ptr(sk4), _cuda.ptr(sv4), _cuda.ptr(out), _cuda.ptr(lse),
         _cuda.ptr(m_part), _cuda.ptr(l_part), _cuda.ptr(acc_part),
-        b, h, h_kv, d, s, cap, n_main, n_split,
+        b, h, h_kv, d, s, cap, n_main, n_split, split,
         q.stride(0), q.stride(2), *k4.stride()[:3], *v4.stride()[:3],
         *(sk4.stride()[:3] if sk4 is not None else zeros),
         *(sv4.stride()[:3] if sv4 is not None else zeros),
@@ -394,7 +521,7 @@ def _launch_paged(q, k_pool, v_pool, page_table, cache_len, *,
     table = _device_int32(page_table, "page_table", dev)
     m = table.shape[1]
     lens = _device_int32(cache_len, "cache_len", dev)
-    split = _split_keys()
+    split = _SPLIT_KEYS
     n_main = -(-(m * bs) // split)
     cap = 0
     sk4 = sv4 = None
@@ -421,7 +548,7 @@ def _launch_paged(q, k_pool, v_pool, page_table, cache_len, *,
         _cuda.ptr(v_pool), _cuda.ptr(side_k), _cuda.ptr(side_v),
         _cuda.ptr(out), _cuda.ptr(None), _cuda.ptr(m_part),
         _cuda.ptr(l_part), _cuda.ptr(acc_part), _cuda.ptr(table),
-        b, h, h_kv, d, m, bs, cap, n_main, n_split,
+        b, h, h_kv, d, m, bs, cap, n_main, n_split, split,
         q.stride(0), q.stride(2), *kp4.stride()[:3], *vp4.stride()[:3],
         *(sk4.stride()[:3] if sk4 is not None else zeros),
         *(sv4.stride()[:3] if sv4 is not None else zeros),
@@ -569,7 +696,8 @@ def _launch_q8(q, k_q8, k_scale, v_q8, v_scale, cache_len, *, window,
             raise ValueError(f"{name} must be float32 {(b, s, h_kv, 1)} on "
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
-    n_split = -(-s // _split_keys())
+    split = _SPLIT_KEYS
+    n_split = -(-s // split)
     m_part = torch.empty((b * h_kv, n_split, g), dtype=torch.float32,
                          device=dev)
     l_part = torch.empty_like(m_part)
@@ -584,7 +712,7 @@ def _launch_q8(q, k_q8, k_scale, v_q8, v_scale, cache_len, *, window,
         _DTYPES[q.dtype], _cuda.ptr(q), _cuda.ptr(k_q8), _cuda.ptr(k_scale),
         _cuda.ptr(v_q8), _cuda.ptr(v_scale), _cuda.ptr(out), _cuda.ptr(lse),
         _cuda.ptr(m_part), _cuda.ptr(l_part), _cuda.ptr(acc_part),
-        b, h, h_kv, d, s, n_split,
+        b, h, h_kv, d, s, n_split, split,
         q.stride(0), q.stride(2), *k_q8.stride()[:3], *v_q8.stride()[:3],
         *k_scale.stride()[:3], *v_scale.stride()[:3],
         out.stride(0), out.stride(2),
